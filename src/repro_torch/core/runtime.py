@@ -1,0 +1,695 @@
+"""The offload runtime: placement, dispatch and statistics (paper §3).
+
+The port's counterpart of ``repro/core/runtime.py`` for one device.  An
+:class:`OffloadRuntime` is configured by one
+:class:`~repro_torch.core.config.OffloadConfig`, runs on one
+``torch.device`` (the card, or the CPU in simulated-tier mode), normally
+lives inside a :class:`~repro_torch.core.session.Session`, and owns
+
+* the **placement registry** — buffer identity -> device-tier placement,
+  the analogue of the remapped page table of the paper's Fig. 2.  It is
+  a byte-capped :class:`~repro_torch.core.residency.ResidencyStore`
+  (``device_bytes``, ``evict``, ``pin``) whose place/hit/evict/refetch
+  transitions are recorded into the trace,
+* the **offload decision** (the N_avg threshold of §3.3), memoized per
+  call shape in the **dispatch cache**,
+* the **statistics** the paper's ``.fini_array`` hook prints,
+* a **BLAS trace** in the reference schema, so a run replays through the
+  reference memtier simulator.
+
+**The dispatch pipeline.**  :meth:`OffloadRuntime.blas_call` runs
+
+    canonicalize -> decide -> execute -> record
+
+* *canonicalize* bundles the call into a :class:`CallContext` and
+  fingerprints the call site (:mod:`repro_torch.core.callsite`);
+* *decide* runs the ordered ``decision_stages`` — the memoized dispatch
+  cache, then the threshold rule — and the policy may veto offload;
+* *execute* runs the host path or the whole-call offload path: the
+  policy places every operand, and the arithmetic runs through
+  ``kernels/ops.py`` on the placed tensors;
+* *record* updates the per-routine and per-site statistics and appends a
+  :class:`~repro_torch.core.trace.BlasCall` to the trace.
+
+On the card every call of the gemm family computes on CUDA tensors,
+whichever path it took: an operand a policy left on the host is streamed
+to the card for the call and counted in ``transient_bytes`` (the
+coherent remote read of the GH200, made explicit), as the reference's
+``_harmonize`` does on a backend with real memory tiers.
+
+**Asynchronous by default.**  A call returns once its work is queued on
+the card; the runtime records a CUDA event per call and
+:meth:`OffloadRuntime.sync` waits on them.  ``sync=True`` synchronizes
+after every call instead, so per-call times are device times.
+
+Not ported yet, and refused when configured (:func:`check_ported`): the
+multi-device tile scheduler, adaptive per-site dispatch and the venue
+stage, split precision, fault injection and the breaker, the shared
+device pool and the LAPACK solver spans.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import threading
+import time
+from contextvars import ContextVar
+from typing import Callable, Dict, Hashable, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.core import callsite as cs
+from repro_torch.core import memspace
+from repro_torch.core import policy as pol
+from repro_torch.core import residency as res
+from repro_torch.core import threshold as thr
+from repro_torch.core.config import OffloadConfig
+from repro_torch.core.trace import BlasCall, Trace
+
+#: how many in-flight calls the async mode tracks for ``sync()``; the
+#: card runs one stream in submission order, so a bounded window fences
+#: everything submitted before it.
+_PENDING_WINDOW = 32
+
+#: dispatch-decision entries kept per runtime before a full reset
+#: (long-lived servers over ragged shapes must not leak decisions).
+_DECISION_CACHE_LIMIT = 65536
+
+#: config fields this slice does not implement -> the ROADMAP.md item
+#: that brings them.  Setting one to a non-default value raises.
+UNPORTED_FIELDS = {
+    "adaptive": "Queue 1 item 7 (adaptive warmup and the venue stage)",
+    "kernel_path": "Queue 1 item 7 (adaptive warmup and the venue stage)",
+    "kernel_block": "Queue 1 item 7 (adaptive warmup and the venue stage)",
+    "precision": "Queue 1 item 8 (core/precision.py)",
+    "lapack": "Queue 1 item 6 (the solver tier)",
+    "lapack_nb": "Queue 1 item 6 (the solver tier)",
+    "faults": "Queue 1 item 7 (the _guarded fault units and the breaker)",
+    "pool_bytes": "Queue 1 item 7 (SharedDevicePool tenancy)",
+    "pool_quota": "Queue 1 item 7 (SharedDevicePool tenancy)",
+}
+
+
+def check_ported(config: OffloadConfig) -> None:
+    """Raise ``NotImplementedError`` for a config that sets a field this
+    slice has not ported, naming the ROADMAP.md item that brings it."""
+    if config.devices is not None and config.devices > 1:
+        raise NotImplementedError(
+            f"OffloadConfig.devices={config.devices} is not ported yet: "
+            f"see ROADMAP.md Queue 1 item 7 (the multi-device tile "
+            f"scheduler)")
+    default = OffloadConfig()
+    for name, item in UNPORTED_FIELDS.items():
+        value = getattr(config, name)
+        if value != getattr(default, name):
+            raise NotImplementedError(
+                f"OffloadConfig.{name}={value!r} is not ported yet: see "
+                f"ROADMAP.md {item}")
+
+
+# --------------------------------------------------------------------- #
+# re-entrancy guard: a call inside the pipeline is never intercepted     #
+# --------------------------------------------------------------------- #
+_TLS = threading.local()
+
+
+def dispatching() -> bool:
+    """True while this thread is inside :meth:`OffloadRuntime.blas_call`;
+    the interceptors pass such calls straight to the originals."""
+    return getattr(_TLS, "depth", 0) > 0
+
+
+# --------------------------------------------------------------------- #
+# dispatch-pipeline IR                                                   #
+# --------------------------------------------------------------------- #
+@dataclasses.dataclass
+class CallContext:
+    """One canonicalized BLAS call flowing through the pipeline."""
+
+    routine: str
+    m: int
+    n: int
+    k: int
+    batch: int
+    operands: Sequence[Tuple[str, torch.Tensor, float, bool]]
+    arrays: list
+    compute: Callable[..., torch.Tensor]
+    key: Optional[Hashable]
+    site: Optional[cs.CallSiteProfile] = None
+    site_id: str = ""
+
+
+@dataclasses.dataclass
+class DispatchDecision:
+    """What a decision stage emits: offload?  why?"""
+
+    offload: bool
+    n_avg: float = 0.0
+    why: str = "threshold"      # "cache" | "threshold" | "policy:host-only"
+
+
+@dataclasses.dataclass
+class RoutineStats:
+    calls: int = 0
+    offloaded: int = 0
+    on_host: int = 0
+    seconds: float = 0.0
+    bytes_in: int = 0
+    bytes_out: int = 0
+    cache_hits: int = 0
+    cache_misses: int = 0
+    # dispatch fast path: calls whose offload decision came from the
+    # dispatch cache vs. calls that had to derive it
+    dispatch_hits: int = 0
+    dispatch_misses: int = 0
+    # bytes streamed from the host tier for one call without persisting
+    transient_bytes: int = 0
+
+
+@dataclasses.dataclass
+class RuntimeStats:
+    per_routine: Dict[str, RoutineStats] = dataclasses.field(
+        default_factory=dict)
+    uninstrumented_calls: int = 0
+    # placement-registry cap pressure (mirrors the residency store)
+    evictions: int = 0
+    evicted_bytes: int = 0
+    # evicted entries placed again later: the cap's real cost in traffic
+    refetches: int = 0
+    refetched_bytes: int = 0
+    # per-call-site profiles (shared with the owning runtime's registry)
+    callsites: Optional[cs.CallSiteRegistry] = None
+
+    def routine(self, name: str) -> RoutineStats:
+        return self.per_routine.setdefault(name, RoutineStats())
+
+    def report(self) -> str:
+        """The report of ``repro/core/runtime.py``, in the same layout."""
+        lines = ["scilib-accel runtime report",
+                 f"{'routine':<10}{'calls':>8}{'offload':>9}{'host':>7}"
+                 f"{'sec':>10}{'GB moved':>10}{'reuse':>8}{'dhit':>7}"]
+        for name, r in sorted(self.per_routine.items()):
+            gb = (r.bytes_in + r.bytes_out) / 1e9
+            reuse = r.cache_hits / max(1, r.cache_misses)
+            dhit = r.dispatch_hits / max(1, r.dispatch_hits
+                                         + r.dispatch_misses)
+            lines.append(f"{name:<10}{r.calls:>8}{r.offloaded:>9}"
+                         f"{r.on_host:>7}{r.seconds:>10.3f}{gb:>10.3f}"
+                         f"{reuse:>8.1f}{dhit:>7.2f}")
+        lines.append(f"uninstrumented calls: {self.uninstrumented_calls}")
+        if self.evictions:
+            lines.append(f"evictions: {self.evictions} "
+                         f"({self.evicted_bytes / 1e9:.3f} GB)")
+        if self.refetches:
+            lines.append(f"refetches: {self.refetches} "
+                         f"({self.refetched_bytes / 1e9:.3f} GB)")
+        if self.callsites is not None and len(self.callsites):
+            lines.append("call sites (top by flops; * = adaptive lock)")
+            lines.append(f"{'site':<44}{'calls':>7}{'GFLOP':>9}"
+                         f"{'decision':>10}{'hit%':>6}{'sec':>9}")
+            for p in self.callsites.top_by_flops():
+                site = (p.site if len(p.site) <= 43
+                        else p.site[:40] + "...")
+                lines.append(f"{site:<44}{p.calls:>7}"
+                             f"{p.flops / 1e9:>9.2f}"
+                             f"{p.decision_label():>10}"
+                             f"{100 * p.hit_rate:>6.0f}{p.seconds:>9.3f}")
+        return "\n".join(lines)
+
+
+#: real-FLOP factors per base routine
+_FLOP_FACTORS = {
+    "gemm": lambda m, n, k: 2.0 * m * n * k,
+    "gemv": lambda m, n, k: 2.0 * m * n,
+    "trsm": lambda m, n, k: 1.0 * m * m * n,
+    "trmm": lambda m, n, k: 1.0 * m * m * n,
+    "syrk": lambda m, n, k: 1.0 * n * n * k,
+    "herk": lambda m, n, k: 1.0 * n * n * k,
+    "symm": lambda m, n, k: 2.0 * m * m * n,
+    "hemm": lambda m, n, k: 2.0 * m * m * n,
+    "syr2k": lambda m, n, k: 2.0 * n * n * k,
+    "her2k": lambda m, n, k: 2.0 * n * n * k,
+}
+
+
+def _flops_of(routine: str, m: int, n: int, k: int, batch: int = 1) -> float:
+    """Real-FLOP count, matching :attr:`BlasCall.flops`: complex
+    multiply-adds cost 4x their real counterparts."""
+    fn = _FLOP_FACTORS.get(thr.base_routine(routine))
+    if fn is None:
+        return 0.0
+    mult = 4.0 if routine[:1] in ("c", "z") else 1.0
+    return mult * batch * fn(m, n, k)
+
+
+class OffloadRuntime:
+    """Placement + dispatch brain behind the intercepted BLAS surface."""
+
+    def __init__(self, config: Optional[OffloadConfig] = None, *,
+                 device=None, record_trace: bool = True,
+                 session_id: str = ""):
+        config = OffloadConfig.from_env() if config is None else config
+        check_ported(config)
+        self.config = config
+        # the dispatch lock serializes whole calls; the stats lock is a
+        # leaf guarding counters that eviction hooks also update
+        self._lock = threading.RLock()
+        self._stats_lock = threading.Lock()
+        self.device = memspace.resolve_device(device)
+        self.memspace = memspace.MemSpace(
+            device=self.device, simulated=self.device.type == "cpu")
+        self.policy: pol.PolicyBase = pol.make_policy(config.policy)
+        self.threshold = config.resolved_threshold()
+        self.stats = RuntimeStats()
+        self.trace: Optional[Trace] = Trace() if record_trace else None
+        self.debug = config.debug
+        self.sync_mode = bool(config.sync)
+        self.dispatch_cache_enabled = config.dispatch_cache
+        self.callsite_enabled = config.callsite
+        self.callsites = cs.CallSiteRegistry()
+        self.stats.callsites = self.callsites
+        # ordered decision stages: the first to return a decision wins
+        self.decision_stages = [self._stage_cached, self._stage_threshold]
+        from repro_torch.core import blas
+        blas.refresh_cache_flag(config.dispatch_cache)
+        self.device_bytes_cap: Optional[int] = config.device_bytes
+        self.evict_policy = config.evict
+        self.pin_all = config.pin
+        # dispatch cache: call key -> (offload, n_avg)
+        self._decisions: Dict[Hashable, Tuple[bool, float]] = {}
+        # placement registry: buffer_key(src) -> policy.Resident
+        self.placements = res.ResidencyStore(
+            "placements", cap=self.device_bytes_cap,
+            policy=self.evict_policy, pin_new=self.pin_all,
+            on_evict=self._on_placement_evict, emit=self._emit_event)
+        # async mode: CUDA events of recent calls, drained by sync()
+        self._pending: "collections.deque[torch.cuda.Event]" = (
+            collections.deque(maxlen=_PENDING_WINDOW))
+        # trace-buffer ids: id(tensor) -> trace buffer id, living exactly
+        # as long as the tensor (the reference's identity rule)
+        self._trace_ids = res.ResidencyStore("traceids")
+        self._reuse_by_buffer: Dict[int, int] = {}
+        self.session_id = session_id
+
+    # ------------------------------------------------------------------ #
+    # safe mid-run reconfiguration (Session.reconfigure lands here)       #
+    # ------------------------------------------------------------------ #
+    def apply_config(self, new: OffloadConfig) -> None:
+        """Apply a new (already validated) config to the live runtime:
+        the dispatch cache is cleared, the policy, threshold and sync
+        mode switch, and caps, eviction policy and pinning update on the
+        placement store with an immediate sweep under a tightened cap."""
+        check_ported(new)
+        with self._lock:
+            self.config = new
+            self.threshold = new.resolved_threshold()
+            self.sync_mode = bool(new.sync)
+            self.debug = new.debug
+            self.dispatch_cache_enabled = new.dispatch_cache
+            self.callsite_enabled = new.callsite
+            from repro_torch.core import blas
+            blas.refresh_cache_flag(new.dispatch_cache)
+            self._decisions.clear()
+            if new.policy != self.policy.name:
+                self.policy = pol.make_policy(new.policy)
+            self.device_bytes_cap = new.device_bytes
+            self.evict_policy = new.evict
+            pin_changed = new.pin != self.pin_all
+            self.pin_all = new.pin
+            store = self.placements
+            store.cap = new.device_bytes
+            store.policy = res.make_eviction_policy(new.evict)
+            store.pin_new = new.pin
+            if pin_changed:
+                # pin=True pins existing residents too; pin=False makes
+                # them evictable again, or a new cap could not be kept
+                for key in list(store.keys()):
+                    (store.pin if new.pin else store.unpin)(key)
+            store.evict_over_cap()
+
+    # ------------------------------------------------------------------ #
+    # the residency engine: event + eviction hooks, pinning               #
+    # ------------------------------------------------------------------ #
+    def _emit_event(self, kind: str, store: str, nbytes: int) -> None:
+        """Mirror one residency transition into the trace and the
+        refetch statistics."""
+        if kind == "refetch":
+            with self._stats_lock:
+                self.stats.refetches += 1
+                self.stats.refetched_bytes += nbytes
+        if self.trace is not None:
+            self.trace.record_event(kind, store, nbytes,
+                                    session=self.session_id)
+
+    def _on_placement_evict(self, key, placed: pol.Resident,
+                            nbytes: int) -> None:
+        """Cap pressure pushed a placement out: re-tag the buffer
+        host-side so the next use re-migrates (and is counted again).
+        On the card the device copy is released with the entry."""
+        arr = placed.array()
+        if arr is not None:
+            memspace.tag_host(arr)
+        with self._stats_lock:
+            self.stats.evictions += 1
+            self.stats.evicted_bytes += nbytes
+        if self.debug >= 1:
+            print(f"[scilib] evict {nbytes} B "
+                  f"(resident {self.placements.resident_bytes} B)")
+
+    def pin(self, x: torch.Tensor) -> torch.Tensor:
+        """Pin a buffer on the device tier: place it now if needed and
+        mark it never-evictable until :meth:`unpin` or the buffer dies.
+        Returns the placed device-tier tensor."""
+        with self._lock:
+            key, placed = pol.lookup(self, x)
+            if placed is None:
+                if memspace.tier_of(x) == memspace.DEVICE:
+                    placed = x
+                    pol.register(self, key, x)
+                else:
+                    placed = memspace.put(x, memspace.DEVICE)
+                    pol.register(self, key, x, placed)
+                self.alias_trace_id(x, placed)
+            self.placements.pin(key)
+            return placed
+
+    def unpin(self, x: torch.Tensor) -> None:
+        """Make a pinned buffer evictable again (it stays resident until
+        cap pressure selects it)."""
+        with self._lock:
+            self.placements.unpin(memspace.buffer_key(x))
+
+    def note_uninstrumented(self) -> None:
+        """Count one BLAS-shaped call the interceptors saw but could not
+        canonicalize."""
+        with self._stats_lock:
+            self.stats.uninstrumented_calls += 1
+
+    def resident_bytes(self) -> int:
+        return self.placements.resident_bytes
+
+    # ------------------------------------------------------------------ #
+    # async mode                                                          #
+    # ------------------------------------------------------------------ #
+    def _fence(self) -> None:
+        """After a call: synchronize (``sync=True``) or record a CUDA
+        event for :meth:`sync` to wait on.  Nothing to do on the CPU."""
+        if self.device.type != "cuda":
+            return
+        if self.sync_mode:
+            torch.cuda.synchronize(self.device)
+            return
+        pend = self._pending
+        while pend and pend[0].query():     # retire finished calls
+            pend.popleft()
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        pend.append(ev)
+
+    def sync(self) -> "OffloadRuntime":
+        """Wait until every tracked in-flight call has finished.  Every
+        pending event is awaited even when one fails; the first error is
+        re-raised with the others attached as notes."""
+        first: Optional[BaseException] = None
+        extras: list = []
+        with self._lock:
+            pending = list(self._pending)
+            self._pending.clear()
+        for ev in pending:
+            try:
+                ev.synchronize()
+            except RuntimeError as exc:     # a fault on the card surfaces here
+                if first is None:
+                    first = exc
+                else:
+                    extras.append(exc)
+        if first is not None:
+            for i, exc in enumerate(extras):
+                first.add_note(f"sync: also failed ({i + 2}/"
+                               f"{len(extras) + 1}): "
+                               f"{type(exc).__name__}: {exc}")
+            raise first
+        return self
+
+    # ------------------------------------------------------------------ #
+    # trace buffer identity                                               #
+    # ------------------------------------------------------------------ #
+    def _trace_id(self, x: torch.Tensor, name: str = "") -> int:
+        if self.trace is None:
+            return -1
+        bid = self._trace_ids.get(id(x))
+        if bid is not None:
+            return bid
+        bid = self.trace.new_buffer(memspace.nbytes(x), name)
+        self._trace_ids.put(id(x), bid, memspace.nbytes(x), anchor=x)
+        return bid
+
+    def alias_trace_id(self, src: torch.Tensor, dst: torch.Tensor) -> None:
+        """Source and its device placement are the same logical buffer."""
+        if self.trace is None or id(dst) in self._trace_ids:
+            return
+        bid = self._trace_ids.get(id(src))
+        if bid is None:
+            return
+        self._trace_ids.put(id(dst), bid, memspace.nbytes(dst), anchor=dst)
+
+    # ------------------------------------------------------------------ #
+    # the intercepted-call entry point: the staged dispatch pipeline      #
+    # ------------------------------------------------------------------ #
+    def blas_call(self, routine: str, m: int, n: int, k: int,
+                  operands: Sequence[Tuple[str, torch.Tensor, float, bool]],
+                  compute: Callable[..., torch.Tensor],
+                  batch: int = 1,
+                  key: Optional[Hashable] = None) -> torch.Tensor:
+        """Run one BLAS call through the dispatch pipeline.
+
+        ``operands``: (role, tensor, device_reads_per_elem, written) — the
+        metadata the memtier access-counter model consumes.  ``compute``:
+        the arithmetic, taking the placed operand tensors in order.
+        ``key``: hashable call-shape identity; when given, the offload
+        decision is memoized in the dispatch cache.
+
+        The whole pipeline runs under the runtime lock, and any matrix
+        product issued inside it bypasses the interceptors."""
+        with self._lock:
+            _TLS.depth = getattr(_TLS, "depth", 0) + 1
+            try:
+                return self._blas_call_locked(routine, m, n, k, operands,
+                                              compute, batch, key)
+            finally:
+                _TLS.depth -= 1
+
+    def _blas_call_locked(self, routine, m, n, k, operands, compute, batch,
+                          key) -> torch.Tensor:
+        st = self.stats.routine(routine)
+        st.calls += 1
+        arrays = [op[1] for op in operands]
+        if torch.compiler.is_compiling():
+            # inside torch.compile tracing there is no placement to do
+            return compute(*arrays)
+        call = CallContext(routine=routine, m=m, n=n, k=k, batch=batch,
+                           operands=operands, arrays=arrays,
+                           compute=compute, key=key)
+        if self.callsite_enabled:
+            call.site_id = cs.fingerprint(routine)
+            call.site = self.callsites.profile(call.site_id)
+        decision = self._decide(call, st)
+        t0 = time.perf_counter()
+        out = self._execute(call, decision, st)
+        self._fence()
+        dt = time.perf_counter() - t0
+        self._record(call, decision, out, dt, st)
+        return out
+
+    # ------------------------------------------------------------------ #
+    # decide: ordered stages emit the DispatchDecision                    #
+    # ------------------------------------------------------------------ #
+    def _decide(self, call: CallContext,
+                st: RoutineStats) -> DispatchDecision:
+        decision = None
+        for stage in self.decision_stages:
+            decision = stage(call, st)
+            if decision is not None:
+                break
+        if decision.offload and not self.policy.offloads:
+            decision.offload = False
+            decision.why = "policy:host-only"
+        return decision
+
+    def _stage_cached(self, call: CallContext,
+                      st: RoutineStats) -> Optional[DispatchDecision]:
+        """The memoized dispatch cache (fast path): one threshold
+        derivation per call shape, two dict lookups thereafter."""
+        if call.key is None or not self.dispatch_cache_enabled:
+            return None
+        dec = self._decisions.get(call.key)
+        if dec is None:
+            dec = thr.should_offload(call.routine, call.m, call.n, call.k,
+                                     threshold=self.threshold,
+                                     batch=call.batch)
+            if len(self._decisions) > _DECISION_CACHE_LIMIT:
+                self._decisions.clear()   # dynamic-shape churn guard
+            self._decisions[call.key] = dec
+            st.dispatch_misses += 1
+            return DispatchDecision(dec[0], n_avg=dec[1], why="threshold")
+        st.dispatch_hits += 1
+        return DispatchDecision(dec[0], n_avg=dec[1], why="cache")
+
+    def _stage_threshold(self, call: CallContext,
+                         st: RoutineStats) -> DispatchDecision:
+        """Terminal stage: derive the threshold rule per call (§3.3)."""
+        st.dispatch_misses += 1
+        offload, nav = thr.should_offload(call.routine, call.m, call.n,
+                                          call.k, threshold=self.threshold,
+                                          batch=call.batch)
+        return DispatchDecision(offload, n_avg=nav, why="threshold")
+
+    # ------------------------------------------------------------------ #
+    # execute: host path or whole-call offload                            #
+    # ------------------------------------------------------------------ #
+    def _execute(self, call: CallContext, decision: DispatchDecision,
+                 st: RoutineStats) -> torch.Tensor:
+        if not decision.offload:
+            out = call.compute(*self._harmonize(call.arrays, st))
+            st.on_host += 1
+            return out
+        return self._offload_whole(call, st)
+
+    def _offload_whole(self, call: CallContext,
+                       st: RoutineStats) -> torch.Tensor:
+        """Single-device offload: the policy places every operand, the
+        arithmetic runs on the placed tensors, the policy places the
+        output."""
+        site = call.site
+        placed, budget_used = [], 0
+        ai = self._arith_intensity(call.routine, call.m, call.n, call.k,
+                                   call.arrays, call.batch)
+        for (role, x, reads, written) in call.operands:
+            if isinstance(self.policy, pol.CounterPolicy):
+                p = self.policy.place_operand(
+                    self, x, reads_per_elem=reads, written=written, ai=ai,
+                    budget_used=budget_used)
+            else:
+                p = self.policy.place_operand(self, x)
+            budget_used += p.moved_bytes
+            st.bytes_in += p.moved_bytes
+            st.cache_hits += int(p.cache_hit)
+            st.cache_misses += int(not p.cache_hit)
+            if site is not None:
+                site.observe_residency(p.cache_hit)
+            if p.cache_hit:
+                self._count_reuse(x)
+            if p.moved_bytes or p.cache_hit:
+                self.alias_trace_id(x, p.array)
+            placed.append(p.array)
+        out = call.compute(*self._harmonize(placed, st))
+        out_p = self.policy.place_output(self, out)
+        st.bytes_out += out_p.moved_bytes
+        st.offloaded += 1
+        return out_p.array
+
+    def _harmonize(self, arrays, st: RoutineStats) -> list:
+        """Operands a policy left on the host are streamed to the device
+        for this call only (the placement registry is untouched), so the
+        arithmetic always runs where the session's device is."""
+        out = []
+        for a in arrays:
+            if memspace.tier_of(a) != memspace.DEVICE:
+                st.transient_bytes += memspace.nbytes(a)
+                if not self.memspace.simulated:
+                    a = a.to(self.device)
+            out.append(a)
+        return out
+
+    # ------------------------------------------------------------------ #
+    # record: statistics, site profile, trace                             #
+    # ------------------------------------------------------------------ #
+    def _record(self, call: CallContext, decision: DispatchDecision,
+                out: torch.Tensor, dt: float, st: RoutineStats) -> None:
+        st.seconds += dt
+        if call.site is not None:
+            call.site.observe(decision.n_avg,
+                              _flops_of(call.routine, call.m, call.n,
+                                        call.k, call.batch),
+                              dt, decision.offload)
+        self._record_trace(call, out, dt)
+        if self.debug >= 2:
+            where = "offload" if decision.offload else "host"
+            print(f"[scilib] {call.routine} m={call.m} n={call.n} "
+                  f"k={call.k} navg={decision.n_avg:.0f} {where} "
+                  f"({decision.why})")
+
+    def _count_reuse(self, x: torch.Tensor) -> None:
+        bid = self._trace_ids.get(id(x))
+        if bid is not None:
+            self._reuse_by_buffer[bid] = self._reuse_by_buffer.get(bid, 0) + 1
+
+    def mean_buffer_reuse(self) -> float:
+        if not self._reuse_by_buffer:
+            return 0.0
+        return sum(self._reuse_by_buffer.values()) / len(self._reuse_by_buffer)
+
+    @staticmethod
+    def _arith_intensity(routine, m, n, k, arrays, batch) -> float:
+        size = sum(memspace.nbytes(a) for a in arrays)
+        return _flops_of(routine, m, n, k, batch) / max(1, size)
+
+    def _record_trace(self, call: CallContext, out: torch.Tensor,
+                      seconds: float) -> None:
+        if self.trace is None:
+            return
+        ops = []
+        for (role, x, reads, written) in call.operands:
+            bid = self._trace_id(x, role)
+            ops.append((role, bid, memspace.nbytes(x) // max(1, call.batch),
+                        reads, written))
+        # the output aliases the written operand's logical buffer; a fresh
+        # output gets its own buffer, recorded on the call
+        out_buf, out_nbytes = -1, 0
+        for (role, x, reads, written) in call.operands:
+            if written:
+                self.alias_trace_id(x, out)
+                break
+        else:
+            out_buf = self._trace_id(out, "OUT")
+            out_nbytes = memspace.nbytes(out)
+        self.trace.calls.append(BlasCall(
+            routine=call.routine, m=call.m, n=call.n, k=call.k,
+            batch=call.batch, operands=tuple(ops),
+            callsite_id=call.site_id, seconds=seconds,
+            out_buf=out_buf, out_nbytes=out_nbytes))
+
+
+# --------------------------------------------------------------------- #
+# context-local active runtime                                           #
+# --------------------------------------------------------------------- #
+_ACTIVE: ContextVar[Optional[OffloadRuntime]] = (
+    ContextVar("scilib_torch_active_runtime", default=None))
+
+
+def activate(runtime: Optional[OffloadRuntime]) -> None:
+    """Make ``runtime`` the dispatch target of the current context, with
+    its tier mapping (None deactivates both).  Sessions drive this."""
+    _ACTIVE.set(runtime)
+    if runtime is None:
+        memspace.uninstall()
+    else:
+        memspace.install(runtime.memspace)
+
+
+def active() -> Optional[OffloadRuntime]:
+    return _ACTIVE.get()
+
+
+def pin(x: torch.Tensor) -> torch.Tensor:
+    """Pin a buffer on the active runtime's device tier (no-op when no
+    runtime is active).  See :meth:`OffloadRuntime.pin`."""
+    rt = _ACTIVE.get()
+    return x if rt is None else rt.pin(x)
+
+
+def unpin(x: torch.Tensor) -> None:
+    """Release a :func:`pin` (no-op when no runtime is active)."""
+    rt = _ACTIVE.get()
+    if rt is not None:
+        rt.unpin(x)

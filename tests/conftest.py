@@ -7,3 +7,10 @@ import pytest
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card and skips without one; run on "
+        "the card with `PYTHONPATH=src python -m pytest -m cuda "
+        "tests/test_torch_*.py`")
