@@ -10,7 +10,9 @@ gives it, then drives the main path through the entry points a user
 calls: intercepted BLAS under Device First-Use (``repro_torch.session``
 with ``host_array`` inputs), then the LSMS KKR loop
 (``repro_torch.apps.lsms.run_mini``) at the production KKR size
-n = 6912 in complex128.  Phases, in order:
+n = 6912 in complex128, then the kernel venue, adaptive per-site racing
+and split-precision fp64 at PARSEC's production shapes (ngrid 93536,
+nstates 2400, nblock 32).  Phases, in order:
 
 1. build   — build and load the kernels; the card's name and power limit.
 2. kernels — each kernel against its plain version, with the tolerance
@@ -19,6 +21,12 @@ n = 6912 in complex128.  Phases, in order:
 4. lsms    — run_mini(atoms=2, energies=2, scf=1, n=6912, complex128)
              inside the same session; counters, residual and launches
              asserted.
+5. venue   — (a) kernel_path + adaptive: 8 calls of blas.syrk(psi,
+             trans="T") at one call site race host/xla/pallas and lock;
+             (b) kernel_path + precision="auto": intercepted
+             torch.matmul(hpsi_blk.T, psi) runs split3 on the pallas
+             venue, within its a-priori bound; (c) a cancelling dgemm
+             escalates to native fp64.  One session each.
 
 Every mismatch or missing launch raises, so the script exits non-zero.
 The lines before the last are a JSON object of per-kernel numbers and
@@ -55,6 +63,20 @@ TRSM_TOL = {"float64": 1e-10, "float32": 3e-4}
 #: stable, |r| <~ n*eps64*|M||tau| ~ 8e-13 at n = 6912 for M ~ I; 1e-9
 #: leaves a thousandfold margin and still catches a float32 path (~1e-4)
 LSMS_RESID = 1e-9
+#: PARSEC's production shapes (src/repro_torch/apps/dft.py PROD)
+NGRID, NSTATES, NBLOCK = 93536, 2400, 32
+#: split3 passes per dgemm at K = NGRID: 6 cross passes x 366 chunks of 256
+SPLIT3_LAUNCHES = 6 * -(-NGRID // 256)
+#: an escalated result against native fp64: both are float64 sums of the
+#: same terms (the gemm kernel's match cuBLAS's bit for bit at the shapes
+#: above); 1e-12 absolute on a product that cancels to ~1e-15 leaves room
+#: for any summation order
+ESCALATED_TOL = 1e-12
+#: split3 on exact-pass operands (exact_pass_operands) against their
+#: exact product, column-relative: a few float64 roundings of the pass
+#: sum read ~1.2e-15 on the CPU, any pass left out reads 1.5e-8 or more
+#: (tests/test_torch_precision.py)
+EXACT_PASS_TOL = 1e-12
 
 
 def log(phase: str, msg: str) -> None:
@@ -121,16 +143,47 @@ def tri(gen, n: int, uplo: str, dtype, device):
     return a.to(dtype).to(device)
 
 
+def variants(ptxas_log: str) -> list:
+    """Per entry function of one source's ``ptxas -v`` log: its template
+    arguments (mangled, e.g. ``ddLb1`` = double in, double
+    accumulator, TRANS true), registers,
+    shared memory, stack and spill bytes, and how many 256-thread blocks
+    an H100 SM holds by registers, shared memory and threads (65536
+    registers allocated 8 per thread at a time, 228 KiB of shared memory
+    with 1 KiB reserved per block, 2048 threads)."""
+    import re
+    out, cur = [], None
+    for ln in ptxas_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            t = re.search(r"([a-z]+_(?:base_)?kernel)I(\w+?)E+v", m.group(1))
+            cur = dict(name=f"{t.group(1)}<{t.group(2)}>" if t
+                       else m.group(1), stack=0, spill=0)
+            out.append(cur)
+        elif cur is not None and "stack frame" in ln:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", ln)]
+            cur["stack"], cur["spill"] = nums[0], nums[1]
+        elif cur is not None and "registers" in ln:
+            cur["regs"] = int(re.search(r"Used (\d+) registers", ln)[1])
+            sm = re.search(r"(\d+) bytes smem", ln)
+            cur["smem"] = int(sm[1]) if sm else 0
+            cur["blocks"] = min(65536 // (-(-cur["regs"] // 8) * 8 * 256),
+                                233472 // (cur["smem"] + 1024), 2048 // 256)
+    return out
+
+
 def phase_build():
     from repro_torch.kernels import compat
     t0 = time.perf_counter()
     paths = compat.build_all()
     secs = time.perf_counter() - t0
     for name, path in sorted(paths.items()):
-        regs = [ln.strip()
-                for ln in compat.BUILD_LOG.get(name, "").splitlines()
-                if "registers" in ln or "spill" in ln]
-        log("build", f"{name}: {path.name} {'; '.join(sorted(set(regs)))}")
+        log("build", f"{name}: {path.name}")
+        for v in variants(compat.BUILD_LOG.get(name, "")):
+            log("build", f"  {v['name']}: {v.get('regs')} registers, "
+                         f"{v.get('smem')} B smem, {v['stack']} B stack, "
+                         f"{v['spill']} B spill stores, {v.get('blocks')} "
+                         f"blocks of 256 threads per SM")
     log("build", f"card: {card_line()}; build {secs:.1f} s "
                  f"(nvcc {compat.BUILD_SECONDS:.1f} s)")
 
@@ -250,18 +303,204 @@ def phase_kernels(dev) -> dict:
                     replaces="src/repro/kernels/trsm.py:32",
                     max_abs_err=trsm_err,
                     **trsm_times(a, b, f"{M}x{R}", plain_reps=2))
-    return {"gemm": gemm_row, "trsm": trsm_row}
+    del a, b
+    rows = {"gemm": gemm_row, "trsm": trsm_row}
+    rows.update(phase_kernels_parsec(dev, gen))
+    return rows
+
+
+def syrk_times(psi) -> dict:
+    """Kernel, plain-version and library times of the PARSEC Gram matrix
+    C = Psi^T Psi (lower triangle), with its bound: n(n+1)k operations,
+    Psi read once and C written once.  The library has no syrk: its time
+    is torch.matmul(Psi^T, Psi), the full product, twice the operations."""
+    import torch
+    from repro_torch.kernels import syrk
+    k, n = psi.shape
+    ms = time_ms(lambda: syrk.syrk(psi, trans="T"), reps=5)
+    plain_ms = time_ms(lambda: syrk.syrk_plain(psi, trans="T"), reps=5)
+    lib_ms = time_ms(lambda: torch.matmul(psi.mT, psi), reps=5)
+    bms, by = bound(float(n) * (n + 1) * k, 8.0 * (n * k + n * n),
+                    "float64")
+    log("kernels", f"syrk float64 n={n} k={k} trans T: kernel {ms:.3f} ms "
+                   f"({n * (n + 1) * k / ms / 1e9:.1f} TFLOP/s), plain "
+                   f"{plain_ms:.3f} ms, torch.matmul full product "
+                   f"{lib_ms:.3f} ms (2x the operations), bound {bms:.4f} "
+                   f"ms ({by})")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms)
+
+
+def split_times(a, b) -> dict:
+    """Times of one split3 dgemm A @ B at the PARSEC projection shape:
+    the passes on the gemm kernel, the plain version (the same passes as
+    float32 torch.matmul, the `xla` venue's formulation) and native
+    torch.matmul dgemm.  The bound is that of the function, the float64
+    product: 2MNK operations at the float64 peak against each operand
+    read once and C written once.  What this algorithm spends (6 float32
+    passes of 2MNK) is logged beside it, not used as the bound."""
+    import torch
+    from repro_torch.core import precision
+    from repro_torch.kernels import split_gemm
+    (m, k), n = a.shape, b.shape[1]
+    ms = time_ms(lambda: split_gemm.matmul(a, b, "split3"), reps=3)
+    plain_ms = time_ms(lambda: precision.matmul(a, b, "split3"), reps=3)
+    lib_ms = time_ms(lambda: torch.matmul(a, b), reps=5)
+    bms, by = bound(2.0 * m * n * k, 8.0 * (m * k + k * n + m * n),
+                    "float64")
+    log("kernels", f"split3 dgemm {m}x{n}x{k}: {SPLIT3_LAUNCHES} gemm "
+                   f"launches {ms:.3f} ms, plain (float32 torch.matmul "
+                   f"passes) {plain_ms:.3f} ms, native torch.matmul dgemm "
+                   f"{lib_ms:.3f} ms, bound {bms:.4f} ms ({by}; the six "
+                   f"float32 passes' own operations would take "
+                   f"{6 * 2.0 * m * n * k / PEAK_OPS['float32'] * 1e3:.4f}"
+                   f" ms at the float32 peak)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms)
+
+
+def phase_kernels_parsec(dev, gen) -> dict:
+    """The syrk kernel and the split passes against their plain versions
+    at PARSEC's production shapes, plus ragged float32 syrk shapes."""
+    import torch
+    from repro_torch.core import precision
+    from repro_torch.kernels import ref, split_gemm, syrk
+    # ragged float32 syrk in both layouts and triangles
+    worst = 0.0
+    for tr in "NT":
+        for up in "LU":
+            a = torch.randn(1000, 513, generator=gen).to(dev)
+            a = a if tr == "N" else a.mT.contiguous()
+            got = syrk.syrk(a, uplo=up, trans=tr)
+            _, rel = rel_err(got, syrk.syrk_plain(a, uplo=up, trans=tr))
+            if not rel <= TOL["float32"]:
+                raise AssertionError(f"syrk float32 {tr}{up}: rel err "
+                                     f"{rel:.3e}")
+            worst = max(worst, rel)
+    log("kernels", f"syrk float32 n=1000 k=513: trans N/T x uplo L/U, "
+                   f"worst rel err {worst:.3e} (tol {TOL['float32']:g})")
+    dgen = torch.Generator(device=dev).manual_seed(1)
+    psi = torch.randn(NGRID, NSTATES, generator=dgen, dtype=torch.float64,
+                      device=dev)
+    syrk_err = check(f"syrk float64 n={NSTATES} k={NGRID} trans T (PARSEC "
+                     f"Gram)", syrk.syrk(psi, trans="T"),
+                     syrk.syrk_plain(psi, trans="T"), TOL["float64"])
+    syrk_row = dict(name="syrk", route="cuda",
+                    source="src/repro_torch/csrc/syrk.cu",
+                    replaces="src/repro/kernels/syrk.py:21",
+                    max_abs_err=syrk_err, **syrk_times(psi))
+    # the split passes: S_blk = Hpsi_blk^T Psi, M=32, N=2400, K=93536
+    blk = torch.randn(NGRID, NBLOCK, generator=dgen, dtype=torch.float64,
+                      device=dev)
+    a = blk.mT
+    got = split_gemm.matmul(a, psi, "split3")
+    native = ref.matmul(a, psi)
+    scale = ref.matmul(a.abs(), psi.abs()).abs().max().item()
+    split_err = (got - native).abs().max().item()
+    bound_rel = precision.error_bound("split3", NGRID)
+    if not split_err / scale <= bound_rel:
+        raise AssertionError(f"split3 dgemm: error {split_err / scale:.3e}"
+                             f" of max|A||B| > bound {bound_rel:.3e}")
+    plain_err = (got - precision.matmul(a, psi, "split3")).abs().max().item()
+    if not plain_err / scale <= bound_rel:
+        raise AssertionError(f"split3 dgemm: kernel passes vs plain passes "
+                             f"{plain_err / scale:.3e} of max|A||B| > "
+                             f"{bound_rel:.3e}")
+    log("kernels", f"split3 dgemm {NBLOCK}x{NSTATES}x{NGRID}: max|split - "
+                   f"native| / max(|A||B|) = {split_err / scale:.3e}, "
+                   f"max|split - plain passes| / max(|A||B|) = "
+                   f"{plain_err / scale:.3e} (a-priori bound "
+                   f"{bound_rel:.3e})")
+    del got, native
+    for k in (256, NGRID):
+        exact_pass_check(dgen, NBLOCK, k, NSTATES, dev)
+    split_row = dict(name="split_gemm", route="cuda",
+                     source="src/repro_torch/kernels/split_gemm.py",
+                     replaces="src/repro/kernels/split_gemm.py:31",
+                     max_abs_err=split_err, **split_times(a, psi))
+    return {"syrk": syrk_row, "split_gemm": split_row}
+
+
+def exact_pass_operands(gen, m: int, k: int, n: int, dev):
+    """fp64 A (m x k) and B (k x n) whose split3 slices and slice
+    products are exact, with their exact product.  Each element is
+    s (h + l + t), h in {1, 1.5}, l in {1, 1.5} 2^-25, t in {1, 1.5} 2^-51:
+    the slices are s h, s l and the bf16 tail s t exactly, and every
+    float32 slice product over a 256-column chunk is exact.  A's second
+    half of columns repeats the first half's hi part, and B's second half
+    of rows negates it in the first half of B's columns: there hi*hi
+    cancels to 0, so every pass, lo and tail included, shows in the
+    result.  tests/test_torch_precision.py builds the same operands."""
+    import torch
+
+    def parts(rows, cols):
+        def pick(scale):
+            return (1.0 + 0.5 * torch.randint(
+                0, 2, (rows, cols), generator=gen, device=dev,
+                dtype=torch.float64)) * scale
+        sign = 2.0 * torch.randint(0, 2, (rows, cols), generator=gen,
+                                   device=dev, dtype=torch.float64) - 1.0
+        return sign, pick(1.0), pick(2.0 ** -25), pick(2.0 ** -51)
+
+    sa, ha, la, ta = parts(m, k)
+    sb, hb, lb, tb = parts(k, n)
+    h, c = k // 2, n // 2
+    sa[:, h:2 * h], ha[:, h:2 * h] = sa[:, :h], ha[:, :h]
+    sb[h:2 * h, :c], hb[h:2 * h, :c] = -sb[:h, :c], hb[:h, :c]
+    pa = [sa * x for x in (ha, la, ta)]
+    pb = [sb * x for x in (hb, lb, tb)]
+    del sa, ha, la, ta, sb, hb, lb, tb
+    exact = torch.zeros(m, n, dtype=torch.float64, device=dev)
+    for i, j in sorted(((i, j) for i in range(3) for j in range(3)),
+                       key=lambda p: -sum(p)):
+        exact += pa[i] @ pb[j]                  # each product exact in fp64
+    return pa[0] + pa[1] + pa[2], pb[0] + pb[1] + pb[2], exact
+
+
+def exact_pass_check(gen, m: int, k: int, n: int, dev) -> None:
+    """split3 on the gemm kernel's passes and on the plain passes against
+    the exact product of exact-pass operands, column by column.  A pass
+    left out or a wrong slice reads 1.5e-8 or more there; both venues
+    read ~1e-15 on the CPU."""
+    import torch
+    from repro_torch.core import precision
+    from repro_torch.kernels import split_gemm
+    a, b, exact = exact_pass_operands(gen, m, k, n, dev)
+    denom = exact.abs().amax(dim=0)
+
+    def colrel(got):
+        return ((got - exact).abs().amax(dim=0) / denom).max().item()
+    kern = split_gemm.matmul(a, b, "split3")
+    plain = precision.matmul(a, b, "split3")
+    readings = {"kernel passes": colrel(kern), "plain passes": colrel(plain),
+                "native dgemm": colrel(a @ b)}
+    same = bool(torch.equal(kern, plain))
+    del a, b, kern, plain, exact
+    if not (readings["kernel passes"] <= EXACT_PASS_TOL
+            and readings["plain passes"] <= EXACT_PASS_TOL):
+        raise AssertionError(f"split3 exact-pass {m}x{n}x{k}: {readings} "
+                             f"> {EXACT_PASS_TOL:g}")
+    log("kernels", f"split3 exact-pass {m}x{n}x{k}: column-relative error "
+                   f"vs the exact product "
+                   + ", ".join(f"{name} {v:.3e}"
+                               for name, v in readings.items())
+                   + f" (limit {EXACT_PASS_TOL:g} on the split3 pair; "
+                   f"kernel == plain bit for bit: {same})")
+
+
+KERNELS = ("gemm", "trsm", "syrk", "split_gemm")
 
 
 def reset_counts() -> None:
-    from repro_torch.kernels import gemm, trsm
-    gemm.reset_launches()
-    trsm.reset_launches()
+    from repro_torch.kernels import gemm, split_gemm, syrk, trsm
+    for mod in (gemm, trsm, syrk, split_gemm):
+        mod.reset_launches()
 
 
 def counts() -> dict:
-    from repro_torch.kernels import gemm, trsm
-    return {"gemm": gemm.launches, "trsm": trsm.launches}
+    from repro_torch.kernels import gemm, split_gemm, syrk, trsm
+    return {"gemm": gemm.launches, "trsm": trsm.launches,
+            "syrk": syrk.launches, "split_gemm": split_gemm.launches}
 
 
 def phase_blas(s, dev) -> dict:
@@ -369,6 +608,141 @@ def phase_lsms(s, dev, n: int = 6912) -> dict:
     return launched
 
 
+def gram_site(psi):
+    """One stable call site for the adaptive race of phase (a)."""
+    from repro_torch.core import blas
+    return blas.syrk(psi, trans="T")
+
+
+def phase_venue(dev) -> dict:
+    """The kernel venue, adaptive racing and split precision at PARSEC's
+    production shapes, each in its own DFU session, inputs host-first."""
+    import numpy as np
+    import torch
+    import repro_torch
+    from repro_torch import OffloadConfig
+    from repro_torch.core import blas, host_array
+    from repro_torch.core import precision
+    from repro_torch.kernels import ref, syrk
+    rng = np.random.default_rng(2)
+    t0 = time.perf_counter()
+    psi = host_array(rng.standard_normal((NGRID, NSTATES)), torch.float64)
+    blks = [host_array(rng.standard_normal((NGRID, NBLOCK)), torch.float64)
+            for _ in range(3)]
+    log("venue", f"inputs made on the host in "
+                 f"{time.perf_counter() - t0:.1f} s (Psi {psi.nbytes / 1e9:.2f}"
+                 f" GB, pinned)")
+    psi_dev = psi.to(dev)
+    want_gram = syrk.syrk_plain(psi_dev, trans="T")
+    launched = {}
+
+    # (a) 8 calls at one site race host / xla / pallas, then lock
+    cfg = OffloadConfig(policy="dfu", kernel_path=True, adaptive=True)
+    reset_counts()
+    with repro_torch.session(cfg) as s:
+        grams = [gram_site(psi) for _ in range(8)]
+        s.sync()
+        got = counts()
+        (prof,) = list(s.runtime.callsites)
+        venues = [c.venue for c in s.trace.calls]
+        per_call = [c.seconds for c in s.trace.calls]
+        st = s.stats.per_routine["dsyrk"]
+    for name in got:
+        launched[name] = launched.get(name, 0) + got[name]
+    for i, g in enumerate(grams):
+        _, rel = rel_err(g, want_gram)
+        if not rel <= TOL["float64"]:
+            raise AssertionError(f"venue (a) call {i}: rel err {rel:.3e}")
+    if prof.locked is None or venues[:6] != ["host", "xla", "pallas"] * 2:
+        raise AssertionError(f"venue (a): site not locked after the "
+                             f"warmup, venues {venues}")
+    if prof.kernel_timed != 2 or got["syrk"] < 2:
+        raise AssertionError(f"venue (a): {prof.kernel_timed} pallas "
+                             f"probes, {got['syrk']} syrk launches")
+    log("venue", f"(a) dsyrk n={NSTATES} k={NGRID} x8 at one site: venues "
+                 f"{venues}; locked {prof.locked_venue} ({prof.locked_why});"
+                 f" best host {prof.host_best * 1e3:.3f} ms, xla "
+                 f"{prof.device_best * 1e3:.3f} ms, pallas "
+                 f"{prof.kernel_best * 1e3:.3f} ms; per-call s "
+                 f"{[round(x, 5) for x in per_call]}; bytes_in {st.bytes_in}"
+                 f", transient {st.transient_bytes}; launches {got}; "
+                 f"results within {TOL['float64']:g} of the plain version")
+    del grams, want_gram
+
+    # (b) split precision picked by auto, on the pallas venue
+    cfg = OffloadConfig(policy="dfu", kernel_path=True, precision="auto")
+    if precision.choose("auto", "gemm", NGRID, cfg.precision_rtol) != \
+            "split3":
+        raise AssertionError("auto does not pick split3 at K = NGRID")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with repro_torch.session(cfg) as s:
+        outs = [torch.matmul(b.mT, psi) for b in blks]   # intercepted
+        s.sync()
+        got = counts()
+        calls = [(c.precision, c.venue) for c in s.trace.calls]
+        st = s.stats.per_routine["dgemm"]
+        secs = [c.seconds for c in s.trace.calls]
+    peak = torch.cuda.max_memory_allocated()
+    for name in got:
+        launched[name] += got[name]
+    n = len(blks)
+    if (calls != [("split3", "pallas")] * n or st.split_calls != n
+            or st.kernel_calls != n or st.escalations != 0):
+        raise AssertionError(f"venue (b): calls {calls}, split "
+                             f"{st.split_calls}, kernel {st.kernel_calls}, "
+                             f"escalations {st.escalations}")
+    if got["split_gemm"] != n * SPLIT3_LAUNCHES or \
+            got["gemm"] != n * SPLIT3_LAUNCHES:
+        raise AssertionError(f"venue (b): launches {got}, want "
+                             f"{SPLIT3_LAUNCHES} per call")
+    bound_rel = precision.error_bound("split3", NGRID)
+    worst = 0.0
+    for b, out in zip(blks, outs):
+        a = b.to(dev).mT
+        native = ref.matmul(a, psi_dev)
+        scale = ref.matmul(a.abs(), psi_dev.abs()).abs().max().item()
+        worst = max(worst, (out - native).abs().max().item() / scale)
+    if not worst <= bound_rel:
+        raise AssertionError(f"venue (b): error {worst:.3e} of max|A||B| "
+                             f"> bound {bound_rel:.3e}")
+    log("venue", f"(b) torch.matmul(hpsi_blk.T, psi) x{n}: {calls[0]}, "
+                 f"{SPLIT3_LAUNCHES} gemm launches per call ({got}), "
+                 f"0 escalations, max|split - native| / max(|A||B|) "
+                 f"{worst:.3e} (bound {bound_rel:.3e}), per-call s "
+                 f"{[round(x, 4) for x in secs]} (synchronized by the "
+                 f"residual check), peak device memory {peak / 1e9:.2f} GB")
+    del outs, psi_dev
+
+    # (c) a cancelling dgemm escalates to native fp64
+    u = rng.standard_normal((48, 24))
+    w = rng.standard_normal((24, 48))
+    ca = np.concatenate([u, u], axis=1)
+    cb = np.concatenate([w, -w], axis=0)
+    cfg = OffloadConfig(policy="dfu", threshold=1.0, kernel_path=True,
+                        precision="auto")
+    reset_counts()
+    with repro_torch.session(cfg) as s:
+        out = blas.gemm(host_array(ca), host_array(cb))
+        s.sync()
+        got = counts()
+        st = s.stats.per_routine["dgemm"]
+        esc = s.trace.event_count("escalate")
+    for name in got:
+        launched[name] += got[name]
+    native = ref.matmul(torch.as_tensor(ca, device=dev),
+                        torch.as_tensor(cb, device=dev))
+    diff = (out - native).abs().max().item()
+    if (st.escalations, esc) != (1, 1) or not diff <= ESCALATED_TOL:
+        raise AssertionError(f"venue (c): escalations {st.escalations}, "
+                             f"events {esc}, |out - native| {diff:.3e}")
+    log("venue", f"(c) cancelling dgemm 48x48x48: escalated ({esc} event)"
+                 f", |out - native| {diff:.3e} (tol {ESCALATED_TOL:g}); "
+                 f"launches {got}")
+    return launched
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this "
@@ -393,8 +767,12 @@ def main() -> int:
                                            threshold=500.0)) as s:
         blas_launches = phase_blas(s, dev)
         lsms_launches = phase_lsms(s, dev)
+    venue_launches = phase_venue(dev)
     for name, row in rows.items():
-        row["launches"] = blas_launches[name] + lsms_launches[name]
+        row["launches"] = (blas_launches[name] + lsms_launches[name]
+                           + venue_launches[name])
+        log("done", f"{name} launches: blas {blas_launches[name]}, lsms "
+                    f"{lsms_launches[name]}, venue {venue_launches[name]}")
         if row["launches"] == 0:
             raise AssertionError(f"{name} kernel never launched on the "
                                  f"main path")
@@ -404,7 +782,7 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{k: rows[n][k] for k in keys}
-                                  for n in ("gemm", "trsm")]}))
+                                  for n in KERNELS]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

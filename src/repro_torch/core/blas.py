@@ -17,8 +17,11 @@ Every product here goes through ``kernels.ops.matmul`` (the gemm kernel
 on the card) and every real solve through ``kernels.ops.trsm``; the
 matrix-vector product uses the un-intercepted ``torch.matmul``
 (``kernels.ref.torch_matmul``), so nothing here re-enters the
-interceptor.  The reference's multi-device tile builders, kernel-venue
-closures and split-precision bindings are not ported yet.
+interceptor.  With ``kernel_path`` on, gemm/syrk/trsm also offer the
+runtime the ``pallas``-venue closures over ``kernels.ops.kernel_*`` (the
+syrk kernel computes one triangle), and with a ``precision`` scheme the
+split-precision closures over ``core/precision.py``.  The reference's
+multi-device tile builders are not ported yet.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from typing import Callable, Dict, Hashable, Optional, Tuple
 
 import torch
 
+from repro_torch.core import precision as prc
 from repro_torch.core import runtime as rt
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref
@@ -207,9 +211,13 @@ def _batch_of(*arrays) -> int:
 
 # ----------------------------------------------------------------------- #
 # arithmetic (every product through kernels.ops)                          #
+#                                                                          #
+# ``mm`` is the product the closure runs: ``kops.matmul`` (the generic     #
+# `xla` venue), ``kops.kernel_matmul`` (the `pallas` venue) or a split     #
+# product (:func:`_split_matmul`), so one closure serves all three.        #
 # ----------------------------------------------------------------------- #
-def _gemm_kernel(a, b, c, alpha, beta, *, trans_a, trans_b):
-    acc = kops.matmul(_op(a, trans_a), _op(b, trans_b))
+def _gemm_kernel(a, b, c, alpha, beta, *, trans_a, trans_b, mm=kops.matmul):
+    acc = mm(_op(a, trans_a), _op(b, trans_b))
     out = alpha * acc
     if c is not None:
         out = out + beta * c
@@ -225,10 +233,10 @@ def _symm_kernel(a, b, c, alpha, beta, *, side, uplo, conj):
     return out.to(b.dtype)
 
 
-def _syrk_kernel(a, c, alpha, beta, *, uplo, trans, conj):
+def _syrk_kernel(a, c, alpha, beta, *, uplo, trans, conj, mm=kops.matmul):
     opa = _op(a, trans)
     at = opa.mH if conj else opa.mT
-    upd = alpha * kops.matmul(opa, at)
+    upd = alpha * mm(opa, at)
     mask = _tri_mask(upd.shape[-1], uplo, upd.device)
     if c is not None:
         tri = torch.where(mask, upd + beta * c, c)
@@ -265,14 +273,114 @@ def _trsm_kernel(a, b, alpha, *, side, uplo, trans, diag):
 
 
 # ----------------------------------------------------------------------- #
+# pallas-venue arithmetic (OffloadConfig.kernel_path / SCILIB_KERNELS)     #
+#                                                                          #
+# Built only when the kernel path is on and the routine has a kernel       #
+# (``kops.kernel_available``).  The ``_*_klean`` variants serve the        #
+# dominant alpha=1 / beta=0 / no-C call shape with no scalar epilogue;    #
+# the others are the generic closures above with ``kops.kernel_matmul``    #
+# (``kops.kernel_trsm`` is the recursion of ``kops.trsm``, so trsm's       #
+# generic closure serves the venue as it is).                              #
+# ----------------------------------------------------------------------- #
+def _gemm_klean(a, b):
+    return kops.kernel_matmul(a, b)
+
+
+def _syrk_klean(a, *, uplo, trans):
+    # real syrk only reaches the venue (kernel_available), so "C" == "T"
+    return kops.kernel_syrk(a, uplo=uplo, trans="N" if trans == "N" else "T")
+
+
+def _trsm_klean(a, b, *, side, uplo, trans, diag):
+    return kops.kernel_trsm(a, b, side=side, uplo=uplo, trans=trans,
+                            diag=diag).to(b.dtype)
+
+
+# ----------------------------------------------------------------------- #
+# split-precision arithmetic (OffloadConfig.precision / SCILIB_PRECISION)  #
+#                                                                          #
+# The fp64 inner product as split low-precision slice passes               #
+# (core/precision.py).  Built only when a split scheme is configured and   #
+# the base/dtype supports one (real 2-D fp64).  The `xla` venue runs the   #
+# plain fp32 product per pass, the `pallas` venue the gemm kernel          #
+# (kernels/split_gemm.py).                                                 #
+# ----------------------------------------------------------------------- #
+def _split_mm(venue: str):
+    """The fp32 pass primitive for one venue (None = the precision
+    module's default, the plain fp32 product)."""
+    if venue == "pallas":
+        from repro_torch.kernels import split_gemm
+        return split_gemm.pass_mm()
+    return None
+
+
+def _split_matmul(scheme: str, venue: str):
+    """The fp64 product of one (scheme, venue) as an ``mm`` for the
+    closures above."""
+    pass_mm = _split_mm(venue)
+
+    def mm(a, b):
+        return prc.matmul(a, b, scheme, mm=pass_mm)
+    return mm
+
+
+def _split_trsm_kernel(a, b, alpha, *, side, uplo, trans, diag, scheme,
+                       venue):
+    """fp32 solve + one refinement step whose residual runs the split
+    matmul.  The referenced triangle is materialized first: the
+    refinement's ``op(A) X`` product reads the full array."""
+    return prc.trsm(ref.triangle(a, uplo, diag), alpha * b, scheme,
+                    left_side=(side == "L"), lower=(uplo == "L"),
+                    trans_a=(trans != "N"), unit_diag=(diag == "U"),
+                    mm=_split_mm(venue)).to(b.dtype)
+
+
+def _split_bound(base, dt, bkey, sfactory, flat2d=True):
+    """Build the ``(scheme, venue) -> compute`` factory the runtime's
+    precision stage consults, or None when no split scheme is configured
+    or the call has no split formulation (real 2-D fp64 only; batched
+    calls stay native).  Memo keys get a ``"split"`` prefix so split
+    closures never collide with the others in ``_BOUND``."""
+    runtime = rt.active()
+    if runtime is None or not runtime.precision or not flat2d:
+        return None
+    if not prc.supported(base, dt):
+        return None
+
+    def split_compute(scheme, venue):
+        venue = venue or "xla"
+        skey = (("split", scheme, venue) + bkey
+                if bkey is not None else None)
+        return _bound(skey, functools.partial(sfactory, scheme, venue))
+    return split_compute
+
+
+def _kernel_bound(base, dt, bkey, kfactory):
+    """The pallas-venue twin of ``_bound``: the kernel-backed compute
+    closure for one call-site signature, or None when the kernel path is
+    off or the routine/dtype has no kernel.  Memo keys get a ``"kern"``
+    prefix."""
+    runtime = rt.active()
+    if (runtime is None or not runtime.kernel_path
+            or not kops.kernel_available(base, dt)):
+        return None
+    kkey = ("kern",) + bkey if bkey is not None else None
+    return _bound(kkey, kfactory)
+
+
+# ----------------------------------------------------------------------- #
 # public routines                                                          #
 # ----------------------------------------------------------------------- #
-def _dispatch(routine, m, n, k, operands, compute, batch=1, key=None):
+def _dispatch(routine, m, n, k, operands, compute, batch=1, key=None,
+              kernel_compute=None, split_compute=None, split_check=None):
     runtime = rt.active()
     if runtime is None:
         return compute(*[x for _, x, _, _ in operands])
     return runtime.blas_call(routine, m, n, k, operands, compute,
-                             batch=batch, key=key)
+                             batch=batch, key=key,
+                             kernel_compute=kernel_compute,
+                             split_compute=split_compute,
+                             split_check=split_check)
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None,
@@ -289,24 +397,44 @@ def gemm(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None,
     bkey = (("gemm", dt, trans_a, trans_b, has_c, av, bv)
             if av is not None and bv is not None else None)
 
-    def factory():
+    def build(mm):
         alpha_, beta_ = _scalar(alpha, dt), _scalar(beta, dt)
+        kw = dict(trans_a=trans_a, trans_b=trans_b, mm=mm)
         if has_c:
             def compute(a_, b_, c_):
-                return _gemm_kernel(a_, b_, c_, alpha_, beta_,
-                                    trans_a=trans_a, trans_b=trans_b)
+                return _gemm_kernel(a_, b_, c_, alpha_, beta_, **kw)
         else:
             def compute(a_, b_):
-                return _gemm_kernel(a_, b_, None, alpha_, beta_,
-                                    trans_a=trans_a, trans_b=trans_b)
+                return _gemm_kernel(a_, b_, None, alpha_, beta_, **kw)
         return compute
 
+    def kfactory():
+        if (not has_c and av == 1 and bv == 0
+                and trans_a == "N" and trans_b == "N"):
+            return _gemm_klean             # lean: no scalar epilogue
+        return build(kops.kernel_matmul)
+
+    def sfactory(scheme, venue):
+        return build(_split_matmul(scheme, venue))
+
+    compute = _bound(bkey, functools.partial(build, kops.matmul))
+    kernel_compute = _kernel_bound("gemm", dt, bkey, kfactory)
+    flat2d = a.dim() == 2 and b.dim() == 2 and (c is None or c.dim() == 2)
+    split_compute = _split_bound("gemm", dt, bkey, sfactory, flat2d)
+    split_check = None
+    if split_compute is not None:
+        alpha_s, beta_s = _scalar(alpha, dt), _scalar(beta, dt)
+
+        def split_check(out, a_, b_, c_=None):
+            return prc.gemm_residual(out, _op(a_, trans_a),
+                                     _op(b_, trans_b), c_, alpha_s, beta_s)
     ops = [("A", a, float(opn), False), ("B", b, float(opm), False)]
     if has_c:
         ops.append(("C", c, 1.0, True))
-    return _dispatch(routine_name("gemm", dt), opm, opn, opk, ops,
-                     _bound(bkey, factory), batch,
-                     key=_call_key(bkey, opm, opn, opk, batch))
+    return _dispatch(routine_name("gemm", dt), opm, opn, opk, ops, compute,
+                     batch, key=_call_key(bkey, opm, opn, opk, batch),
+                     kernel_compute=kernel_compute,
+                     split_compute=split_compute, split_check=split_check)
 
 
 def _gemv_n(a, x):
@@ -400,24 +528,41 @@ def _syrk_like(a, c, *, uplo, trans, alpha, beta, conj, base):
     bkey = ((base, dt, uplo, trans, has_c, av, bv)
             if av is not None and bv is not None else None)
 
-    def factory():
+    def build(mm):
         alpha_, beta_ = _scalar(alpha, dt), _scalar(beta, dt)
+        kw = dict(uplo=uplo, trans=trans, conj=conj, mm=mm)
         if has_c:
             def compute(a_, c_):
-                return _syrk_kernel(a_, c_, alpha_, beta_, uplo=uplo,
-                                    trans=trans, conj=conj)
+                return _syrk_kernel(a_, c_, alpha_, beta_, **kw)
         else:
             def compute(a_):
-                return _syrk_kernel(a_, None, alpha_, beta_, uplo=uplo,
-                                    trans=trans, conj=conj)
+                return _syrk_kernel(a_, None, alpha_, beta_, **kw)
         return compute
 
+    def kfactory():
+        if not has_c and av == 1 and bv == 0:
+            def kcompute(a_):              # lean: no scalar epilogue
+                return _syrk_klean(a_, uplo=uplo, trans=trans)
+            return kcompute
+        return build(kops.kernel_matmul)
+
+    def sfactory(scheme, venue):
+        return build(_split_matmul(scheme, venue))
+
+    compute = _bound(bkey, functools.partial(build, kops.matmul))
+    kernel_compute = _kernel_bound(base, dt, bkey, kfactory)
+    flat2d = a.dim() == 2 and (c is None or c.dim() == 2)
+    # no sampled-residual check for syrk: the rank-k update has no
+    # cancellation channel beyond gemm's and the masked triangle defeats
+    # the O(n^2) matvec probe; acceptance rests on the a-priori bound
+    split_compute = _split_bound(base, dt, bkey, sfactory, flat2d)
     ops = [("A", a, float(n), False)]
     if has_c:
         ops.append(("C", c, 1.0, True))
-    return _dispatch(routine_name(base, dt), n, n, k, ops,
-                     _bound(bkey, factory), batch,
-                     key=_call_key(bkey, n, n, k, batch))
+    return _dispatch(routine_name(base, dt), n, n, k, ops, compute, batch,
+                     key=_call_key(bkey, n, n, k, batch),
+                     kernel_compute=kernel_compute,
+                     split_compute=split_compute)
 
 
 def syr2k(a, b, c=None, *, uplo="L", trans="N", alpha=1.0, beta=0.0):
@@ -479,19 +624,44 @@ def _tri_like(a, b, *, side, uplo, trans, diag, alpha, base, kernel):
     av = _hashable(alpha)
     bkey = ((base, dt, side, uplo, trans, diag, av)
             if av is not None else None)
+    flags = dict(side=side, uplo=uplo, trans=trans, diag=diag)
 
-    def factory():
+    def build(fn, **extra):
         alpha_ = _scalar(alpha, dt)
 
         def compute(a_, b_):
-            return kernel(a_, b_, alpha_, side=side, uplo=uplo,
-                          trans=trans, diag=diag)
+            return fn(a_, b_, alpha_, **flags, **extra)
         return compute
 
+    def kfactory():
+        if av == 1:
+            def kcompute(a_, b_):          # lean: no alpha scaling
+                return _trsm_klean(a_, b_, **flags)
+            return kcompute
+        return build(kernel)
+
+    def sfactory(scheme, venue):
+        return build(_split_trsm_kernel, scheme=scheme, venue=venue)
+
+    compute = _bound(bkey, functools.partial(build, kernel))
+    kernel_compute = _kernel_bound(base, dt, bkey, kfactory)
+    flat2d = a.dim() == 2 and b.dim() == 2
+    split_compute = (_split_bound(base, dt, bkey, sfactory, flat2d)
+                     if base == "trsm" else None)
+    split_check = None
+    if split_compute is not None:
+        alpha_s = _scalar(alpha, dt)
+
+        def split_check(out, a_, b_):
+            return prc.trsm_residual(out, ref.triangle(a_, uplo, diag), b_,
+                                     left_side=(side == "L"),
+                                     lower=(uplo == "L"),
+                                     trans_a=(trans != "N"), alpha=alpha_s)
     tri_n = a.shape[-1]
     opn = n if side == "L" else m
     ops = [("A", a, float(opn), False),
            ("B", b, float(tri_n), True)]
-    return _dispatch(routine_name(base, dt), tri_n, opn, 0, ops,
-                     _bound(bkey, factory), batch,
-                     key=_call_key(bkey, tri_n, opn, 0, batch))
+    return _dispatch(routine_name(base, dt), tri_n, opn, 0, ops, compute,
+                     batch, key=_call_key(bkey, tri_n, opn, 0, batch),
+                     kernel_compute=kernel_compute,
+                     split_compute=split_compute, split_check=split_check)

@@ -23,11 +23,17 @@ lives inside a :class:`~repro_torch.core.session.Session`, and owns
 
 * *canonicalize* bundles the call into a :class:`CallContext` and
   fingerprints the call site (:mod:`repro_torch.core.callsite`);
-* *decide* runs the ordered ``decision_stages`` — the memoized dispatch
-  cache, then the threshold rule — and the policy may veto offload;
+* *decide* runs the ordered ``decision_stages`` — adaptive per-site
+  lock-in (``adaptive``), the memoized dispatch cache, then the
+  threshold rule — and the policy may veto offload; then the precision
+  stage picks a split scheme (``precision``) and the venue stage the
+  execution venue (``kernel_path``);
 * *execute* runs the host path or the whole-call offload path: the
   policy places every operand, and the arithmetic runs through
-  ``kernels/ops.py`` on the placed tensors;
+  ``kernels/ops.py`` on the placed tensors (the generic ``xla`` closure,
+  the ``pallas`` venue's kernel closure, or the split formulation); a
+  split result is checked by a sampled residual and escalates to native
+  fp64 when it misses ``precision_rtol``;
 * *record* updates the per-routine and per-site statistics and appends a
   :class:`~repro_torch.core.trace.BlasCall` to the trace.
 
@@ -40,12 +46,21 @@ coherent remote read of the GH200, made explicit), as the reference's
 **Asynchronous by default.**  A call returns once its work is queued on
 the card; the runtime records a CUDA event per call and
 :meth:`OffloadRuntime.sync` waits on them.  ``sync=True`` synchronizes
-after every call instead, so per-call times are device times.
+after every call instead, so per-call times are device times.  Adaptive
+warmup probes are always timed that way: the card is drained before the
+probe starts and synchronized before its clock stops, so a probe bills
+its device work and not its launch latency.
+
+**Adaptive per-site mode** (``adaptive``): the first ``adaptive_warmup``
+calls at each site rotate over the venues (host, xla and, with
+``kernel_path`` and a kernel for the routine, pallas; plus the split
+pseudo-venue with a ``precision`` scheme), timed, and the venue with the
+best sample is then locked — the paper's warmup-then-patch behaviour.
 
 Not ported yet, and refused when configured (:func:`check_ported`): the
-multi-device tile scheduler, adaptive per-site dispatch and the venue
-stage, split precision, fault injection and the breaker, the shared
-device pool and the LAPACK solver spans.
+multi-device tile scheduler, the kernel block-edge override, fault
+injection and the breaker, the shared device pool and the LAPACK solver
+spans.
 """
 from __future__ import annotations
 
@@ -61,6 +76,7 @@ import torch
 from repro_torch.core import callsite as cs
 from repro_torch.core import memspace
 from repro_torch.core import policy as pol
+from repro_torch.core import precision as prec
 from repro_torch.core import residency as res
 from repro_torch.core import threshold as thr
 from repro_torch.core.config import OffloadConfig
@@ -78,10 +94,7 @@ _DECISION_CACHE_LIMIT = 65536
 #: config fields this slice does not implement -> the ROADMAP.md item
 #: that brings them.  Setting one to a non-default value raises.
 UNPORTED_FIELDS = {
-    "adaptive": "Queue 1 item 7 (adaptive warmup and the venue stage)",
-    "kernel_path": "Queue 1 item 7 (adaptive warmup and the venue stage)",
-    "kernel_block": "Queue 1 item 7 (adaptive warmup and the venue stage)",
-    "precision": "Queue 1 item 8 (core/precision.py)",
+    "kernel_block": "Queue 2 item 1 (the gemm redesign: tile choice)",
     "lapack": "Queue 1 item 6 (the solver tier)",
     "lapack_nb": "Queue 1 item 6 (the solver tier)",
     "faults": "Queue 1 item 7 (the _guarded fault units and the breaker)",
@@ -135,17 +148,40 @@ class CallContext:
     arrays: list
     compute: Callable[..., torch.Tensor]
     key: Optional[Hashable]
+    # the pallas-venue arithmetic (same operand order as ``compute``);
+    # None when the routine has no kernel or kernel_path is off
+    kernel_compute: Optional[Callable[..., torch.Tensor]] = None
+    # split-precision factory ``(scheme, venue) -> compute``; None when
+    # the call has no split formulation or no scheme is configured
+    split_compute: Optional[Callable[[str, str],
+                                     Callable[..., torch.Tensor]]] = None
+    # sampled-residual estimator ``(out, *arrays) -> rel error`` for the
+    # escalation check; None disables the check
+    split_check: Optional[Callable[..., float]] = None
+    # the operands the arithmetic ran on (placed on the device tier);
+    # the residual check reads these, never tensors of another tier
+    placed: Optional[list] = None
     site: Optional[cs.CallSiteProfile] = None
     site_id: str = ""
 
 
 @dataclasses.dataclass
 class DispatchDecision:
-    """What a decision stage emits: offload?  why?"""
+    """What a decision stage emits: offload?  why?  where?  how?"""
 
     offload: bool
     n_avg: float = 0.0
-    why: str = "threshold"      # "cache" | "threshold" | "policy:host-only"
+    why: str = "threshold"      # "cache" | "threshold" | "adaptive:probe"
+    #                           # | "adaptive:locked" | "policy:host-only"
+    #                           # (+ "+kernel" on the pallas venue,
+    #                           # + "+<scheme>" / "+esc" for split calls)
+    timed: bool = False         # adaptive probe: drain, time, synchronize
+    # execution venue ("host"/"xla"/"pallas"); "" with kernel_path off,
+    # so the default pipeline is byte-identical to the two-venue one
+    venue: str = ""
+    # split-precision scheme ("split2"/"split3"); "" with precision off.
+    # An escalated call keeps the attempted scheme (why gains "+esc").
+    precision: str = ""
 
 
 @dataclasses.dataclass
@@ -164,6 +200,16 @@ class RoutineStats:
     dispatch_misses: int = 0
     # bytes streamed from the host tier for one call without persisting
     transient_bytes: int = 0
+    # kernel_path: offloaded calls executed on the pallas venue (a
+    # subset of ``offloaded``) and their wall time
+    kernel_calls: int = 0
+    kernel_seconds: float = 0.0
+    # split precision: offloaded calls executed via a split scheme
+    # (subset of ``offloaded``), their wall time, and calls whose
+    # residual check escalated back to native fp64
+    split_calls: int = 0
+    split_seconds: float = 0.0
+    escalations: int = 0
 
 
 @dataclasses.dataclass
@@ -203,6 +249,21 @@ class RuntimeStats:
         if self.refetches:
             lines.append(f"refetches: {self.refetches} "
                          f"({self.refetched_bytes / 1e9:.3f} GB)")
+        routines = self.per_routine.values()
+        kernel_calls = sum(r.kernel_calls for r in routines)
+        if kernel_calls:
+            # only once the pallas venue ran, so kernel_path-off reports
+            # are byte-identical to before
+            ksec = sum(r.kernel_seconds for r in routines)
+            lines.append(f"pallas venue: {kernel_calls} calls "
+                         f"({ksec:.3f} s)")
+        split_calls = sum(r.split_calls for r in routines)
+        if split_calls:
+            # only once a split scheme ran (same rule)
+            ssec = sum(r.split_seconds for r in routines)
+            esc = sum(r.escalations for r in routines)
+            lines.append(f"split precision: {split_calls} calls "
+                         f"({ssec:.3f} s, {esc} escalations)")
         if self.callsites is not None and len(self.callsites):
             lines.append("call sites (top by flops; * = adaptive lock)")
             lines.append(f"{'site':<44}{'calls':>7}{'GFLOP':>9}"
@@ -266,10 +327,19 @@ class OffloadRuntime:
         self.sync_mode = bool(config.sync)
         self.dispatch_cache_enabled = config.dispatch_cache
         self.callsite_enabled = config.callsite
+        self.adaptive = config.adaptive
+        self.adaptive_warmup = config.adaptive_warmup
+        # the pallas execution venue: off by default so the two-venue
+        # pipeline stays bit-identical
+        self.kernel_path = bool(config.kernel_path)
+        # split-precision emulation: off by default (native fp64)
+        self.precision = str(config.precision)
+        self.precision_rtol = float(config.precision_rtol)
         self.callsites = cs.CallSiteRegistry()
         self.stats.callsites = self.callsites
         # ordered decision stages: the first to return a decision wins
-        self.decision_stages = [self._stage_cached, self._stage_threshold]
+        self.decision_stages = [self._stage_adaptive, self._stage_cached,
+                                self._stage_threshold]
         from repro_torch.core import blas
         blas.refresh_cache_flag(config.dispatch_cache)
         self.device_bytes_cap: Optional[int] = config.device_bytes
@@ -298,20 +368,41 @@ class OffloadRuntime:
         """Apply a new (already validated) config to the live runtime:
         the dispatch cache is cleared, the policy, threshold and sync
         mode switch, and caps, eviction policy and pinning update on the
-        placement store with an immediate sweep under a tightened cap."""
+        placement store with an immediate sweep under a tightened cap.
+        A policy / threshold / adaptive / kernel_path / precision change
+        resets the adaptive per-site locks, and drops the probe samples
+        that timed a path the change killed (``runtime.py:631-716`` of
+        the reference)."""
         check_ported(new)
         with self._lock:
+            old, old_threshold = self.config, self.threshold
             self.config = new
             self.threshold = new.resolved_threshold()
             self.sync_mode = bool(new.sync)
             self.debug = new.debug
             self.dispatch_cache_enabled = new.dispatch_cache
             self.callsite_enabled = new.callsite
+            self.adaptive = new.adaptive
+            self.adaptive_warmup = new.adaptive_warmup
             from repro_torch.core import blas
             blas.refresh_cache_flag(new.dispatch_cache)
             self._decisions.clear()
-            if new.policy != self.policy.name:
+            policy_changed = new.policy != old.policy
+            if policy_changed:
                 self.policy = pol.make_policy(new.policy)
+            kernel_changed = new.kernel_path != old.kernel_path
+            precision_changed = (new.precision != old.precision
+                                 or new.precision_rtol != old.precision_rtol)
+            if (policy_changed or self.threshold != old_threshold
+                    or new.adaptive != old.adaptive or kernel_changed
+                    or precision_changed):
+                for prof in self.callsites:
+                    prof.reset(samples=policy_changed,
+                               kernel=policy_changed or kernel_changed,
+                               split=policy_changed or precision_changed)
+            self.kernel_path = bool(new.kernel_path)
+            self.precision = str(new.precision)
+            self.precision_rtol = float(new.precision_rtol)
             self.device_bytes_cap = new.device_bytes
             self.evict_policy = new.evict
             pin_changed = new.pin != self.pin_all
@@ -391,12 +482,19 @@ class OffloadRuntime:
     # ------------------------------------------------------------------ #
     # async mode                                                          #
     # ------------------------------------------------------------------ #
-    def _fence(self) -> None:
-        """After a call: synchronize (``sync=True``) or record a CUDA
-        event for :meth:`sync` to wait on.  Nothing to do on the CPU."""
+    def _drain(self) -> None:
+        """Wait for everything queued on the card (before a timed probe,
+        so its clock does not run over earlier calls' work)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _fence(self, timed: bool = False) -> None:
+        """After a call: synchronize (``sync=True`` or a timed probe) or
+        record a CUDA event for :meth:`sync` to wait on.  Nothing to do
+        on the CPU."""
         if self.device.type != "cuda":
             return
-        if self.sync_mode:
+        if self.sync_mode or timed:
             torch.cuda.synchronize(self.device)
             return
         pend = self._pending
@@ -460,7 +558,10 @@ class OffloadRuntime:
                   operands: Sequence[Tuple[str, torch.Tensor, float, bool]],
                   compute: Callable[..., torch.Tensor],
                   batch: int = 1,
-                  key: Optional[Hashable] = None) -> torch.Tensor:
+                  key: Optional[Hashable] = None,
+                  kernel_compute: Optional[Callable] = None,
+                  split_compute: Optional[Callable] = None,
+                  split_check: Optional[Callable] = None) -> torch.Tensor:
         """Run one BLAS call through the dispatch pipeline.
 
         ``operands``: (role, tensor, device_reads_per_elem, written) — the
@@ -468,19 +569,27 @@ class OffloadRuntime:
         the arithmetic, taking the placed operand tensors in order.
         ``key``: hashable call-shape identity; when given, the offload
         decision is memoized in the dispatch cache.
+        ``kernel_compute``: the pallas-venue arithmetic (consulted only
+        under ``kernel_path``; None means no kernel for this routine).
+        ``split_compute``: split-precision factory ``(scheme, venue) ->
+        compute`` and ``split_check``: sampled-residual estimator
+        ``(out, *arrays) -> rel error`` (consulted only with a
+        ``precision`` scheme; None means the call always runs native).
 
         The whole pipeline runs under the runtime lock, and any matrix
         product issued inside it bypasses the interceptors."""
         with self._lock:
             _TLS.depth = getattr(_TLS, "depth", 0) + 1
             try:
-                return self._blas_call_locked(routine, m, n, k, operands,
-                                              compute, batch, key)
+                return self._blas_call_locked(
+                    routine, m, n, k, operands, compute, batch, key,
+                    kernel_compute, split_compute, split_check)
             finally:
                 _TLS.depth -= 1
 
     def _blas_call_locked(self, routine, m, n, k, operands, compute, batch,
-                          key) -> torch.Tensor:
+                          key, kernel_compute, split_compute,
+                          split_check) -> torch.Tensor:
         st = self.stats.routine(routine)
         st.calls += 1
         arrays = [op[1] for op in operands]
@@ -489,14 +598,24 @@ class OffloadRuntime:
             return compute(*arrays)
         call = CallContext(routine=routine, m=m, n=n, k=k, batch=batch,
                            operands=operands, arrays=arrays,
-                           compute=compute, key=key)
+                           compute=compute, key=key,
+                           kernel_compute=kernel_compute,
+                           split_compute=split_compute,
+                           split_check=split_check)
         if self.callsite_enabled:
             call.site_id = cs.fingerprint(routine)
             call.site = self.callsites.profile(call.site_id)
         decision = self._decide(call, st)
+        if decision.timed:
+            # a probe bills its own device work: drain what is queued
+            self._drain()
         t0 = time.perf_counter()
         out = self._execute(call, decision, st)
-        self._fence()
+        if decision.precision and decision.offload:
+            # sampled-residual check + escalation; inside the timed
+            # window so probe samples bill what the scheme really costs
+            out = self._verify_split(call, decision, st, out)
+        self._fence(timed=decision.timed)
         dt = time.perf_counter() - t0
         self._record(call, decision, out, dt, st)
         return out
@@ -514,7 +633,109 @@ class OffloadRuntime:
         if decision.offload and not self.policy.offloads:
             decision.offload = False
             decision.why = "policy:host-only"
+        self._resolve_precision(call, decision)
+        self._resolve_venue(call, decision)
         return decision
+
+    def _resolve_precision(self, call: CallContext,
+                           decision: DispatchDecision) -> None:
+        """Precision: which numeric formulation runs the decided path.
+        A no-op with ``precision`` off.  Runs before the venue resolution
+        because a split call is pallas-eligible where a native fp64 call
+        is not.  Adaptive decisions arrive with their precision already
+        chosen by the probe schedule / lock and are left alone."""
+        if not self.precision:
+            return
+        if not decision.offload or call.split_compute is None:
+            # the host path (incl. policy vetoes of a split probe)
+            # always runs native fp64
+            decision.precision = ""
+            return
+        if decision.precision or decision.why.startswith("adaptive"):
+            return
+        scheme = prec.choose(self.precision,
+                             thr.base_routine(call.routine),
+                             call.k or call.m, self.precision_rtol)
+        if scheme:
+            decision.precision = scheme
+            decision.why += f"+{scheme}"
+
+    def _resolve_venue(self, call: CallContext,
+                       decision: DispatchDecision) -> None:
+        """Venue: which execution engine runs the decided path.  A no-op
+        with ``kernel_path`` off.  Runs after the policy veto so a vetoed
+        call is always ``host``; an adaptive decision arrives with its
+        venue already chosen and is left alone."""
+        if not self.kernel_path:
+            return
+        if not decision.offload:
+            decision.venue = "host"
+            return
+        if decision.venue:
+            return                      # adaptive stage already chose
+        if (call.kernel_compute is not None
+                or (decision.precision
+                    and call.split_compute is not None)):
+            # a split fp64 call is pallas-eligible even though native
+            # fp64 gemm has no venue kernel: its passes run the gemm kernel
+            decision.venue = "pallas"
+            decision.why += "+kernel"
+        else:
+            decision.venue = "xla"
+
+    def _stage_adaptive(self, call: CallContext,
+                        st: RoutineStats) -> Optional[DispatchDecision]:
+        """Per-site adaptive mode: probe the first ``adaptive_warmup``
+        calls at each site on every venue, then lock the fastest."""
+        if not self.adaptive or call.site is None:
+            return None
+        site = call.site
+        # with kernel_path on and a kernel for this routine the warmup
+        # rotates over three venues instead of two
+        racing = self.kernel_path and call.kernel_compute is not None
+        if site.locked is not None:
+            # locked fast path: no threshold math, no N_avg derivation
+            st.dispatch_hits += 1
+            return DispatchDecision(
+                site.locked, n_avg=0.0, why="adaptive:locked",
+                venue=site.locked_venue if self.kernel_path else "",
+                precision=site.locked_precision)
+        nav = (thr.n_avg(call.routine, call.m, call.n, call.k)
+               * (max(1, call.batch) ** (1.0 / 3.0)))
+        if site.probes_done >= self.adaptive_warmup:
+            locked = site.lock()
+            if self.debug >= 1:
+                label = (site.locked_venue if self.kernel_path
+                         else ("offload" if locked else "host"))
+                if site.locked_precision:
+                    label += f"~{site.locked_precision}"
+                print(f"[scilib] adaptive lock {site.site}: "
+                      f"{label} ({site.locked_why})")
+            if self.kernel_path:
+                self._emit_event("venue",
+                                 f"{site.locked_venue}:{site.site}", 0)
+            st.dispatch_hits += 1
+            return DispatchDecision(
+                locked, n_avg=nav, why="adaptive:locked",
+                venue=site.locked_venue if self.kernel_path else "",
+                precision=site.locked_precision)
+        st.dispatch_misses += 1
+        # with a precision scheme and a split formulation, the warmup
+        # also races the split variant like a venue
+        split_scheme = ""
+        if self.precision and call.split_compute is not None:
+            split_scheme = prec.choose(
+                self.precision, thr.base_routine(call.routine),
+                call.k or call.m, self.precision_rtol)
+        venue = site.probe_venue(3 if racing else 2,
+                                 split=bool(split_scheme))
+        if venue == "split":
+            # venue stays "" here; _resolve_venue picks xla or pallas
+            return DispatchDecision(True, n_avg=nav, why="adaptive:probe",
+                                    timed=True, precision=split_scheme)
+        return DispatchDecision(venue != "host", n_avg=nav,
+                                why="adaptive:probe", timed=True,
+                                venue=venue if self.kernel_path else "")
 
     def _stage_cached(self, call: CallContext,
                       st: RoutineStats) -> Optional[DispatchDecision]:
@@ -553,13 +774,14 @@ class OffloadRuntime:
             out = call.compute(*self._harmonize(call.arrays, st))
             st.on_host += 1
             return out
-        return self._offload_whole(call, st)
+        return self._offload_whole(call, decision, st)
 
-    def _offload_whole(self, call: CallContext,
+    def _offload_whole(self, call: CallContext, decision: DispatchDecision,
                        st: RoutineStats) -> torch.Tensor:
         """Single-device offload: the policy places every operand, the
-        arithmetic runs on the placed tensors, the policy places the
-        output."""
+        decided formulation runs on the placed tensors (the split one,
+        the pallas venue's kernel closure, or the generic closure), the
+        policy places the output."""
         site = call.site
         placed, budget_used = [], 0
         ai = self._arith_intensity(call.routine, call.m, call.n, call.k,
@@ -582,11 +804,49 @@ class OffloadRuntime:
             if p.moved_bytes or p.cache_hit:
                 self.alias_trace_id(x, p.array)
             placed.append(p.array)
-        out = call.compute(*self._harmonize(placed, st))
+        call.placed = self._harmonize(placed, st)
+        if decision.precision and call.split_compute is not None:
+            compute = call.split_compute(decision.precision, decision.venue)
+        elif (decision.venue == "pallas"
+              and call.kernel_compute is not None):
+            compute = call.kernel_compute
+        else:
+            compute = call.compute
+        out = compute(*call.placed)
         out_p = self.policy.place_output(self, out)
         st.bytes_out += out_p.moved_bytes
         st.offloaded += 1
         return out_p.array
+
+    def _verify_split(self, call: CallContext, decision: DispatchDecision,
+                      st: RoutineStats, out: torch.Tensor) -> torch.Tensor:
+        """Post-execution escalation check of a split result.
+
+        The sampled residual (one O(n^2) fp64 matvec chain against the
+        O(n^3) call) estimates the forward relative error; a result over
+        ``precision_rtol`` is discarded and the call reruns native fp64,
+        so accuracy degradation is bounded, never silent.  The check
+        reads the operands the split ran on (``call.placed``, on the
+        device tier), where the reference reads the caller's arrays; the
+        native rerun streams the caller's arrays as the reference's
+        does.  Reading the residual waits for the result."""
+        if call.split_check is None:
+            return out
+        rel = float(call.split_check(out, *call.placed))
+        if rel <= self.precision_rtol:
+            return out
+        st.escalations += 1
+        decision.why += "+esc"
+        self._emit_event("escalate",
+                         f"{decision.precision}:{call.routine}", 0)
+        if call.site is not None:
+            # a site whose scheme misses its bound must never lock it
+            call.site.split_bad = True
+        if self.debug >= 1:
+            print(f"[scilib] {call.routine} {decision.precision} "
+                  f"residual {rel:.2e} > rtol {self.precision_rtol:.2e}"
+                  f" -> native fp64")
+        return call.compute(*self._harmonize(call.arrays, st))
 
     def _harmonize(self, arrays, st: RoutineStats) -> list:
         """Operands a policy left on the host are streamed to the device
@@ -607,14 +867,27 @@ class OffloadRuntime:
     def _record(self, call: CallContext, decision: DispatchDecision,
                 out: torch.Tensor, dt: float, st: RoutineStats) -> None:
         st.seconds += dt
-        if call.site is not None:
-            call.site.observe(decision.n_avg,
-                              _flops_of(call.routine, call.m, call.n,
-                                        call.k, call.batch),
-                              dt, decision.offload)
-        self._record_trace(call, out, dt)
+        if decision.offload and decision.venue == "pallas":
+            st.kernel_calls += 1
+            st.kernel_seconds += dt
+        if decision.offload and decision.precision:
+            st.split_calls += 1
+            st.split_seconds += dt
+        site = call.site
+        if site is not None:
+            if decision.timed:
+                site.observe_probe(decision.offload, dt,
+                                   venue=decision.venue,
+                                   precision=decision.precision)
+            site.observe(decision.n_avg,
+                         _flops_of(call.routine, call.m, call.n, call.k,
+                                   call.batch),
+                         dt, decision.offload, venue=decision.venue,
+                         precision=decision.precision)
+        self._record_trace(call, decision, out, dt)
         if self.debug >= 2:
-            where = "offload" if decision.offload else "host"
+            where = ((decision.venue or "offload") if decision.offload
+                     else "host")
             print(f"[scilib] {call.routine} m={call.m} n={call.n} "
                   f"k={call.k} navg={decision.n_avg:.0f} {where} "
                   f"({decision.why})")
@@ -634,8 +907,8 @@ class OffloadRuntime:
         size = sum(memspace.nbytes(a) for a in arrays)
         return _flops_of(routine, m, n, k, batch) / max(1, size)
 
-    def _record_trace(self, call: CallContext, out: torch.Tensor,
-                      seconds: float) -> None:
+    def _record_trace(self, call: CallContext, decision: DispatchDecision,
+                      out: torch.Tensor, seconds: float) -> None:
         if self.trace is None:
             return
         ops = []
@@ -657,7 +930,8 @@ class OffloadRuntime:
             routine=call.routine, m=call.m, n=call.n, k=call.k,
             batch=call.batch, operands=tuple(ops),
             callsite_id=call.site_id, seconds=seconds,
-            out_buf=out_buf, out_nbytes=out_nbytes))
+            out_buf=out_buf, out_nbytes=out_nbytes, venue=decision.venue,
+            precision=decision.precision))
 
 
 # --------------------------------------------------------------------- #

@@ -1,9 +1,10 @@
 """Hand-written Hopper kernels of the port and their plain versions.
 
-``gemm``/``trsm`` wrap the CUDA kernels in ``csrc/`` (built at first use
-by ``compat``); ``ops`` is what the BLAS surface calls; ``ref`` holds the
-plain PyTorch versions the kernels are checked against.  Importing this
-package builds nothing.
+``gemm``/``trsm``/``syrk`` wrap the CUDA kernels in ``csrc/`` (built at
+first use by ``compat``); ``split_gemm`` binds the split-precision passes
+to the gemm kernel; ``ops`` is what the BLAS surface calls; ``ref`` holds
+the plain PyTorch versions the kernels are checked against.  Importing
+this package builds nothing.
 """
 from repro_torch.kernels import ops, ref
 

@@ -1,17 +1,21 @@
-"""What the BLAS surface calls: ``matmul`` and ``trsm`` on the kernels.
+"""What the BLAS surface calls: ``matmul``, ``trsm`` and ``syrk`` on the
+kernels, and the entry points of the ``pallas`` dispatch venue.
 
-The counterpart of ``repro/kernels/ops.py:59-102``.  The choice between
+The counterpart of ``repro/kernels/ops.py:59-108`` and ``:135-235``.  The
+choice between
 the hand-written kernel and its plain version is made by the tensor's
 device inside each kernel wrapper (:mod:`repro_torch.kernels.gemm`,
-:mod:`repro_torch.kernels.trsm`): a CUDA tensor launches the kernel, a
+:mod:`repro_torch.kernels.trsm`, :mod:`repro_torch.kernels.syrk`): a
+CUDA tensor launches the kernel, a
 CPU tensor takes the plain version.  The shape handling here (batch
 broadcasting, complex planes, dtype routing) is the same for both, so the
 CPU tests run it.
 
 Complex products use the 4M decomposition onto four real products of the
 real and imaginary planes, each plane made contiguous first (``.real``
-and ``.imag`` are stride-2 views).  Complex solves stay off the kernel,
-as in the reference: they go to the library (``ref.trsm``).
+and ``.imag`` are stride-2 views).  Complex solves and rank-k updates
+stay off the kernels, as in the reference: they go to the library
+(``ref.trsm``, ``ref.syrk``).
 
 Deliberate difference from the reference: ``ops.py:74-75`` sends real
 float64 products to XLA only because the TPU's matrix unit has no
@@ -26,6 +30,7 @@ from typing import Callable
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels import syrk as syrk_kernel
 from repro_torch.kernels import trsm as trsm_kernel
 from repro_torch.kernels.gemm import gemm, row_major
 
@@ -79,3 +84,88 @@ def trsm(a: torch.Tensor, b: torch.Tensor, *, side: str = "L",
     x = trsm_kernel.trsm(a.float(), b.float(), side=side, uplo=uplo,
                          trans=trans, diag=diag)
     return x.to(dt)
+
+
+def _syrk_operand(a: torch.Tensor, trans: str):
+    """``(a, trans)`` in a layout the syrk kernel reads uncopied: a
+    transposed view of a row-major matrix flips ``trans`` instead of being
+    copied; only a layout that is neither gets ``.contiguous()``."""
+    if row_major(a):
+        return a, trans
+    if a.dim() == 2 and row_major(a.mT):
+        return a.mT, "T" if trans == "N" else "N"
+    return a.contiguous(), trans
+
+
+def syrk(a: torch.Tensor, *, uplo: str = "L", trans: str = "N"
+         ) -> torch.Tensor:
+    """C = op(A) op(A)^T, only the ``uplo`` triangle populated.  Real
+    types run the syrk kernel; complex goes to the library, as in the
+    reference (``repro/kernels/ops.py:105-108``)."""
+    if a.is_complex():
+        return ref.syrk(a, uplo=uplo, trans=trans)
+    a, trans = _syrk_operand(a, trans)
+    return syrk_kernel.syrk(a, uplo=uplo, trans=trans)
+
+
+# ---------------------------------------------------------------------------
+# The `pallas` dispatch venue (OffloadConfig.kernel_path / SCILIB_KERNELS)
+# ---------------------------------------------------------------------------
+# `kernel_*` are the entry points behind the runtime's third execution
+# venue.  The label stays the reference's, so decisions, counters and
+# traces read the same in both packages.  On the card both offload venues
+# compute on the hand-written kernels, as both do on a TPU: the `xla`
+# venue runs the generic closures of core/blas.py (``matmul`` above, a
+# full product masked for syrk), the `pallas` venue the lean closures
+# over these entry points (the syrk kernel computes one triangle).  No
+# library product enters either venue.  The reference's block-edge
+# override (``kernel_block``) is not ported: the gemm kernel has one tile
+# edge, so these entry points take no block argument.
+
+#: BLAS bases the `pallas` venue can execute; everything else stays on the
+#: generic offload path.
+KERNEL_BASES = ("gemm", "syrk", "trsm")
+
+#: Bases with a split-precision formulation (kernels/split_gemm.py,
+#: SCILIB_PRECISION): fp64 decomposed onto fp32/bf16 slice passes.
+SPLIT_KERNEL_BASES = ("gemm", "syrk", "trsm")
+
+
+def kernel_available(base: str, dtype: torch.dtype,
+                     precision: str = "") -> bool:
+    """Capability test for the `pallas` venue, the reference's matrix
+    exactly (``repro/kernels/ops.py:156-172``): complex syrk/trsm have no
+    kernel, complex gemm runs 4M, and an fp64 gemm counts as a kernel
+    only with a split scheme.  Without one an fp64 gemm still runs the
+    gemm kernel, on the `xla` venue, so decisions and counters match the
+    reference's."""
+    if base not in KERNEL_BASES:
+        return False
+    if dtype.is_complex:
+        return base == "gemm"
+    if dtype == torch.float64 and base == "gemm":
+        return bool(precision) and base in SPLIT_KERNEL_BASES
+    return True
+
+
+def kernel_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C = A @ B on the `pallas` venue: :func:`matmul`.  A split fp64
+    product on this venue does not come here: the runtime's precision
+    stage builds it from ``core/blas.py:_split_matmul``, whose passes run
+    on the gemm kernel (:mod:`repro_torch.kernels.split_gemm`)."""
+    return matmul(a, b)
+
+
+def kernel_syrk(a: torch.Tensor, *, uplo: str = "L",
+                trans: str = "N") -> torch.Tensor:
+    """C = op(A) op(A)^T on the `pallas` venue (the syrk kernel; complex
+    on the library, which ``kernel_available`` already refuses)."""
+    return syrk(a, uplo=uplo, trans=trans)
+
+
+def kernel_trsm(a: torch.Tensor, b: torch.Tensor, *, side: str = "L",
+                uplo: str = "L", trans: str = "N", diag: str = "N"
+                ) -> torch.Tensor:
+    """The triangular solve on the `pallas` venue: the trsm kernel
+    recursion (complex on the library, as :func:`trsm`)."""
+    return trsm(a, b, side=side, uplo=uplo, trans=trans, diag=diag)

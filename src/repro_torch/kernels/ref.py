@@ -2,7 +2,8 @@
 
 The counterparts of ``repro/kernels/ref.py``: the ground truth the kernel
 tests compare against, and the library calls for the work the reference
-also leaves outside its kernels (complex trsm, the residual check).
+also leaves outside its kernels (complex trsm and syrk, the residual
+check).
 
 ``torch.matmul`` is captured when this module is imported, before any
 session patches the public symbols, so nothing here re-enters the
@@ -38,6 +39,16 @@ def triangle(a: torch.Tensor, uplo: str, diag: str = "N") -> torch.Tensor:
         t = t.clone()
         t.diagonal(dim1=-2, dim2=-1).fill_(1)
     return t
+
+
+def syrk(a: torch.Tensor, *, uplo: str = "L", trans: str = "N"
+         ) -> torch.Tensor:
+    """C = op(A) op(A)^T with :func:`matmul`'s accumulation rule, only
+    the ``uplo`` triangle populated and zeros elsewhere
+    (``repro/kernels/ref.py:37-41``)."""
+    opa = a if trans == "N" else a.mT
+    full = matmul(opa, opa.mT)
+    return torch.tril(full) if uplo == "L" else torch.triu(full)
 
 
 def trsm(a: torch.Tensor, b: torch.Tensor, *, side: str = "L",

@@ -4,6 +4,7 @@ and the refusal of fields this slice has not ported."""
 import dataclasses
 import json
 import os
+import re
 
 import numpy as np
 import pytest
@@ -249,8 +250,20 @@ def test_callsite_fingerprint_skips_port_frames():
     ("lapack_nb", 64), ("faults", "transfer:p=0.1"),
     ("pool_bytes", 1 << 20), ("pool_quota", 1 << 20)])
 def test_unported_fields_raise_naming_the_roadmap_item(field, value):
+    """A field the port does not implement raises, naming the ROADMAP.md
+    item that brings it; the fields ported since (the adaptive mode, the
+    kernel venue, split precision) open a session and reconfigure."""
     cfg = OffloadConfig(**{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+    if field in ("adaptive", "kernel_path", "precision"):
+        with repro_torch.session(cfg, device="cpu") as s:
+            assert getattr(s.runtime, field) == value
+        with repro_torch.session(device="cpu") as s:
+            s.reconfigure(**{field: value})
+            assert getattr(s.runtime, field) == value
+        return
+    item = trt.UNPORTED_FIELDS.get(field, "Queue 1 item 7")
+    with pytest.raises(NotImplementedError,
+                       match=re.escape(f"ROADMAP.md {item}")):
         repro_torch.session(cfg, device="cpu")
     with repro_torch.session(device="cpu") as s:
         with pytest.raises(NotImplementedError, match=field):
