@@ -12,7 +12,9 @@ with ``host_array`` inputs), then the LSMS KKR loop
 (``repro_torch.apps.lsms.run_mini``) at the production KKR size
 n = 6912 in complex128, then the kernel venue, adaptive per-site racing
 and split-precision fp64 at PARSEC's production shapes (ngrid 93536,
-nstates 2400, nblock 32).  Phases, in order:
+nstates 2400, nblock 32), then the serving loop
+(``repro_torch.train.Server``) on gemma2-9b at full width with a Device
+First-Use decode cache.  Phases, in order:
 
 1. build   — build and load the kernels; the card's name and power limit.
 2. kernels — each kernel against its plain version, with the tolerance
@@ -27,7 +29,20 @@ nstates 2400, nblock 32).  Phases, in order:
              torch.matmul(hpsi_blk.T, psi) runs split3 on the pallas
              venue, within its a-priori bound; (c) a cancelling dgemm
              escalates to native fp64.  One session each.
+6. serve   — gemma2-9b (42 layers, d_model 3584, vocab 256000, bf16,
+             prefill_fresh_kv) with seeded random weights, batch 2 x
+             4608 prompt tokens: generate 16 under dfu and 4 under
+             memcopy (every attention kernel call there also held to its
+             plain version), byte/migration/reuse counts and kernel
+             launches asserted; then, at the same widths over 2 layers,
+             a forward without a cache over the prompt and 15 generated
+             tokens against the cached steps' logits; a device profile
+             of one prefill and one decode step.
 
+The kernels line's launches are those of the main path's runs: the BLAS
+and LSMS phases, the venue phase's (a)-(c), and the serve phase's dfu
+and memcopy runs, each with the counts set to 0 just before it.  The
+cross-check's and the profile's launches are not among them.
 Every mismatch or missing launch raises, so the script exits non-zero.
 The lines before the last are a JSON object of per-kernel numbers and
 the card's name and power limit; the last line is
@@ -77,6 +92,26 @@ ESCALATED_TOL = 1e-12
 #: sum read ~1.2e-15 on the CPU, any pass left out reads 1.5e-8 or more
 #: (tests/test_torch_precision.py)
 EXACT_PASS_TOL = 1e-12
+#: flash and decode attention in bf16 against their plain versions on the
+#: same bf16 inputs, per query row: max|kernel - plain| / max|plain| along
+#: the head dim, the largest over rows (row_rel).  Both sides compute in
+#: float32 (online against full softmax, other summation orders: ~1e-5 of
+#: a row at logits of ~100), then each rounds its output to bf16 once; two
+#: roundings of nearly equal values differ by at most one bf16 ulp, 2^-7 =
+#: 7.8e-3 of the value and so of the row's largest
+ATTN_TOL = 1e-2
+#: the kernels phase scales randn q by this, so that the logits q.k / 16
+#: have a standard deviation of ~30 and softcap 50 bites: the largest of a
+#: row's ~4600 logits, ~100, caps to 48.2, and its runner-up, ~96, to
+#: 47.9, so the cap spreads the weight over tens of keys
+ATTN_Q_SCALE = 30.0
+#: gemma2-9b serve cell: batch, prompt (past the 4096 window), generation
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 2, 4608, 16
+SERVE_LEN = SERVE_PROMPT + SERVE_GEN
+#: its decode cache: 2 period positions x (k, v), each (21 groups, batch,
+#: 8 KV heads, SERVE_LEN slots, head size 256) in bf16
+SERVE_CACHE_BYTES = 4 * 21 * SERVE_BATCH * 8 * SERVE_LEN * 256 * 2
+assert SERVE_CACHE_BYTES == 3_181_903_872
 
 
 def log(phase: str, msg: str) -> None:
@@ -128,6 +163,44 @@ def check(name: str, got, want, tol: float) -> float:
     return diff
 
 
+def row_rel(got, want) -> float:
+    """The largest over rows of max|got - want| / max|want| along the
+    last dim: attention's error measure, where rows (query positions and
+    heads) differ in magnitude."""
+    import torch
+    g, w = got.float(), want.float()
+    den = w.abs().amax(-1).clamp_min(torch.finfo(torch.float32).tiny)
+    return ((g - w).abs().amax(-1) / den).max().item()
+
+
+def check_rows(name: str, got, want, tol: float) -> float:
+    """``check`` for attention, with the error per row (row_rel)."""
+    import torch
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
+                             f"{tuple(want.shape)}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite values")
+    rel = row_rel(got, want)
+    if not rel <= tol:
+        raise AssertionError(f"{name}: per-row relative error {rel:.3e} > "
+                             f"{tol:g}")
+    log("kernels", f"{name}: per-row rel err {rel:.3e} (tol {tol:g})")
+    return (got.float() - want.float()).abs().max().item()
+
+
+def control(name: str, got, want, tol: float) -> None:
+    """A negative control: ``got`` computes another function than
+    ``want``, and the check must see it (per-row error over ``tol``)."""
+    rel = row_rel(got, want)
+    if not rel > tol:
+        raise AssertionError(f"control {name}: per-row relative error "
+                             f"{rel:.3e} <= {tol:g}; the check cannot tell "
+                             f"the two apart")
+    log("kernels", f"control {name}: per-row rel err {rel:.3e} > {tol:g}, "
+                   f"as it must be")
+
+
 def bound(ops: float, nbytes: float, dtype: str) -> tuple:
     t_ops = ops / PEAK_OPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -156,7 +229,7 @@ def variants(ptxas_log: str) -> list:
     for ln in ptxas_log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            t = re.search(r"([a-z]+_(?:base_)?kernel)I(\w+?)E+v", m.group(1))
+            t = re.search(r"([a-z_]+_kernel)I(\w+?)E+v", m.group(1))
             cur = dict(name=f"{t.group(1)}<{t.group(2)}>" if t
                        else m.group(1), stack=0, spill=0)
             out.append(cur)
@@ -184,8 +257,10 @@ def phase_build():
                          f"{v.get('smem')} B smem, {v['stack']} B stack, "
                          f"{v['spill']} B spill stores, {v.get('blocks')} "
                          f"blocks of 256 threads per SM")
+    import torch
     log("build", f"card: {card_line()}; build {secs:.1f} s "
-                 f"(nvcc {compat.BUILD_SECONDS:.1f} s)")
+                 f"(nvcc {compat.BUILD_SECONDS:.1f} s); torch "
+                 f"{torch.__version__}, CUDA {torch.version.cuda}")
 
 
 def gemm_times(a, b, label: str) -> dict:
@@ -306,6 +381,7 @@ def phase_kernels(dev) -> dict:
     del a, b
     rows = {"gemm": gemm_row, "trsm": trsm_row}
     rows.update(phase_kernels_parsec(dev, gen))
+    rows.update(phase_kernels_attention(dev))
     return rows
 
 
@@ -488,19 +564,134 @@ def exact_pass_check(gen, m: int, k: int, n: int, dev) -> None:
                    f"kernel == plain bit for bit: {same})")
 
 
-KERNELS = ("gemm", "trsm", "syrk", "split_gemm")
+def causal_pairs(t: int, window: int) -> int:
+    """Live (query, key) pairs of causal attention over t positions, with
+    keys at most ``window - 1`` behind (0: no window)."""
+    if window <= 0 or window >= t:
+        return t * (t + 1) // 2
+    return window * (window + 1) // 2 + (t - window) * window
+
+
+def sdpa(q, k, v, **kw):
+    """torch's scaled_dot_product_attention with GQA: the library
+    yardstick (library_ms), never called by the port."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
+
+
+def phase_kernels_attention(dev) -> dict:
+    """Flash and decode attention against their plain versions at
+    gemma2-9b's serve shapes, in bf16, with q scaled so that the softcap
+    bites (ATTN_Q_SCALE); then negative controls, each of which must fail
+    the same check: the kernel at another window, without the softcap,
+    or past kv_len, against the plain version of the real call."""
+    import torch
+    from repro_torch.kernels import attention, decode_attention
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+    b, hq, hkv, t, d = SERVE_BATCH, 16, 8, SERVE_PROMPT, 256
+    q, k, v = rnd(b, hq, t, d) * ATTN_Q_SCALE, rnd(b, hkv, t, d), \
+        rnd(b, hkv, t, d)
+    std = (q[0, 0].float() @ k[0, 0].float().T / math.sqrt(d)).std().item()
+    log("kernels", f"attention inputs: randn q x {ATTN_Q_SCALE:g}, k, v; "
+                   f"logits q.k / 16 with std {std:.1f} before softcap 50")
+    nbytes = 2 * (2 * b * hq * t * d + 2 * b * hkv * t * d)
+    flash_row, outs = None, {}
+    for window in (0, 4096):
+        kw = dict(causal=True, softcap=50.0, window=window)
+        got = attention.flash_attention(q, k, v, **kw)
+        want = attention.flash_attention_plain(q, k, v, **kw)
+        err = check_rows(f"flash_attention bf16 [{b},{hq},{t},{d}] window "
+                         f"{window} softcap 50", got, want, ATTN_TOL)
+        outs[window] = (got, want)
+        ms = time_ms(lambda: attention.flash_attention(q, k, v, **kw), reps=5)
+        plain_ms = time_ms(
+            lambda: attention.flash_attention_plain(q, k, v, **kw), reps=2)
+        lib_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True), reps=5)
+        pairs = causal_pairs(t, window)
+        ops_ = 4.0 * b * hq * d * pairs
+        bms, by = bound(ops_, nbytes, "bfloat16")
+        log("kernels", f"flash_attention window {window}: kernel {ms:.3f} ms "
+                       f"({ops_ / ms / 1e9:.1f} TFLOP/s on {pairs} live "
+                       f"pairs), plain {plain_ms:.3f} ms, sdpa (causal, "
+                       f"no softcap or window) {lib_ms:.3f} ms, bound "
+                       f"{bms:.4f} ms ({by}; bytes alone "
+                       f"{nbytes / PEAK_BYTES * 1e3:.4f} ms)")
+        if window == 0:
+            flash_row = dict(
+                name="flash_attention", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/attention.py:28",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
+    control("flash_attention window 0 vs plain window 4096", outs[0][0],
+            outs[4096][1], ATTN_TOL)
+    control("flash_attention without softcap vs plain with softcap 50",
+            attention.flash_attention(q, k, v, causal=True), outs[0][1],
+            ATTN_TOL)
+    del q, k, v, outs
+    s_len, kv_len = SERVE_LEN, SERVE_PROMPT + 1
+    q, k, v = rnd(b, hq, 1, d) * ATTN_Q_SCALE, rnd(b, hkv, s_len, d), \
+        rnd(b, hkv, s_len, d)
+    # the dead slots past kv_len hold keys 4x larger, whose capped logits
+    # (~+-50) would outweigh the live ones if any were read
+    k[:, :, kv_len:] *= 4
+    kw = dict(softcap=50.0)
+    want = decode_attention.decode_attention_plain(q, k, v, kv_len, **kw)
+    err = check_rows(f"decode_attention bf16 q [{b},{hq},1,{d}] cache "
+                     f"[{b},{hkv},{s_len},{d}] kv_len {kv_len} softcap 50",
+                     decode_attention.decode_attention(q, k, v, kv_len, **kw),
+                     want, ATTN_TOL)
+    control(f"decode_attention at kv_len {s_len} vs plain at {kv_len}",
+            decode_attention.decode_attention(q, k, v, s_len, **kw), want,
+            ATTN_TOL)
+    control("decode_attention without softcap vs plain with softcap 50",
+            decode_attention.decode_attention(q, k, v, kv_len), want,
+            ATTN_TOL)
+    ms = time_ms(lambda: decode_attention.decode_attention(q, k, v, kv_len,
+                                                           **kw), reps=50)
+    plain_ms = time_ms(lambda: decode_attention.decode_attention_plain(
+        q, k, v, kv_len, **kw), reps=10)
+    live = (torch.arange(s_len, device=dev) < kv_len)[None, None, None]
+    lib_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=live), reps=50)
+    nbytes = 2 * (2 * b * hkv * kv_len * d + 2 * b * hq * d)
+    bms, by = bound(4.0 * b * hq * d * kv_len, nbytes, "bfloat16")
+    n_chunks = -(-kv_len // 256)
+    log("kernels", f"decode_attention: kernel {ms:.4f} ms "
+                   f"({nbytes / ms / 1e6:.1f} GB/s; {n_chunks} x {b * hkv} "
+                   f"blocks on 132 SMs, then {b * hq} combine blocks), plain "
+                   f"{plain_ms:.3f} ms, sdpa (kv_len mask, no softcap) "
+                   f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+    decode_row = dict(
+        name="decode_attention", route="cuda",
+        source="src/repro_torch/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:29",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+        bound_by=by, library_ms=lib_ms)
+    return {"flash_attention": flash_row, "decode_attention": decode_row}
+
+
+KERNELS = ("gemm", "trsm", "syrk", "split_gemm", "flash_attention",
+           "decode_attention")
+MODULES = {"gemm": "gemm", "trsm": "trsm", "syrk": "syrk",
+           "split_gemm": "split_gemm", "flash_attention": "attention",
+           "decode_attention": "decode_attention"}
 
 
 def reset_counts() -> None:
-    from repro_torch.kernels import gemm, split_gemm, syrk, trsm
-    for mod in (gemm, trsm, syrk, split_gemm):
-        mod.reset_launches()
+    import importlib
+    for mod in MODULES.values():
+        importlib.import_module(f"repro_torch.kernels.{mod}").reset_launches()
 
 
 def counts() -> dict:
-    from repro_torch.kernels import gemm, split_gemm, syrk, trsm
-    return {"gemm": gemm.launches, "trsm": trsm.launches,
-            "syrk": syrk.launches, "split_gemm": split_gemm.launches}
+    import importlib
+    return {name: importlib.import_module(
+        f"repro_torch.kernels.{mod}").launches
+        for name, mod in MODULES.items()}
 
 
 def phase_blas(s, dev) -> dict:
@@ -743,6 +934,266 @@ def phase_venue(dev) -> dict:
     return launched
 
 
+#: the serve phase's cross-check runs gemma2-9b's widths over one local
+#: and one global layer: at the full 42 layers with random bf16 weights a
+#: one-ulp change of one attention output grows into logits that differ
+#: by several units, on the kernels and on the plain versions alike, so
+#: no greedy token there can tell a right kernel from a wrong one
+CROSS_LAYERS = 2
+
+
+def generate_keeping(model, params, policy: str, n: int, prompt, dev):
+    """Server.generate under ``policy``, keeping the last-position logits
+    of every forward it runs (the prefill, then each decode step)."""
+    import torch
+    from repro_torch.train import Server, ServeConfig
+    forward, kept = model.forward, []
+
+    def keeping(params_, tokens, **kw):
+        logits, aux, cache = forward(params_, tokens, **kw)
+        kept.append(logits[:, -1].clone())
+        return logits, aux, cache
+
+    model.forward = keeping
+    try:
+        srv = Server(model, params, ServeConfig(
+            max_len=SERVE_LEN, offload_policy=policy), device=dev)
+        out = srv.generate(prompt, n)
+    finally:
+        model.forward = forward
+    return srv, out, torch.stack(kept, dim=1)
+
+
+def cross_check(model, params, prompt, out, cached, dev) -> dict:
+    """A forward without a cache (the flash kernel on every layer) over
+    the prompt and all but the last generated token, against the cached
+    steps' logits (the decode kernel on global layers, plain attention on
+    local ones).  Greedy tokens must agree wherever the cached top-2
+    margin exceeds 2 max|dlogit|: a flip needs the leader to drop and the
+    runner-up to rise, each by at most max|dlogit|."""
+    import torch
+    seq = torch.cat([prompt.to(dev), out[:, :-1]], dim=1)
+    with torch.no_grad():
+        logits, _, _ = model.forward(params, seq)
+    nocache = logits[:, prompt.shape[1] - 1:]
+    del logits
+    if not bool(torch.isfinite(nocache).all() & torch.isfinite(cached).all()):
+        raise AssertionError("serve cross-check: non-finite logits")
+    delta = (nocache - cached).abs().max().item()
+    top2 = cached.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > 2 * delta
+    agree = nocache.argmax(-1) == out
+    if not bool(agree[sure].all()):
+        raise AssertionError(f"serve cross-check: tokens differ at steps "
+                             f"with margin > 2 x {delta:.4f}")
+    return dict(delta=delta, top=cached.abs().max().item(),
+                sure=int(sure.sum()), agree=int(agree.sum()),
+                steps=agree.numel(), tokens=seq.shape[1])
+
+
+def checked_attention(worst: dict):
+    """Wrap ops' attention kernels so that every call of the path is also
+    computed by the plain version on the same inputs; the largest
+    per-row relative difference (row_rel) per kernel goes into
+    ``worst``.  Returns the function that restores them."""
+    from repro_torch.kernels import attention, decode_attention, ops
+    real = (ops.flash_attention, ops.decode_attention)
+
+    def flash(q, k, v, **kw):
+        out = real[0](q, k, v, **kw)
+        worst["flash_attention"] = max(worst.get("flash_attention", 0.0),
+                                       row_rel(out, attention.
+                                               flash_attention_plain(
+                                                   q, k, v, **kw)))
+        return out
+
+    def decode(q, k, v, kv_len, **kw):
+        out = real[1](q, k, v, kv_len, **kw)
+        worst["decode_attention"] = max(worst.get("decode_attention", 0.0),
+                                        row_rel(out, decode_attention.
+                                                decode_attention_plain(
+                                                    q, k, v, kv_len, **kw)))
+        return out
+
+    ops.flash_attention, ops.decode_attention = flash, decode
+
+    def restore():
+        ops.flash_attention, ops.decode_attention = real
+    return restore
+
+
+def device_profile(fn, label: str, top: int = 6) -> None:
+    """Run ``fn`` once under torch.profiler: wall time, device time summed
+    over kernels and copies, the device's idle share, and the kernels that
+    take the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    events = [e for e in prof.key_averages() if dev_us(e) > 0]
+    total_ms = sum(dev_us(e) for e in events) / 1e3
+    events.sort(key=dev_us, reverse=True)
+    if not events:
+        ms = time_ms(fn, reps=1)
+        log("serve", f"profile {label}: the profiler recorded no device "
+                     f"time; {ms:.1f} ms by CUDA events")
+        return
+    log("serve", f"profile {label}: wall {wall_ms:.1f} ms (under the "
+                 f"profiler), device {total_ms:.1f} ms, idle share "
+                 f"{max(0.0, 1 - total_ms / wall_ms):.3f}")
+    for e in events[:top]:
+        log("serve", f"  {dev_us(e) / 1e3:9.2f} ms  {e.count:5d} x  "
+                     f"{e.key[:90]}")
+
+
+def phase_serve(dev) -> dict:
+    """gemma2-9b at full width through the serving loop: dfu, then
+    memcopy with every attention kernel call held to its plain version
+    (these two runs are the main path, and their launches are returned),
+    then the cross-check between the cached steps and a forward without a
+    cache over two layers, then a device profile of one prefill and one
+    decode step."""
+    import dataclasses
+    import torch
+    from repro_torch.models import Model, get_config
+    cfg = dataclasses.replace(get_config("gemma2_9b"), prefill_fresh_kv=True)
+    model = Model.from_config(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    log("serve", f"{cfg.name}: {cfg.n_layers} layers, d_model "
+                 f"{cfg.d_model}, vocab {cfg.vocab}, "
+                 f"{sum(p.numel() for p in params.parameters())} parameters "
+                 f"({sum(p.nbytes for p in params.parameters()) / 1e9:.2f} "
+                 f"GB) made on the card in {time.perf_counter() - t0:.1f} s")
+    prompt = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
+                           generator=torch.Generator().manual_seed(1))
+    n_global = cfg.n_layers // 2
+    launched = {}
+
+    def add(got):
+        for name, n in got.items():
+            launched[name] = launched.get(name, 0) + n
+
+    # dfu: one migration of the cache, then reuse
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    srv, out, _ = generate_keeping(model, params, "dfu", SERVE_GEN, prompt,
+                                   dev)
+    got = counts()
+    peak = torch.cuda.max_memory_allocated()
+    add(got)
+    st = srv.stats
+    want = (SERVE_CACHE_BYTES, 0, 1, SERVE_GEN - 1)
+    have = (st.bytes_host_to_dev, st.bytes_dev_to_host, st.migrations,
+            st.cache_reuses)
+    if have != want:
+        raise AssertionError(f"serve dfu: (h->d, d->h, migrations, reuses) "
+                             f"{have} != {want}")
+    if (got["flash_attention"], got["decode_attention"]) != \
+            (cfg.n_layers, n_global * (SERVE_GEN - 1)):
+        raise AssertionError(f"serve dfu: launches {got}, want flash "
+                             f"{cfg.n_layers} (prefill) and decode "
+                             f"{n_global} x {SERVE_GEN - 1}")
+    if tuple(out.shape) != (SERVE_BATCH, SERVE_GEN) or not bool(
+            ((out >= 0) & (out < cfg.vocab)).all()):
+        raise AssertionError(f"serve dfu: tokens {out}")
+    log("serve", f"dfu generate({SERVE_BATCH} x {SERVE_PROMPT}, "
+                 f"{SERVE_GEN}): prefill {st.prefill_s:.3f} s, decode "
+                 f"{st.decode_s:.3f} s for {SERVE_GEN - 1} steps "
+                 f"({st.decode_s / (SERVE_GEN - 1) * 1e3:.1f} ms per step, "
+                 f"{st.tokens / st.decode_s:.2f} tokens/s); h->d "
+                 f"{st.bytes_host_to_dev} B, d->h {st.bytes_dev_to_host} B, "
+                 f"migrations {st.migrations}, reuses {st.cache_reuses}; "
+                 f"launches {got}; peak device memory {peak / 1e9:.2f} GB")
+    del srv
+
+    # memcopy: the cache round-trips around the prefill and every step;
+    # each attention kernel call is also computed by its plain version
+    worst = {}
+    restore = checked_attention(worst)
+    reset_counts()
+    try:
+        mc, out_mc, _ = generate_keeping(model, params, "memcopy", 4,
+                                         prompt, dev)
+    finally:
+        restore()
+    got = counts()
+    add(got)
+    st = mc.stats
+    have = (st.bytes_host_to_dev, st.bytes_dev_to_host)
+    if have != (4 * SERVE_CACHE_BYTES, 4 * SERVE_CACHE_BYTES):
+        raise AssertionError(f"serve memcopy: (h->d, d->h) {have} != 4 x "
+                             f"{SERVE_CACHE_BYTES}")
+    if not torch.equal(out_mc, out[:, :4]):
+        raise AssertionError(f"serve memcopy tokens {out_mc.tolist()} != "
+                             f"dfu's {out[:, :4].tolist()}")
+    if set(worst) != {"flash_attention", "decode_attention"} or \
+            max(worst.values()) > ATTN_TOL:
+        raise AssertionError(f"serve memcopy: kernels vs plain in the "
+                             f"path {worst} (tol {ATTN_TOL})")
+    log("serve", f"memcopy generate(.., 4): prefill {st.prefill_s:.3f} s "
+                 f"and decode {st.decode_s:.3f} s for 3 steps (each with "
+                 f"the plain versions beside the kernels); h->d "
+                 f"{st.bytes_host_to_dev} B, d->h {st.bytes_dev_to_host} B "
+                 f"(4 x the cache); tokens equal dfu's first 4; every "
+                 f"kernel call vs its plain version on the same inputs: "
+                 + ", ".join(f"{k} {v:.3e}" for k, v in sorted(worst.items()))
+                 + f" (tol {ATTN_TOL:g}); launches {got}")
+    del mc
+
+    # cross-check at the same widths over two layers; its launches are
+    # asserted here and kept out of the main path's counts
+    small = dataclasses.replace(cfg, n_layers=CROSS_LAYERS)
+    smodel = Model.from_config(small)
+    sparams = smodel.init(torch.Generator(device=dev).manual_seed(0), dev)
+    reset_counts()
+    _, sout, scached = generate_keeping(smodel, sparams, "dfu", SERVE_GEN,
+                                        prompt, dev)
+    cut = cross_check(smodel, sparams, prompt, sout, scached, dev)
+    got = counts()
+    want = (2 * CROSS_LAYERS, CROSS_LAYERS // 2 * (SERVE_GEN - 1))
+    if (got["flash_attention"], got["decode_attention"]) != want:
+        raise AssertionError(f"serve cross-check: launches {got}, want "
+                             f"(flash, decode) {want}")
+    if cut["sure"] == 0:
+        raise AssertionError(f"serve cross-check at {CROSS_LAYERS} layers: "
+                             f"no step has a margin over 2 x "
+                             f"{cut['delta']:.4f}")
+    log("serve", f"cross-check, {CROSS_LAYERS} layers: forward without a "
+                 f"cache over {cut['tokens']} tokens vs the {SERVE_GEN} "
+                 f"cached steps: max|dlogit| {cut['delta']:.5f} (logits up "
+                 f"to {cut['top']:.2f}); tokens agree at all {cut['sure']} "
+                 f"of {cut['steps']} steps whose top-2 margin exceeds 2 x "
+                 f"max|dlogit| ({cut['agree']} of {cut['steps']} agree in "
+                 f"all); launches {got} (not counted as the main path's)")
+    del sparams, smodel, scached
+
+    # where a step's device time goes (launches here are not counted)
+    cache = model.init_cache(SERVE_BATCH, SERVE_LEN, device=dev)
+    tok = out[:, :1]
+    with torch.no_grad():
+        device_profile(lambda: model.forward(
+            params, prompt.to(dev), cache=cache, cache_pos=0),
+            f"one prefill forward ({SERVE_BATCH} x {SERVE_PROMPT})")
+        device_profile(lambda: model.forward(
+            params, tok, cache=cache, cache_pos=SERVE_PROMPT),
+            f"one decode step (kv_len {SERVE_PROMPT + 1})")
+    del params, cache
+    torch.cuda.empty_cache()
+    return launched
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this "
@@ -768,11 +1219,13 @@ def main() -> int:
         blas_launches = phase_blas(s, dev)
         lsms_launches = phase_lsms(s, dev)
     venue_launches = phase_venue(dev)
+    serve_launches = phase_serve(dev)
     for name, row in rows.items():
         row["launches"] = (blas_launches[name] + lsms_launches[name]
-                           + venue_launches[name])
+                           + venue_launches[name] + serve_launches[name])
         log("done", f"{name} launches: blas {blas_launches[name]}, lsms "
-                    f"{lsms_launches[name]}, venue {venue_launches[name]}")
+                    f"{lsms_launches[name]}, venue {venue_launches[name]}, "
+                    f"serve {serve_launches[name]}")
         if row["launches"] == 0:
             raise AssertionError(f"{name} kernel never launched on the "
                                  f"main path")

@@ -11,13 +11,16 @@ surface is the session API:
         print(s.report())
 
 A session runs on the card (``cuda:0``) unless ``device="cpu"`` asks for
-the simulated-tier mode on the CPU; without CUDA it raises.  Attributes
-resolve lazily, so ``import repro_torch`` imports nothing heavy and
+the simulated-tier mode on the CPU; without CUDA it raises.  The dense LM
+stack and its serving loop (``repro_torch.models``,
+``repro_torch.train.Server``) follow the same rule.  Attributes resolve
+lazily, so ``import repro_torch`` imports nothing heavy and
 builds no kernel.
 """
 from typing import TYPE_CHECKING
 
-__all__ = ["OffloadConfig", "Session", "session", "active_session", "core"]
+__all__ = ["OffloadConfig", "Session", "session", "active_session", "core",
+           "models", "train"]
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from repro_torch.core.config import OffloadConfig
@@ -35,8 +38,8 @@ def __getattr__(name: str):
     if name in _SESSION_NAMES:
         return getattr(importlib.import_module("repro_torch.core.session"),
                        name)
-    if name == "core":
-        return importlib.import_module("repro_torch.core")
+    if name in ("core", "models", "train"):
+        return importlib.import_module(f"repro_torch.{name}")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 

@@ -29,11 +29,12 @@ policies treat the copy as stale.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import weakref
 from contextvars import ContextVar
-from typing import Dict, Hashable, Optional, Tuple
+from typing import Dict, Hashable, Iterator, Optional, Tuple
 
 import torch
 
@@ -113,6 +114,24 @@ def install(space: MemSpace) -> MemSpace:
 
 def uninstall() -> None:
     _ACTIVE.set(None)
+
+
+@contextlib.contextmanager
+def installed(space: MemSpace) -> Iterator[MemSpace]:
+    """Make ``space`` this context's mapping for the ``with`` block, then
+    restore whatever was installed before (entry points that own their
+    device, like the serving loop, use this instead of :func:`probe`)."""
+    token = _ACTIVE.set(space)
+    try:
+        yield space
+    finally:
+        _ACTIVE.reset(token)
+
+
+def for_device(device: torch.device) -> MemSpace:
+    """The mapping of one resolved device: real tiers on a card,
+    simulated tiers on the CPU."""
+    return MemSpace(device=device, simulated=device.type == "cpu")
 
 
 def nbytes(x: torch.Tensor) -> int:

@@ -317,8 +317,7 @@ class OffloadRuntime:
         self._lock = threading.RLock()
         self._stats_lock = threading.Lock()
         self.device = memspace.resolve_device(device)
-        self.memspace = memspace.MemSpace(
-            device=self.device, simulated=self.device.type == "cpu")
+        self.memspace = memspace.for_device(self.device)
         self.policy: pol.PolicyBase = pol.make_policy(config.policy)
         self.threshold = config.resolved_threshold()
         self.stats = RuntimeStats()

@@ -1,11 +1,14 @@
-"""What the BLAS surface calls: ``matmul``, ``trsm`` and ``syrk`` on the
-kernels, and the entry points of the ``pallas`` dispatch venue.
+"""What the BLAS surface and the model stack call: ``matmul``, ``trsm``,
+``syrk`` and ``attention`` on the kernels, and the entry points of the
+``pallas`` dispatch venue.
 
-The counterpart of ``repro/kernels/ops.py:59-108`` and ``:135-235``.  The
+The counterpart of ``repro/kernels/ops.py:59-132`` and ``:135-235``.  The
 choice between
 the hand-written kernel and its plain version is made by the tensor's
 device inside each kernel wrapper (:mod:`repro_torch.kernels.gemm`,
-:mod:`repro_torch.kernels.trsm`, :mod:`repro_torch.kernels.syrk`): a
+:mod:`repro_torch.kernels.trsm`, :mod:`repro_torch.kernels.syrk`,
+:mod:`repro_torch.kernels.attention`,
+:mod:`repro_torch.kernels.decode_attention`): a
 CUDA tensor launches the kernel, a
 CPU tensor takes the plain version.  The shape handling here (batch
 broadcasting, complex planes, dtype routing) is the same for both, so the
@@ -25,13 +28,15 @@ planes) runs on the gemm kernel, which accumulates float64 in float64.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels import syrk as syrk_kernel
 from repro_torch.kernels import trsm as trsm_kernel
+from repro_torch.kernels.attention import flash_attention
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.gemm import gemm, row_major
 
 
@@ -46,9 +51,14 @@ def _rowmajor(x: torch.Tensor) -> torch.Tensor:
 
 def _batched(f: Callable, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Run the 2-D product ``f`` over broadcast leading batch dims as one
-    batched launch."""
+    launch.  A stack of activations times one matrix (``x @ W``, every
+    projection of the model stack) folds the leading dims into M: one 2-D
+    product, and the matrix is never expanded or copied per batch."""
     if a.dim() == 2 and b.dim() == 2:
         return f(_rowmajor(a), _rowmajor(b))
+    if b.dim() == 2:
+        out = f(_rowmajor(a.reshape(-1, a.shape[-1])), _rowmajor(b))
+        return out.reshape(a.shape[:-1] + out.shape[-1:])
     bshape = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
     af = a.expand(bshape + a.shape[-2:]).reshape((-1,) + a.shape[-2:])
     bf = b.expand(bshape + b.shape[-2:]).reshape((-1,) + b.shape[-2:])
@@ -106,6 +116,37 @@ def syrk(a: torch.Tensor, *, uplo: str = "L", trans: str = "N"
         return ref.syrk(a, uplo=uplo, trans=trans)
     a, trans = _syrk_operand(a, trans)
     return syrk_kernel.syrk(a, uplo=uplo, trans=trans)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int = 0, softcap: float = 0.0,
+              scale: Optional[float] = None, kv_len: Optional[int] = None,
+              chunk_q: int = 0) -> torch.Tensor:
+    """Attention entry point for the model stack, with the branches of
+    ``repro/kernels/ops.py:111-132`` in the same order.  The reference's
+    ``use_pallas()`` is the kernel wrapper here, so on the CPU the same
+    branch runs that wrapper's plain version:
+
+    * one token (Tq 1) against a cache (``kv_len`` set), causal, no window:
+      the decode kernel;
+    * Tq >= 8 with no ``kv_len`` (a forward without a cache, or a prefill
+      that attends over its fresh keys): the flash kernel;
+    * else the query-chunked or the full plain formulation, as the
+      reference runs them outside its kernels (the decode steps of
+      windowed layers among them)."""
+    tq = q.shape[-2]
+    if tq == 1 and kv_len is not None and causal and window == 0:
+        return decode_attention(q, k, v, kv_len, softcap=softcap,
+                                scale=scale)
+    if tq >= 8 and kv_len is None:
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               softcap=softcap, scale=scale)
+    if (chunk_q and causal and window == 0 and kv_len is None
+            and tq > chunk_q and tq % chunk_q == 0):
+        return ref.attention_chunked(q, k, v, chunk_q=chunk_q,
+                                     softcap=softcap, scale=scale)
+    return ref.attention(q, k, v, causal=causal, window=window,
+                         softcap=softcap, scale=scale, kv_len=kv_len)
 
 
 # ---------------------------------------------------------------------------

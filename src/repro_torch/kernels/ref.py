@@ -3,7 +3,7 @@
 The counterparts of ``repro/kernels/ref.py``: the ground truth the kernel
 tests compare against, and the library calls for the work the reference
 also leaves outside its kernels (complex trsm and syrk, the residual
-check).
+check, attention on the decode steps of windowed layers).
 
 ``torch.matmul`` is captured when this module is imported, before any
 session patches the public symbols, so nothing here re-enters the
@@ -11,6 +11,7 @@ interceptor (``repro_torch.core.intercept``).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -69,3 +70,64 @@ def trsm(a: torch.Tensor, b: torch.Tensor, *, side: str = "L",
                                       left=(side == "L"),
                                       unitriangular=(diag == "U"))
     return x.to(dt)
+
+
+#: the masked-logit value of ``repro/kernels/ref.py:88``: finite, so a row
+#: whose keys are all masked gives exp(0) = 1, never exp(-inf + inf)
+NEG_INF = -1e30
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int = 0, softcap: float = 0.0,
+              scale: Optional[float] = None, kv_len: Optional[int] = None,
+              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Attention in float32, ``repro/kernels/ref.py:44-90``.  q is
+    [B, Hq, Tq, D], k and v [B, Hkv, Tk, D] with Hq a multiple of Hkv
+    (GQA).  The logits are scaled, then soft-capped (``tanh(x / c) * c``),
+    then masked: keys at or past ``kv_len`` (default Tk), and with
+    ``causal`` keys after the query, with ``window`` keys ``window`` or
+    more behind it.  Queries sit right-aligned at positions
+    ``kv_len - Tq .. kv_len - 1``."""
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    qf = q.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    s = scale if scale is not None else 1.0 / math.sqrt(d)
+    logits = torch_matmul(qf, kf.mT) * s
+    if softcap > 0.0:
+        logits = torch.tanh(logits / softcap) * softcap
+    live = tk if kv_len is None else int(kv_len)
+    qpos = torch.arange(tq, device=q.device)[:, None] + (live - tq)
+    kpos = torch.arange(tk, device=q.device)[None, :]
+    mask = kpos < live
+    if causal:
+        mask = mask & (qpos >= kpos)
+    if window > 0:
+        mask = mask & (qpos - kpos < window)
+    logits = torch.where(mask, logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    return torch_matmul(p, vf).to(out_dtype or q.dtype)
+
+
+def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      chunk_q: int, softcap: float = 0.0,
+                      scale: Optional[float] = None,
+                      out_dtype: Optional[torch.dtype] = None
+                      ) -> torch.Tensor:
+    """Causal attention in query chunks with causally sliced keys,
+    ``repro/kernels/ref.py:93-117``: chunk i attends to keys
+    [0, (i + 1) * chunk_q) only, so the masked upper triangle is never
+    computed."""
+    t = q.shape[2]
+    if t % chunk_q:
+        raise ValueError(f"attention_chunked: T={t} is not a multiple of "
+                         f"chunk_q={chunk_q}")
+    outs = []
+    for i in range(t // chunk_q):
+        klen = (i + 1) * chunk_q
+        outs.append(attention(q[:, :, i * chunk_q:klen], k[:, :, :klen],
+                              v[:, :, :klen], causal=True, softcap=softcap,
+                              scale=scale, out_dtype=out_dtype))
+    return torch.cat(outs, dim=2)

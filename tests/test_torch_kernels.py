@@ -231,13 +231,17 @@ def test_import_builds_nothing_and_build_dir_is_ignored():
     assert rel.parts[0] == "build"
     ignored = (REPO / ".gitignore").read_text().split()
     assert "build/" in ignored and "*.so" in ignored
-    assert sorted(compat.sources()) == ["gemm", "syrk", "trsm"]
+    assert sorted(compat.sources()) == ["decode_attention", "flash_attention",
+                                        "gemm", "syrk", "trsm"]
 
 
 def test_kernel_sources_name_the_tpu_kernel_they_replace():
-    for name, func in (("gemm", "_gemm_kernel"),
-                       ("trsm", "_trsm_base_kernel"),
-                       ("syrk", "_syrk_kernel")):
+    for name, module, func in (
+            ("gemm", "gemm", "_gemm_kernel"),
+            ("trsm", "trsm", "_trsm_base_kernel"),
+            ("syrk", "syrk", "_syrk_kernel"),
+            ("flash_attention", "attention", "_flash_kernel"),
+            ("decode_attention", "decode_attention", "_decode_kernel")):
         text = compat.sources()[name].read_text()
-        assert f"src/repro/kernels/{name}.py:{func}" in text
+        assert f"src/repro/kernels/{module}.py:{func}" in text
         assert "What bounds it" in text and "Design" in text
