@@ -18,7 +18,11 @@ First-Use decode cache.  Phases, in order:
 
 1. build   — build and load the kernels; the card's name and power limit.
 2. kernels — each kernel against its plain version, with the tolerance
-             stated beside it; kernel, plain and library times.
+             stated beside it; kernel, plain and library times; gemm on
+             each of its paths, at the serve path's bf16 shapes too
+             (prefill MLP, decode projections, the vocab head over the
+             table's transposed view); the fused split kernel's slices
+             bit for bit, its exact-pass check and dropped-pass controls.
 3. blas    — gemm/trsm/small mm inside a DFU session; counters asserted.
 4. lsms    — run_mini(atoms=2, energies=2, scf=1, n=6912, complex128)
              inside the same session; counters, residual and launches
@@ -80,13 +84,18 @@ TRSM_TOL = {"float64": 1e-10, "float32": 3e-4}
 LSMS_RESID = 1e-9
 #: PARSEC's production shapes (src/repro_torch/apps/dft.py PROD)
 NGRID, NSTATES, NBLOCK = 93536, 2400, 32
-#: split3 passes per dgemm at K = NGRID: 6 cross passes x 366 chunks of 256
-SPLIT3_LAUNCHES = 6 * -(-NGRID // 256)
+#: launches of csrc/split_gemm.cu per split product: the fused passes,
+#: then the fixed-order sum of the K-split partials
+SPLIT3_LAUNCHES = 2
 #: an escalated result against native fp64: both are float64 sums of the
-#: same terms (the gemm kernel's match cuBLAS's bit for bit at the shapes
-#: above); 1e-12 absolute on a product that cancels to ~1e-15 leaves room
-#: for any summation order
+#: same terms in different orders (the gemm kernel's DMMA tiles against
+#: cuBLAS's); 1e-12 absolute on a product that cancels to ~1e-15 leaves
+#: room for any summation order
 ESCALATED_TOL = 1e-12
+#: gemma2-9b's projection shapes on the serve path: the prefill's MLP
+#: (M = batch x prompt), a decode step's (M = batch), and the tied vocab
+#: head's K and N
+SERVE_D, SERVE_FF, SERVE_VOCAB = 3584, 14336, 256000
 #: split3 on exact-pass operands (exact_pass_operands) against their
 #: exact product, column-relative: a few float64 roundings of the pass
 #: sum read ~1.2e-15 on the CPU, any pass left out reads 1.5e-8 or more
@@ -229,7 +238,8 @@ def variants(ptxas_log: str) -> list:
     for ln in ptxas_log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            t = re.search(r"([a-z_]+_kernel)I(\w+?)E+v", m.group(1))
+            t = re.search(r"\d*([a-z][a-z0-9_]*_kernel)I(\w+?)E+v",
+                          m.group(1))
             cur = dict(name=f"{t.group(1)}<{t.group(2)}>" if t
                        else m.group(1), stack=0, spill=0)
             out.append(cur)
@@ -282,6 +292,45 @@ def gemm_times(a, b, label: str) -> dict:
                    f"bound {bms:.4f} ms ({by})")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=lib_ms)
+
+
+def serve_gemm_checks(dev) -> None:
+    """gemm at the serve path's bf16 shapes against its plain version,
+    with kernel, plain, torch.matmul and bound times: the prefill's MLP
+    (path 1, tensor cores), decode projections (path 2, K split across
+    blocks), the tied vocab head over the table's transposed view (path
+    2, dot products along K, no copy), and ragged controls of both
+    paths."""
+    import torch
+    from repro_torch.kernels import gemm
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+    m_pre = SERVE_BATCH * SERVE_PROMPT
+    w_ff, w_kv = rnd(SERVE_D, SERVE_FF), rnd(SERVE_D, 2048)
+    table = rnd(SERVE_VOCAB, SERVE_D)
+    x = rnd(SERVE_BATCH, SERVE_D)
+    cases = [
+        (f"prefill MLP {m_pre}x{SERVE_FF}x{SERVE_D}", rnd(m_pre, SERVE_D),
+         w_ff),
+        (f"decode MLP {SERVE_BATCH}x{SERVE_FF}x{SERVE_D}", x, w_ff),
+        (f"decode k/v {SERVE_BATCH}x2048x{SERVE_D}", x, w_kv),
+        (f"vocab head {SERVE_BATCH}x{SERVE_VOCAB}x{SERVE_D} (table.mT)", x,
+         table.mT),
+        ("ragged 200x93x170", rnd(200, 170), rnd(170, 93)),
+        ("ragged 130x200x136 (B transposed)", rnd(130, 136),
+         rnd(200, 136).mT),
+        ("ragged 3x200x136", rnd(3, 136), rnd(136, 200)),
+    ]
+    for label, a, b in cases:
+        p = gemm.plan(a, b)
+        label = f"{label}, path {p.path}, splits {p.splits}"
+        check(f"gemm bfloat16 {label}", gemm.gemm(a, b),
+              gemm.gemm_plain(a, b), TOL["bfloat16"])
+        gemm_times(a, b, label)
+    del w_ff, w_kv, table
 
 
 def trsm_times(a, b, label: str, plain_reps: int) -> dict:
@@ -345,6 +394,7 @@ def phase_kernels(dev) -> dict:
                    f"copies): {ms:.3f} ms, torch.matmul (zgemm) "
                    f"{lib_ms:.3f} ms")
     del za, zb
+    serve_gemm_checks(dev)
 
     # trsm: every variant at m = 300 (the recursion runs), both types
     for dt in (torch.float32, torch.float64):
@@ -409,7 +459,7 @@ def syrk_times(psi) -> dict:
 
 def split_times(a, b) -> dict:
     """Times of one split3 dgemm A @ B at the PARSEC projection shape:
-    the passes on the gemm kernel, the plain version (the same passes as
+    the fused split kernel, the plain version (the same passes as
     float32 torch.matmul, the `xla` venue's formulation) and native
     torch.matmul dgemm.  The bound is that of the function, the float64
     product: 2MNK operations at the float64 peak against each operand
@@ -424,8 +474,10 @@ def split_times(a, b) -> dict:
     lib_ms = time_ms(lambda: torch.matmul(a, b), reps=5)
     bms, by = bound(2.0 * m * n * k, 8.0 * (m * k + k * n + m * n),
                     "float64")
-    log("kernels", f"split3 dgemm {m}x{n}x{k}: {SPLIT3_LAUNCHES} gemm "
-                   f"launches {ms:.3f} ms, plain (float32 torch.matmul "
+    log("kernels", f"split3 dgemm {m}x{n}x{k}: {SPLIT3_LAUNCHES} "
+                   f"split_gemm.cu launches (K split "
+                   f"{split_gemm.splits_for(m, n, k)} ways) {ms:.3f} ms, "
+                   f"plain (float32 torch.matmul "
                    f"passes) {plain_ms:.3f} ms, native torch.matmul dgemm "
                    f"{lib_ms:.3f} ms, bound {bms:.4f} ms ({by}; the six "
                    f"float32 passes' own operations would take "
@@ -469,7 +521,11 @@ def phase_kernels_parsec(dev, gen) -> dict:
     blk = torch.randn(NGRID, NBLOCK, generator=dgen, dtype=torch.float64,
                       device=dev)
     a = blk.mT
+    launched = split_gemm.launches
     got = split_gemm.matmul(a, psi, "split3")
+    if split_gemm.launches != launched + SPLIT3_LAUNCHES:
+        raise AssertionError(f"split3 dgemm: {split_gemm.launches - launched}"
+                             f" launches, want {SPLIT3_LAUNCHES}")
     native = ref.matmul(a, psi)
     scale = ref.matmul(a.abs(), psi.abs()).abs().max().item()
     split_err = (got - native).abs().max().item()
@@ -488,10 +544,22 @@ def phase_kernels_parsec(dev, gen) -> dict:
                    f"{plain_err / scale:.3e} (a-priori bound "
                    f"{bound_rel:.3e})")
     del got, native
+    # the kernel's slices, bit for bit those of precision.slices
+    for x, name in ((psi[:4096], "Psi rows"), (blk, "Hpsi_blk")):
+        for scheme in ("split2", "split3"):
+            for i, (kern, want) in enumerate(zip(
+                    split_gemm.slices(x, scheme),
+                    precision.slices(x, scheme))):
+                if not torch.equal(kern, want):
+                    raise AssertionError(f"{scheme} slice {i} of {name}: "
+                                         f"kernel != precision.slices")
+    log("kernels", "split_gemm.cu slices of Psi and Hpsi_blk equal "
+                   "precision.slices bit for bit (split2 and split3, the "
+                   "bf16 tail included)")
     for k in (256, NGRID):
         exact_pass_check(dgen, NBLOCK, k, NSTATES, dev)
     split_row = dict(name="split_gemm", route="cuda",
-                     source="src/repro_torch/kernels/split_gemm.py",
+                     source="src/repro_torch/csrc/split_gemm.cu",
                      replaces="src/repro/kernels/split_gemm.py:31",
                      max_abs_err=split_err, **split_times(a, psi))
     return {"syrk": syrk_row, "split_gemm": split_row}
@@ -534,10 +602,11 @@ def exact_pass_operands(gen, m: int, k: int, n: int, dev):
 
 
 def exact_pass_check(gen, m: int, k: int, n: int, dev) -> None:
-    """split3 on the gemm kernel's passes and on the plain passes against
-    the exact product of exact-pass operands, column by column.  A pass
-    left out or a wrong slice reads 1.5e-8 or more there; both venues
-    read ~1e-15 on the CPU."""
+    """split3 in the fused kernel and on the plain passes against the
+    exact product of exact-pass operands, column by column.  A pass left
+    out or a wrong slice reads 1.5e-8 or more there; both venues read
+    ~1e-15 on the CPU.  Negative controls: the kernel with each one pass
+    left out of its sum must read over the limit."""
     import torch
     from repro_torch.core import precision
     from repro_torch.kernels import split_gemm
@@ -551,17 +620,28 @@ def exact_pass_check(gen, m: int, k: int, n: int, dev) -> None:
     readings = {"kernel passes": colrel(kern), "plain passes": colrel(plain),
                 "native dgemm": colrel(a @ b)}
     same = bool(torch.equal(kern, plain))
+    dropped = {p: colrel(split_gemm.fused(a, b, "split3", drop=(p,)))
+               for p in precision._PASSES["split3"]}
     del a, b, kern, plain, exact
     if not (readings["kernel passes"] <= EXACT_PASS_TOL
             and readings["plain passes"] <= EXACT_PASS_TOL):
         raise AssertionError(f"split3 exact-pass {m}x{n}x{k}: {readings} "
                              f"> {EXACT_PASS_TOL:g}")
+    for p, v in dropped.items():
+        if not v > EXACT_PASS_TOL:
+            raise AssertionError(f"control split3 without pass {p} at "
+                                 f"{m}x{n}x{k}: {v:.3e} <= "
+                                 f"{EXACT_PASS_TOL:g}; the check cannot "
+                                 f"see a dropped pass")
     log("kernels", f"split3 exact-pass {m}x{n}x{k}: column-relative error "
                    f"vs the exact product "
                    + ", ".join(f"{name} {v:.3e}"
                                for name, v in readings.items())
                    + f" (limit {EXACT_PASS_TOL:g} on the split3 pair; "
-                   f"kernel == plain bit for bit: {same})")
+                   f"kernel == plain bit for bit: {same}); controls, the "
+                   f"kernel without one pass: "
+                   + ", ".join(f"{p} {v:.3e}" for p, v in dropped.items())
+                   + f" (each must exceed {EXACT_PASS_TOL:g})")
 
 
 def causal_pairs(t: int, window: int) -> int:
@@ -884,10 +964,10 @@ def phase_venue(dev) -> dict:
         raise AssertionError(f"venue (b): calls {calls}, split "
                              f"{st.split_calls}, kernel {st.kernel_calls}, "
                              f"escalations {st.escalations}")
-    if got["split_gemm"] != n * SPLIT3_LAUNCHES or \
-            got["gemm"] != n * SPLIT3_LAUNCHES:
+    if got["split_gemm"] != n * SPLIT3_LAUNCHES or got["gemm"] != 0:
         raise AssertionError(f"venue (b): launches {got}, want "
-                             f"{SPLIT3_LAUNCHES} per call")
+                             f"{SPLIT3_LAUNCHES} of split_gemm.cu per call "
+                             f"and none of gemm.cu")
     bound_rel = precision.error_bound("split3", NGRID)
     worst = 0.0
     for b, out in zip(blks, outs):
@@ -899,7 +979,8 @@ def phase_venue(dev) -> dict:
         raise AssertionError(f"venue (b): error {worst:.3e} of max|A||B| "
                              f"> bound {bound_rel:.3e}")
     log("venue", f"(b) torch.matmul(hpsi_blk.T, psi) x{n}: {calls[0]}, "
-                 f"{SPLIT3_LAUNCHES} gemm launches per call ({got}), "
+                 f"{SPLIT3_LAUNCHES} split_gemm.cu launches per call "
+                 f"({got}), "
                  f"0 escalations, max|split - native| / max(|A||B|) "
                  f"{worst:.3e} (bound {bound_rel:.3e}), per-call s "
                  f"{[round(x, 4) for x in secs]} (synchronized by the "
@@ -1064,6 +1145,7 @@ def phase_serve(dev) -> dict:
     decode step."""
     import dataclasses
     import torch
+    from repro_torch.kernels import gemm
     from repro_torch.models import Model, get_config
     cfg = dataclasses.replace(get_config("gemma2_9b"), prefill_fresh_kv=True)
     model = Model.from_config(cfg)
@@ -1078,6 +1160,8 @@ def phase_serve(dev) -> dict:
     prompt = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
                            generator=torch.Generator().manual_seed(1))
     n_global = cfg.n_layers // 2
+    # q, k, v, o, gate, up, down per layer, and the tied vocab head
+    gemms_per_forward = 7 * cfg.n_layers + 1
     launched = {}
 
     def add(got):
@@ -1091,6 +1175,7 @@ def phase_serve(dev) -> dict:
     srv, out, _ = generate_keeping(model, params, "dfu", SERVE_GEN, prompt,
                                    dev)
     got = counts()
+    reduces = gemm.reduce_launches
     peak = torch.cuda.max_memory_allocated()
     add(got)
     st = srv.stats
@@ -1100,11 +1185,13 @@ def phase_serve(dev) -> dict:
     if have != want:
         raise AssertionError(f"serve dfu: (h->d, d->h, migrations, reuses) "
                              f"{have} != {want}")
-    if (got["flash_attention"], got["decode_attention"]) != \
-            (cfg.n_layers, n_global * (SERVE_GEN - 1)):
+    if (got["flash_attention"], got["decode_attention"], got["gemm"]) != \
+            (cfg.n_layers, n_global * (SERVE_GEN - 1),
+             gemms_per_forward * SERVE_GEN):
         raise AssertionError(f"serve dfu: launches {got}, want flash "
-                             f"{cfg.n_layers} (prefill) and decode "
-                             f"{n_global} x {SERVE_GEN - 1}")
+                             f"{cfg.n_layers} (prefill), decode "
+                             f"{n_global} x {SERVE_GEN - 1} and gemm "
+                             f"{gemms_per_forward} x {SERVE_GEN}")
     if tuple(out.shape) != (SERVE_BATCH, SERVE_GEN) or not bool(
             ((out >= 0) & (out < cfg.vocab)).all()):
         raise AssertionError(f"serve dfu: tokens {out}")
@@ -1115,7 +1202,9 @@ def phase_serve(dev) -> dict:
                  f"{st.tokens / st.decode_s:.2f} tokens/s); h->d "
                  f"{st.bytes_host_to_dev} B, d->h {st.bytes_dev_to_host} B, "
                  f"migrations {st.migrations}, reuses {st.cache_reuses}; "
-                 f"launches {got}; peak device memory {peak / 1e9:.2f} GB")
+                 f"launches {got} (gemm {gemms_per_forward} per forward, "
+                 f"plus {reduces} split-K reductions); peak device memory "
+                 f"{peak / 1e9:.2f} GB")
     del srv
 
     # memcopy: the cache round-trips around the prefill and every step;
@@ -1131,6 +1220,9 @@ def phase_serve(dev) -> dict:
     got = counts()
     add(got)
     st = mc.stats
+    if got["gemm"] != gemms_per_forward * 4:
+        raise AssertionError(f"serve memcopy: {got['gemm']} gemm launches, "
+                             f"want {gemms_per_forward} x 4")
     have = (st.bytes_host_to_dev, st.bytes_dev_to_host)
     if have != (4 * SERVE_CACHE_BYTES, 4 * SERVE_CACHE_BYTES):
         raise AssertionError(f"serve memcopy: (h->d, d->h) {have} != 4 x "

@@ -282,8 +282,8 @@ def _trsm_kernel(a, b, alpha, *, side, uplo, trans, diag):
 # (``kops.kernel_trsm`` is the recursion of ``kops.trsm``, so trsm's       #
 # generic closure serves the venue as it is).                              #
 # ----------------------------------------------------------------------- #
-def _gemm_klean(a, b):
-    return kops.kernel_matmul(a, b)
+def _gemm_klean(a, b, *, block=0):
+    return kops.kernel_matmul(a, b, block=block)
 
 
 def _syrk_klean(a, *, uplo, trans):
@@ -302,25 +302,27 @@ def _trsm_klean(a, b, *, side, uplo, trans, diag):
 # The fp64 inner product as split low-precision slice passes               #
 # (core/precision.py).  Built only when a split scheme is configured and   #
 # the base/dtype supports one (real 2-D fp64).  The `xla` venue runs the   #
-# plain fp32 product per pass, the `pallas` venue the gemm kernel          #
+# plain fp32 product per pass, the `pallas` venue the fused split kernel   #
 # (kernels/split_gemm.py).                                                 #
 # ----------------------------------------------------------------------- #
-def _split_mm(venue: str):
-    """The fp32 pass primitive for one venue (None = the precision
-    module's default, the plain fp32 product)."""
+def _split_product(venue: str):
+    """The whole split product ``(a, b, scheme) -> a @ b`` of one venue:
+    on `pallas` the fused split kernel's entry (kernels/split_gemm.py,
+    whose plain passes run on CPU tensors); on `xla` None, the precision
+    module's passes on the plain fp32 product."""
     if venue == "pallas":
         from repro_torch.kernels import split_gemm
-        return split_gemm.pass_mm()
+        return split_gemm.matmul
     return None
 
 
 def _split_matmul(scheme: str, venue: str):
     """The fp64 product of one (scheme, venue) as an ``mm`` for the
     closures above."""
-    pass_mm = _split_mm(venue)
+    product = _split_product(venue) or prc.matmul
 
     def mm(a, b):
-        return prc.matmul(a, b, scheme, mm=pass_mm)
+        return product(a, b, scheme)
     return mm
 
 
@@ -332,7 +334,7 @@ def _split_trsm_kernel(a, b, alpha, *, side, uplo, trans, diag, scheme,
     return prc.trsm(ref.triangle(a, uplo, diag), alpha * b, scheme,
                     left_side=(side == "L"), lower=(uplo == "L"),
                     trans_a=(trans != "N"), unit_diag=(diag == "U"),
-                    mm=_split_mm(venue)).to(b.dtype)
+                    product=_split_product(venue)).to(b.dtype)
 
 
 def _split_bound(base, dt, bkey, sfactory, flat2d=True):
@@ -358,14 +360,16 @@ def _split_bound(base, dt, bkey, sfactory, flat2d=True):
 def _kernel_bound(base, dt, bkey, kfactory):
     """The pallas-venue twin of ``_bound``: the kernel-backed compute
     closure for one call-site signature, or None when the kernel path is
-    off or the routine/dtype has no kernel.  Memo keys get a ``"kern"``
-    prefix."""
+    off or the routine/dtype has no kernel.  ``kfactory`` takes the gemm
+    kernel's tile edge (``kernel_block``); memo keys get a ``"kern"``
+    prefix plus that edge."""
     runtime = rt.active()
     if (runtime is None or not runtime.kernel_path
             or not kops.kernel_available(base, dt)):
         return None
-    kkey = ("kern",) + bkey if bkey is not None else None
-    return _bound(kkey, kfactory)
+    block = runtime.kernel_block
+    kkey = ("kern", block) + bkey if bkey is not None else None
+    return _bound(kkey, functools.partial(kfactory, block))
 
 
 # ----------------------------------------------------------------------- #
@@ -408,11 +412,12 @@ def gemm(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None,
                 return _gemm_kernel(a_, b_, None, alpha_, beta_, **kw)
         return compute
 
-    def kfactory():
+    def kfactory(block):
         if (not has_c and av == 1 and bv == 0
                 and trans_a == "N" and trans_b == "N"):
-            return _gemm_klean             # lean: no scalar epilogue
-        return build(kops.kernel_matmul)
+            # lean: no scalar epilogue
+            return functools.partial(_gemm_klean, block=block)
+        return build(functools.partial(kops.kernel_matmul, block=block))
 
     def sfactory(scheme, venue):
         return build(_split_matmul(scheme, venue))
@@ -539,12 +544,12 @@ def _syrk_like(a, c, *, uplo, trans, alpha, beta, conj, base):
                 return _syrk_kernel(a_, None, alpha_, beta_, **kw)
         return compute
 
-    def kfactory():
+    def kfactory(block):
         if not has_c and av == 1 and bv == 0:
             def kcompute(a_):              # lean: no scalar epilogue
                 return _syrk_klean(a_, uplo=uplo, trans=trans)
             return kcompute
-        return build(kops.kernel_matmul)
+        return build(functools.partial(kops.kernel_matmul, block=block))
 
     def sfactory(scheme, venue):
         return build(_split_matmul(scheme, venue))
@@ -633,7 +638,8 @@ def _tri_like(a, b, *, side, uplo, trans, diag, alpha, base, kernel):
             return fn(a_, b_, alpha_, **flags, **extra)
         return compute
 
-    def kfactory():
+    def kfactory(block):
+        del block                          # trsm's base edge is fixed
         if av == 1:
             def kcompute(a_, b_):          # lean: no alpha scaling
                 return _trsm_klean(a_, b_, **flags)

@@ -56,6 +56,8 @@ SPLIT3_CHUNK = 256
 SPLIT_BASES = ("gemm", "syrk", "trsm")
 
 MatMul = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+#: a whole split product ``(a, b, scheme) -> a @ b`` in fp64
+Product = Callable[[torch.Tensor, torch.Tensor, str], torch.Tensor]
 
 
 def supported(base: str, dtype: torch.dtype) -> bool:
@@ -156,22 +158,28 @@ def _solve32(a32: torch.Tensor, rhs: torch.Tensor, *, left_side: bool,
 
 def trsm(a: torch.Tensor, b: torch.Tensor, scheme: str, *,
          left_side: bool = True, lower: bool = True, trans_a: bool = False,
-         unit_diag: bool = False, mm: Optional[MatMul] = None
-         ) -> torch.Tensor:
+         unit_diag: bool = False, mm: Optional[MatMul] = None,
+         product: Optional[Product] = None) -> torch.Tensor:
     """Triangular solve via fp32 solve + one split-residual refinement.
 
     ``X0 = solve32(A, B)`` seeds the solution, the residual
     ``R = B - op(A) X0`` is formed with the split matmul (so no fp64
-    product sneaks in), and one fp32 correction solve is added back."""
+    product sneaks in), and one fp32 correction solve is added back.
+    ``product`` runs that whole split product (the fused kernel of
+    ``kernels/split_gemm.py``); without it :func:`matmul` runs it on
+    ``mm``."""
     a32 = a.float()
     kw = dict(left_side=left_side, lower=lower, trans_a=trans_a,
               unit_diag=unit_diag)
+    if product is None:
+        def product(x, y, s):
+            return matmul(x, y, s, mm)
 
     def apply_a(x):
         am = a.mT if trans_a else a
         if left_side:
-            return matmul(am, x, scheme, mm)
-        return matmul(x, am, scheme, mm)
+            return product(am, x, scheme)
+        return product(x, am, scheme)
 
     x = _solve32(a32, b, **kw).double()
     r = b - apply_a(x)

@@ -58,9 +58,10 @@ pseudo-venue with a ``precision`` scheme), timed, and the venue with the
 best sample is then locked — the paper's warmup-then-patch behaviour.
 
 Not ported yet, and refused when configured (:func:`check_ported`): the
-multi-device tile scheduler, the kernel block-edge override, fault
-injection and the breaker, the shared device pool and the LAPACK solver
-spans.
+multi-device tile scheduler, fault injection and the breaker, the shared
+device pool and the LAPACK solver spans.  The kernel block-edge override
+(``kernel_block``) picks a tile edge the gemm kernel compiles
+(``kernels/gemm.py:EDGES``); another value is refused.
 """
 from __future__ import annotations
 
@@ -94,7 +95,6 @@ _DECISION_CACHE_LIMIT = 65536
 #: config fields this slice does not implement -> the ROADMAP.md item
 #: that brings them.  Setting one to a non-default value raises.
 UNPORTED_FIELDS = {
-    "kernel_block": "Queue 2 item 1 (the gemm redesign: tile choice)",
     "lapack": "Queue 1 item 6 (the solver tier)",
     "lapack_nb": "Queue 1 item 6 (the solver tier)",
     "faults": "Queue 1 item 7 (the _guarded fault units and the breaker)",
@@ -105,7 +105,14 @@ UNPORTED_FIELDS = {
 
 def check_ported(config: OffloadConfig) -> None:
     """Raise ``NotImplementedError`` for a config that sets a field this
-    slice has not ported, naming the ROADMAP.md item that brings it."""
+    slice has not ported, naming the ROADMAP.md item that brings it, and
+    ``ValueError`` for a ``kernel_block`` the gemm kernel does not
+    compile."""
+    from repro_torch.kernels import gemm
+    if config.kernel_block and config.kernel_block not in gemm.EDGES:
+        raise ValueError(f"OffloadConfig.kernel_block={config.kernel_block}"
+                         f" is not a tile edge the gemm kernel compiles: "
+                         f"0 (each path's default) or one of {gemm.EDGES}")
     if config.devices is not None and config.devices > 1:
         raise NotImplementedError(
             f"OffloadConfig.devices={config.devices} is not ported yet: "
@@ -331,6 +338,8 @@ class OffloadRuntime:
         # the pallas execution venue: off by default so the two-venue
         # pipeline stays bit-identical
         self.kernel_path = bool(config.kernel_path)
+        # the gemm kernel's tile edge on the pallas venue (0: default)
+        self.kernel_block = int(config.kernel_block)
         # split-precision emulation: off by default (native fp64)
         self.precision = str(config.precision)
         self.precision_rtol = float(config.precision_rtol)
@@ -400,6 +409,7 @@ class OffloadRuntime:
                                kernel=policy_changed or kernel_changed,
                                split=policy_changed or precision_changed)
             self.kernel_path = bool(new.kernel_path)
+            self.kernel_block = int(new.kernel_block)
             self.precision = str(new.precision)
             self.precision_rtol = float(new.precision_rtol)
             self.device_bytes_cap = new.device_bytes

@@ -115,4 +115,6 @@ def check(rc: int, kernel: str) -> None:
         raise TypeError(f"{kernel}: dtype combination not supported")
     if rc == -2:
         raise ValueError(f"{kernel}: shape cannot be launched")
+    if rc == -3:
+        raise RuntimeError(f"{kernel}: TMA descriptors could not be made")
     raise RuntimeError(f"{kernel}: launch failed with cudaError {rc}")

@@ -5,18 +5,26 @@ CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 version, :func:`gemm_plain`, which the CPU tests use and the chip check
 compares the kernel with.  The kernel masks ragged edges itself, so the
 wrapper neither pads nor crops.
+
+Each operand is a 2-D matrix or a 3-D batch of them, row-major or a
+transposed view (:func:`layout`), with any row stride: ``table.mT`` and
+views of a larger matrix go in uncopied.  :func:`plan` picks the kernel's
+path from the dtype, M and the operands' alignment (see ``csrc/gemm.cu``)
+and, for path 2, how many ways K is split.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import compat, ref
 
-#: launches of the CUDA kernel since the last reset
+#: products launched on the card since the last reset (one per call)
 launches = 0
+#: second launches that sum path 2's split-K partials
+reduce_launches = 0
 
 #: dtype codes of csrc/gemm.cu (also csrc/trsm.cu for the first two)
 CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2,
@@ -27,23 +35,51 @@ OUT_DTYPES = {torch.float32: (torch.float32,),
               torch.bfloat16: (torch.bfloat16, torch.float32),
               torch.float16: (torch.float16, torch.float32)}
 
+#: the kernel's paths (csrc/gemm.cu)
+TC, SKINNY, DMMA, SIMT = 1, 2, 3, 4
+#: tile edges each tiled path compiles, default first: path 1's is the N
+#: edge of its 128-row tile, paths 3 and 4 tile squares.  A nonzero
+#: ``block`` (OffloadConfig.kernel_block) picks one of EDGES.
+EDGES = (64, 128)
+DEFAULT_TILE = {TC: 256, DMMA: 128, SIMT: 128}
+#: path 2: columns a block covers (row-major B: 128-column strips;
+#: K-contiguous B: 8 warps x 4 columns), and the blocks it aims for before
+#: splitting K (4 per SM of 132), each split keeping at least 128 of K
+SKINNY_COLS = {False: 128, True: 32}
+SKINNY_TARGET_BLOCKS = 4 * 132
+SKINNY_MIN_K = 128
+
 _c_ll = ctypes.c_longlong
-_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              _c_ll, _c_ll, _c_ll, ctypes.c_int, _c_ll, _c_ll, _c_ll,
-             ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+class Plan(NamedTuple):
+    path: int
+    tile: int       # tile edge of paths 1, 3, 4 (0 for path 2)
+    splits: int     # path 2's K split (1 elsewhere)
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, reduce_launches
     launches = 0
+    reduce_launches = 0
+
+
+_ENTRY = []
 
 
 def _entry():
-    fn = compat.library("gemm").repro_gemm
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
+    """The C entry, bound once: a decode step calls it 295 times."""
+    if not _ENTRY:
+        fn = compat.library("gemm").repro_gemm
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        _ENTRY.append(fn)
+    return _ENTRY[0]
 
 
 def gemm_plain(a: torch.Tensor, b: torch.Tensor, *,
@@ -53,30 +89,101 @@ def gemm_plain(a: torch.Tensor, b: torch.Tensor, *,
     return ref.matmul(a, b, out_dtype)
 
 
+def layout(x: torch.Tensor) -> Optional[Tuple[bool, int]]:
+    """``(trans, ld)`` of a matrix (the last two dims) the kernel reads
+    uncopied, or None.  ``trans`` False: row-major, element (i, j) at
+    ``i * ld + j``; True: a transposed view, at ``j * ld + i``.  Rows (or
+    columns) may be any distance apart, as long as they do not overlap; a
+    stack of matrices must not overlap either.  ``ld`` of a single row
+    (column) is its length rounded up to 8, which no load reads but the
+    tensor-core path's descriptors need aligned."""
+    r, c = x.shape[-2], x.shape[-1]
+    sr, sc = x.stride(-2), x.stride(-1)
+    out = None
+    if (c <= 1 or sc == 1) and (r <= 1 or sr >= c):
+        out = (False, sr if r > 1 else -(-c // 8) * 8)
+    elif (r <= 1 or sr == 1) and (c <= 1 or sc >= r):
+        out = (True, sc if c > 1 else -(-r // 8) * 8)
+    if out is not None and x.dim() == 3 and x.shape[0] > 1 \
+            and x.stride(0) < r * c:
+        return None
+    return out
+
+
 def row_major(x: torch.Tensor) -> bool:
-    """The layout both kernels read: a unit column stride and rows that
-    do not overlap (any row stride, so views of a larger matrix go in
-    uncopied)."""
+    """The layout the trsm and syrk kernels read: a unit column stride and
+    rows that do not overlap (any row stride)."""
     return ((x.shape[-1] <= 1 or x.stride(-1) == 1)
             and (x.shape[-2] <= 1 or x.stride(-2) >= x.shape[-1]))
 
 
-def _check_matrix(x: torch.Tensor, name: str) -> None:
+def _check_block(block: int) -> int:
+    if block and block not in EDGES:
+        raise ValueError(f"gemm: kernel_block {block} is not a tile edge the "
+                         f"kernel compiles; choose 0 (each path's default) "
+                         f"or one of {EDGES}")
+    return int(block)
+
+
+def _tma_ok(x: torch.Tensor, ld: int) -> bool:
+    """Whether path 1's TMA can describe a 16-bit operand: 16-byte aligned
+    base, row stride and batch stride."""
+    if x.data_ptr() % 16 or ld % 8:
+        return False
+    return not (x.dim() == 3 and x.shape[0] > 1 and x.stride(0) % 8)
+
+
+def plan(a: torch.Tensor, b: torch.Tensor, block: int = 0) -> Plan:
+    """The path csrc/gemm.cu takes for ``a @ b`` (layouts from
+    :func:`layout`, which must not be None), its tile edge and path 2's K
+    split.  Pure arithmetic on shapes, strides and addresses, so the CPU
+    tests reach it."""
+    return _plan(a, b, layout(a), layout(b), _check_block(block))
+
+
+def _plan(a, b, lay_a, lay_b, block: int) -> Plan:
+    m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
+    if a.dtype == torch.float64:
+        return Plan(DMMA, block or DEFAULT_TILE[DMMA], 1)
+    if a.dtype == torch.float32:
+        return Plan(SIMT, block or DEFAULT_TILE[SIMT], 1)
+    (_, lda), (tb, ldb) = lay_a, lay_b
+    if m >= 64 and k >= 1 and _tma_ok(a, lda) and _tma_ok(b, ldb):
+        return Plan(TC, block or DEFAULT_TILE[TC], 1)
+    # groups of 1, 2, 4 or 8 rows run side by side, beside the K split
+    rows = 1 if m == 1 else 2 if m == 2 else 4 if m <= 4 else 8
+    batch = a.shape[0] if a.dim() == 3 else 1
+    blocks = -(-n // SKINNY_COLS[tb]) * batch * -(-m // rows)
+    splits = 1
+    if blocks < SKINNY_TARGET_BLOCKS // 2:
+        splits = max(1, min(-(-SKINNY_TARGET_BLOCKS // blocks),
+                            k // SKINNY_MIN_K))
+    return Plan(SKINNY, 0, splits)
+
+
+def _check_matrix(x: torch.Tensor, name: str) -> Tuple[bool, int]:
     if x.dim() not in (2, 3):
         raise ValueError(f"gemm: {name} must be 2-D or 3-D (batched), "
                          f"got shape {tuple(x.shape)}")
-    if not row_major(x):
-        raise ValueError(f"gemm: {name} needs a unit column stride and "
-                         f"non-overlapping rows (strides {x.stride()}); "
-                         f"pass .contiguous()")
+    lay = layout(x)
+    if lay is None:
+        raise ValueError(f"gemm: {name} is neither row-major nor a "
+                         f"transposed view with non-overlapping rows "
+                         f"(strides {x.stride()}); pass .contiguous()")
+    return lay
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor, *,
-         out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+         out_dtype: Optional[torch.dtype] = None,
+         block: int = 0) -> torch.Tensor:
     """C = A @ B.  ``a`` is [M, K] or [batch, M, K], ``b`` [K, N] or
-    [batch, K, N] (both 2-D or both 3-D), each with a unit column stride
-    and any row stride, so views of a larger matrix go in uncopied.
-    ``out_dtype`` defaults to the input dtype."""
+    [batch, K, N] (both 2-D or both 3-D), each row-major or a transposed
+    view with any row stride (:func:`layout`).  ``out_dtype`` defaults to
+    the input dtype.  ``block`` (OffloadConfig.kernel_block) picks the
+    tile edge of paths 1, 3 and 4 from :data:`EDGES`; a value the kernel
+    does not compile raises ``ValueError``.  It changes no result, and on
+    CPU tensors it is inert."""
+    block = _check_block(block)
     if a.device.type == "cpu" and b.device.type == "cpu":
         return gemm_plain(a, b, out_dtype=out_dtype)
     if a.device != b.device or a.device.type != "cuda":
@@ -89,8 +196,8 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *,
     out_dtype = out_dtype or a.dtype
     if out_dtype not in OUT_DTYPES[a.dtype]:
         raise TypeError(f"gemm: {a.dtype} inputs cannot write {out_dtype}")
-    _check_matrix(a, "A")
-    _check_matrix(b, "B")
+    ta, lda = _check_matrix(a, "A")
+    tb, ldb = _check_matrix(b, "B")
     if a.dim() != b.dim() or a.shape[-1] != b.shape[-2]:
         raise ValueError(f"gemm: shapes {tuple(a.shape)} and "
                          f"{tuple(b.shape)} do not multiply")
@@ -104,15 +211,21 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *,
                       dtype=out_dtype, device=a.device)
     if out.numel() == 0:
         return out
-    c3 = out if batched else out.unsqueeze(0)
-    a3 = a if batched else a.unsqueeze(0)
-    b3 = b if batched else b.unsqueeze(0)
-    global launches
+    p = _plan(a, b, (ta, lda), (tb, ldb), block)
+    work = None
+    if p.splits > 1:
+        work = torch.empty(p.splits * batch * m * n, dtype=torch.float32,
+                           device=a.device)
+    global launches, reduce_launches
     launches += 1
-    rc = _entry()(CODES[a.dtype], CODES[out_dtype], a.data_ptr(),
-                  b.data_ptr(), out.data_ptr(), m, n, k,
-                  a3.stride(1), b3.stride(1), c3.stride(1), batch,
-                  a3.stride(0), b3.stride(0), c3.stride(0),
-                  torch.cuda.current_stream(a.device).cuda_stream)
+    reduce_launches += p.splits > 1
+    sa = a.stride(0) if batched else 0
+    sb = b.stride(0) if batched else 0
+    sc = out.stride(0) if batched else 0
+    rc = _entry()(CODES[a.dtype], CODES[out_dtype], p.path, p.tile, p.splits,
+                  a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                  work.data_ptr() if work is not None else None, m, n, k,
+                  lda, ldb, out.stride(-2), batch, sa, sb, sc, int(ta),
+                  int(tb), torch.cuda.current_stream(a.device).cuda_stream)
     compat.check(rc, "gemm")
     return out

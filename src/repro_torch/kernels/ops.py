@@ -28,6 +28,7 @@ planes) runs on the gemm kernel, which accumulates float64 in float64.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import torch
@@ -37,14 +38,15 @@ from repro_torch.kernels import syrk as syrk_kernel
 from repro_torch.kernels import trsm as trsm_kernel
 from repro_torch.kernels.attention import flash_attention
 from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.gemm import gemm, row_major
+from repro_torch.kernels.gemm import gemm, layout, row_major
 
 
-def _rowmajor(x: torch.Tensor) -> torch.Tensor:
-    """A view the gemm kernel takes (unit column stride, rows apart),
-    copying only when the layout is transposed or overlapping."""
-    if row_major(x) and (x.dim() < 3 or x.shape[0] <= 1
-                         or x.stride(0) >= x.shape[-2] * x.shape[-1]):
+def _operand(x: torch.Tensor) -> torch.Tensor:
+    """A view the gemm kernel takes as it is: row-major or transposed
+    (``gemm.layout``, which the kernel reads as a per-operand transpose
+    flag), rows apart.  Only an overlapping or otherwise strided layout is
+    copied, so the tied vocab head's ``table.mT`` goes in uncopied."""
+    if layout(x) is not None:
         return x
     return x.contiguous()
 
@@ -55,28 +57,32 @@ def _batched(f: Callable, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     projection of the model stack) folds the leading dims into M: one 2-D
     product, and the matrix is never expanded or copied per batch."""
     if a.dim() == 2 and b.dim() == 2:
-        return f(_rowmajor(a), _rowmajor(b))
+        return f(_operand(a), _operand(b))
     if b.dim() == 2:
-        out = f(_rowmajor(a.reshape(-1, a.shape[-1])), _rowmajor(b))
+        out = f(_operand(a.reshape(-1, a.shape[-1])), _operand(b))
         return out.reshape(a.shape[:-1] + out.shape[-1:])
     bshape = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
     af = a.expand(bshape + a.shape[-2:]).reshape((-1,) + a.shape[-2:])
     bf = b.expand(bshape + b.shape[-2:]).reshape((-1,) + b.shape[-2:])
-    out = f(_rowmajor(af), _rowmajor(bf))
+    out = f(_operand(af), _operand(bf))
     return out.reshape(bshape + out.shape[-2:])
 
 
-def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """C = A @ B for matrices or stacks of matrices of one dtype."""
+def matmul(a: torch.Tensor, b: torch.Tensor, block: int = 0
+           ) -> torch.Tensor:
+    """C = A @ B for matrices or stacks of matrices of one dtype.
+    ``block`` is the gemm kernel's tile edge (``kernel_block``; 0: each
+    path's default)."""
+    mm = functools.partial(gemm, block=block) if block else gemm
     if a.is_complex():
         ar, ai = a.real.contiguous(), a.imag.contiguous()
         br, bi = b.real.contiguous(), b.imag.contiguous()
-        rr = _batched(gemm, ar, br)
-        ii = _batched(gemm, ai, bi)
-        ri = _batched(gemm, ar, bi)
-        ir = _batched(gemm, ai, br)
+        rr = _batched(mm, ar, br)
+        ii = _batched(mm, ai, bi)
+        ri = _batched(mm, ar, bi)
+        ir = _batched(mm, ai, br)
         return torch.complex(rr - ii, ri + ir).to(a.dtype)
-    return _batched(gemm, a, b)
+    return _batched(mm, a, b)
 
 
 def trsm(a: torch.Tensor, b: torch.Tensor, *, side: str = "L",
@@ -159,9 +165,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # venue runs the generic closures of core/blas.py (``matmul`` above, a
 # full product masked for syrk), the `pallas` venue the lean closures
 # over these entry points (the syrk kernel computes one triangle).  No
-# library product enters either venue.  The reference's block-edge
-# override (``kernel_block``) is not ported: the gemm kernel has one tile
-# edge, so these entry points take no block argument.
+# library product enters either venue.  ``block`` is the reference's
+# block-edge override (``OffloadConfig.kernel_block``): it picks the gemm
+# kernel's tile edge (``gemm.EDGES``) on paths 1, 3 and 4.  The syrk and
+# trsm kernels and the fused split kernel have one tile each, so there it
+# is inert, as the reference's trsm ignores it.
 
 #: BLAS bases the `pallas` venue can execute; everything else stays on the
 #: generic offload path.
@@ -189,24 +197,28 @@ def kernel_available(base: str, dtype: torch.dtype,
     return True
 
 
-def kernel_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """C = A @ B on the `pallas` venue: :func:`matmul`.  A split fp64
-    product on this venue does not come here: the runtime's precision
-    stage builds it from ``core/blas.py:_split_matmul``, whose passes run
-    on the gemm kernel (:mod:`repro_torch.kernels.split_gemm`)."""
-    return matmul(a, b)
+def kernel_matmul(a: torch.Tensor, b: torch.Tensor, *,
+                  block: int = 0) -> torch.Tensor:
+    """C = A @ B on the `pallas` venue: :func:`matmul` with the tile edge
+    ``block``.  A split fp64 product on this venue does not come here:
+    the runtime's precision stage builds it from
+    ``core/blas.py:_split_matmul``, which runs the fused split kernel
+    (:mod:`repro_torch.kernels.split_gemm`)."""
+    return matmul(a, b, block)
 
 
-def kernel_syrk(a: torch.Tensor, *, uplo: str = "L",
-                trans: str = "N") -> torch.Tensor:
+def kernel_syrk(a: torch.Tensor, *, uplo: str = "L", trans: str = "N",
+                block: int = 0) -> torch.Tensor:
     """C = op(A) op(A)^T on the `pallas` venue (the syrk kernel; complex
     on the library, which ``kernel_available`` already refuses)."""
+    del block   # the syrk kernel has one tile edge
     return syrk(a, uplo=uplo, trans=trans)
 
 
 def kernel_trsm(a: torch.Tensor, b: torch.Tensor, *, side: str = "L",
-                uplo: str = "L", trans: str = "N", diag: str = "N"
-                ) -> torch.Tensor:
+                uplo: str = "L", trans: str = "N", diag: str = "N",
+                block: int = 0) -> torch.Tensor:
     """The triangular solve on the `pallas` venue: the trsm kernel
     recursion (complex on the library, as :func:`trsm`)."""
+    del block   # the recursion's base edge is fixed (trsm.BASE)
     return trsm(a, b, side=side, uplo=uplo, trans=trans, diag=diag)

@@ -252,9 +252,10 @@ def test_callsite_fingerprint_skips_port_frames():
 def test_unported_fields_raise_naming_the_roadmap_item(field, value):
     """A field the port does not implement raises, naming the ROADMAP.md
     item that brings it; the fields ported since (the adaptive mode, the
-    kernel venue, split precision) open a session and reconfigure."""
+    kernel venue, split precision, the gemm tile edge) open a session and
+    reconfigure."""
     cfg = OffloadConfig(**{field: value})
-    if field in ("adaptive", "kernel_path", "precision"):
+    if field in ("adaptive", "kernel_path", "precision", "kernel_block"):
         with repro_torch.session(cfg, device="cpu") as s:
             assert getattr(s.runtime, field) == value
         with repro_torch.session(device="cpu") as s:

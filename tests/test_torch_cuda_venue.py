@@ -57,13 +57,16 @@ def test_syrk_kernel_matches_plain_version(dev, dtype, tol, uplo, trans):
 
 
 def test_split_passes_run_the_gemm_kernel_within_bound(dev):
-    """split3 at k = 1000 on the gemm kernel: 4 chunks x 6 passes, each a
-    float32 launch; the error relative to |A||B| stays within the bound."""
+    """split3 at k = 1000 in the fused split kernel: two launches (the
+    passes, the reduction) and no gemm launch; the error relative to
+    |A||B| stays within the bound."""
+    from repro_torch.kernels import gemm
     a = torch.randn(48, 1000, dtype=torch.float64, device=dev)
     b = torch.randn(1000, 40, dtype=torch.float64, device=dev)
-    launched = split_gemm.launches
+    launched, gemms = split_gemm.launches, gemm.launches
     out = split_gemm.matmul(a.mT.contiguous().mT, b, "split3")
-    assert split_gemm.launches == launched + 24
+    assert split_gemm.launches == launched + 2
+    assert gemm.launches == gemms
     scale = a.abs() @ b.abs()
     err = ((out - a @ b).abs() / scale).max().item()
     assert err <= prec.error_bound("split3", 1000)

@@ -232,7 +232,7 @@ def test_import_builds_nothing_and_build_dir_is_ignored():
     ignored = (REPO / ".gitignore").read_text().split()
     assert "build/" in ignored and "*.so" in ignored
     assert sorted(compat.sources()) == ["decode_attention", "flash_attention",
-                                        "gemm", "syrk", "trsm"]
+                                        "gemm", "split_gemm", "syrk", "trsm"]
 
 
 def test_kernel_sources_name_the_tpu_kernel_they_replace():
@@ -241,7 +241,8 @@ def test_kernel_sources_name_the_tpu_kernel_they_replace():
             ("trsm", "trsm", "_trsm_base_kernel"),
             ("syrk", "syrk", "_syrk_kernel"),
             ("flash_attention", "attention", "_flash_kernel"),
-            ("decode_attention", "decode_attention", "_decode_kernel")):
+            ("decode_attention", "decode_attention", "_decode_kernel"),
+            ("split_gemm", "split_gemm", "31-63")):
         text = compat.sources()[name].read_text()
         assert f"src/repro/kernels/{module}.py:{func}" in text
         assert "What bounds it" in text and "Design" in text

@@ -275,8 +275,8 @@ def test_fp64_gemm_kernel_capability_requires_split():
     assert ops.kernel_available("gemm", torch.float64, precision="split3")
     assert ops.kernel_available("gemm", torch.float32)
     a, b = _f64((48, 64)), _f64((64, 32))
-    # the split product on the venue runs its passes on the gemm kernel
-    assert blas._split_mm("pallas") is split_gemm.pass_mm()
+    # the split product on the venue runs the fused split kernel's entry
+    assert blas._split_product("pallas") is split_gemm.matmul
     out = blas._split_matmul("split2", "pallas")(
         torch.as_tensor(a), torch.as_tensor(b)).numpy()
     assert _scaled_err(out, a, b) <= prec.error_bound("split2", 64)
