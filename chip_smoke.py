@@ -21,12 +21,20 @@ First-Use decode cache.  Phases, in order:
              stated beside it; kernel, plain and library times; gemm on
              each of its paths, at the serve path's bf16 shapes too
              (prefill MLP, decode projections, the vocab head over the
-             table's transposed view); the fused split kernel's slices
-             bit for bit, its exact-pass check and dropped-pass controls.
-3. blas    — gemm/trsm/small mm inside a DFU session; counters asserted.
+             table's transposed view); trsm in every variant, ragged,
+             batched and on an LU factor, one launch per solve; the
+             fused split kernel's slices bit for bit, its exact-pass
+             check and dropped-pass controls; flash attention on its
+             wgmma path at the serve shape (each call repeated and held
+             bit for bit to the first) and at head sizes 128 and 64 in
+             bf16 and f16, and on its FMA path in float32 at the serve
+             shape and in bf16 at head size 32.
+3. blas    — gemm/trsm/small mm inside a DFU session; counters and one
+             trsm launch asserted.
 4. lsms    — run_mini(atoms=2, energies=2, scf=1, n=6912, complex128)
              inside the same session; counters, residual and launches
-             asserted.
+             asserted; the loop's wall split into intercepted BLAS time
+             and the rest.
 5. venue   — (a) kernel_path + adaptive: 8 calls of blas.syrk(psi,
              trans="T") at one call site race host/xla/pallas and lock;
              (b) kernel_path + precision="auto": intercepted
@@ -38,7 +46,8 @@ First-Use decode cache.  Phases, in order:
              4608 prompt tokens: generate 16 under dfu and 4 under
              memcopy (every attention kernel call there also held to its
              plain version), byte/migration/reuse counts and kernel
-             launches asserted; then, at the same widths over 2 layers,
+             launches asserted, every flash launch on the wgmma path;
+             then, at the same widths over 2 layers,
              a forward without a cache over the prompt and 15 generated
              tokens against the cached steps' logits; a device profile
              of one prefill and one decode step.
@@ -67,6 +76,9 @@ ROOT = Path(__file__).resolve().parent
 #: published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_OPS = {"float64": 67e12, "float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
+#: the special-function units (ex2, rcp): 16 a clock on each of 132 SMs
+#: at ~1.83 GHz, the rate FlashAttention-3 gives for the H100
+PEAK_MUFU = 3.9e12
 
 #: tolerances on max|kernel - plain| / max|plain| and why:
 #: float64 — both sum in float64; K*eps64 ~ 8e-13 at K = 6912 leaves room
@@ -76,8 +88,15 @@ PEAK_BYTES = 3.35e12
 #:            that the two sides may take in different directions
 TOL = {"float64": 1e-10, "float32": 1e-4, "bfloat16": 5e-2}
 #: trsm float32: the triangles are diagonally dominant (condition ~1), so
-#: the error is the substitution's rounding, m*eps32 ~ 2e-5 at m = 300
+#: the error is the solve's rounding, m*eps32 ~ 2e-5 at m = 300
 TRSM_TOL = {"float64": 1e-10, "float32": 3e-4}
+#: trsm on the unit-lower factor of torch.linalg.lu_factor(randn(2048)):
+#: not diagonally dominant (condition in the thousands), so against
+#: solve_triangular the limit is 20 * cond(L) * eps64: a backward-stable
+#: solve's forward error is ~cond(L) * eps times a modest factor, for the
+#: kernel's inverted diagonal blocks as for substitution
+TRSM_LU_FACTOR = 20
+TRSM_LU_M = 2048
 #: LSMS residual max|M tau - t|: LU with partial pivoting is backward
 #: stable, |r| <~ n*eps64*|M||tau| ~ 8e-13 at n = 6912 for M ~ I; 1e-9
 #: leaves a thousandfold margin and still catches a float32 path (~1e-4)
@@ -114,6 +133,10 @@ ATTN_TOL = 1e-2
 #: row's ~4600 logits, ~100, caps to 48.2, and its runner-up, ~96, to
 #: 47.9, so the cap spreads the weight over tens of keys
 ATTN_Q_SCALE = 30.0
+#: repeats of each serve-shape flash call held bit for bit against the
+#: first: the kernel's arithmetic order is fixed, so a race in its
+#: pipeline's barriers would show as a difference
+FLASH_REPEATS = 100
 #: gemma2-9b serve cell: batch, prompt (past the 4096 window), generation
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 2, 4608, 16
 SERVE_LEN = SERVE_PROMPT + SERVE_GEN
@@ -255,6 +278,28 @@ def variants(ptxas_log: str) -> list:
     return out
 
 
+def wgmma_waits(lib: Path) -> list:
+    """Per wgmma kernel of a built library, from its SASS (cuobjdump):
+    the wgmma instructions and the warpgroup waits among them.  As many
+    waits as wgmma means ptxas serialized them (it does so around a
+    spill, or a branch or a register write inside a wgmma region)."""
+    import re
+    from repro_torch.kernels import compat
+    cuobjdump = Path(compat.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    out = []
+    for func in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = func.split("\n", 1)[0]
+        mma = len(re.findall(r"\bHGMMA\.", func))
+        if mma:
+            t = re.search(r"\d*([a-z][a-z0-9_]*_kernel)I(\w+?)E+v", name)
+            out.append((f"{t.group(1)}<{t.group(2)}>" if t else name[:60],
+                        mma, len(re.findall(r"WARPGROUP\.DEPBAR", func))))
+    return out
+
+
 def phase_build():
     from repro_torch.kernels import compat
     t0 = time.perf_counter()
@@ -267,6 +312,9 @@ def phase_build():
                          f"{v.get('smem')} B smem, {v['stack']} B stack, "
                          f"{v['spill']} B spill stores, {v.get('blocks')} "
                          f"blocks of 256 threads per SM")
+        for kernel, mma, waits in wgmma_waits(path):
+            log("build", f"  {kernel}: {mma} wgmma, {waits} warpgroup waits"
+                         + (" (serialized)" if waits >= mma else ""))
     import torch
     log("build", f"card: {card_line()}; build {secs:.1f} s "
                  f"(nvcc {compat.BUILD_SECONDS:.1f} s); torch "
@@ -335,16 +383,20 @@ def serve_gemm_checks(dev) -> None:
 
 def trsm_times(a, b, label: str, plain_reps: int) -> dict:
     """The same for a lower-left solve: m*m*n operations; the triangle
-    read once, B read once, X written once."""
+    read once, B read once, X written once.  The plain version is the
+    kernel's block-row order (trsm_dataflow_plain); each timed kernel
+    call is one launch after one memset of its flags."""
     from repro_torch.kernels import ref, trsm
     m, n = b.shape
     ms = time_ms(lambda: trsm.trsm(a, b), reps=5)
-    plain_ms = time_ms(lambda: trsm.trsm_plain(a, b), reps=plain_reps)
+    plain_ms = time_ms(lambda: trsm.trsm_dataflow_plain(a, b),
+                       reps=plain_reps)
     lib_ms = time_ms(lambda: ref.trsm(a, b), reps=5)
     bms, by = bound(float(m) * m * n,
                     a.element_size() * (m * (m + 1) / 2 + 2 * m * n),
                     str(a.dtype)[6:])
-    log("kernels", f"trsm {str(a.dtype)[6:]} {label}: kernel {ms:.3f} ms, "
+    log("kernels", f"trsm {str(a.dtype)[6:]} {label}: kernel {ms:.3f} ms "
+                   f"({trsm.units(m, n, 1)} blocks, one launch), "
                    f"plain {plain_ms:.3f} ms, solve_triangular "
                    f"{lib_ms:.3f} ms, bound {bms:.4f} ms ({by})")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
@@ -396,43 +448,93 @@ def phase_kernels(dev) -> dict:
     del za, zb
     serve_gemm_checks(dev)
 
-    # trsm: every variant at m = 300 (the recursion runs), both types
+    rows = {"gemm": gemm_row, "trsm": phase_kernels_trsm(dev, gen)}
+    rows.update(phase_kernels_parsec(dev, gen))
+    rows.update(phase_kernels_attention(dev))
+    return rows
+
+
+def trsm_one(a, b, name: str, **kw):
+    """One solve on the kernel, asserted to be one launch after one memset
+    of its flags."""
+    from repro_torch.kernels import trsm
+    launched, memsets = trsm.launches, trsm.memsets
+    got = trsm.trsm(a, b, **kw)
+    if (trsm.launches - launched, trsm.memsets - memsets) != (1, 1):
+        raise AssertionError(f"trsm {name}: {trsm.launches - launched} "
+                             f"launches and {trsm.memsets - memsets} "
+                             f"memsets, want 1 and 1")
+    return got
+
+
+def phase_kernels_trsm(dev, gen) -> dict:
+    """trsm against the kernel's block-row order (trsm_dataflow_plain):
+    every variant (side x uplo x trans N/T/C x diag) in both types at m =
+    300, n = 40 (five block rows, two panels) and at m = 1, 63, 64, 65; a
+    batched solve; an LU factor's unit-lower triangle against
+    solve_triangular; then the BLAS phase's 6912 x 32 solve, timed."""
+    import torch
+    from repro_torch.kernels import trsm
+
+    def rnd(*shape, dtype=torch.float64):
+        return torch.randn(*shape, generator=gen,
+                           dtype=torch.float64).to(dtype).to(dev)
     for dt in (torch.float32, torch.float64):
-        worst = 0.0
-        for side in "LR":
-            for uplo in "LU":
-                for tr in "NTC":
-                    for dg in "NU":
-                        a = tri(gen, 300, uplo, dt, dev)
-                        b = (rnd(300, 40, dtype=dt) if side == "L"
-                             else rnd(40, 300, dtype=dt))
-                        kw = dict(side=side, uplo=uplo, trans=tr, diag=dg)
-                        got = trsm.trsm(a, b, **kw)
-                        want = trsm.trsm_plain(a, b, **kw)
-                        _, rel = rel_err(got, want)
-                        if not rel <= TRSM_TOL[str(dt)[6:]]:
-                            raise AssertionError(
-                                f"trsm {dt} {kw}: rel err {rel:.3e}")
-                        worst = max(worst, rel)
-        log("kernels", f"trsm {str(dt)[6:]} m=300: 24 variants (side x "
-                       f"uplo x trans N/T/C x diag), worst rel err "
-                       f"{worst:.3e} (tol {TRSM_TOL[str(dt)[6:]]:g})")
+        tol = TRSM_TOL[str(dt)[6:]]
+        worst, cases = 0.0, 0
+        for m, n in ((300, 40), (1, 40), (63, 40), (64, 40), (65, 40)):
+            for side in "LR":
+                for uplo in "LU":
+                    for tr in "NTC":
+                        for dg in "NU":
+                            a = tri(gen, m, uplo, dt, dev)
+                            b = (rnd(m, n, dtype=dt) if side == "L"
+                                 else rnd(n, m, dtype=dt))
+                            kw = dict(side=side, uplo=uplo, trans=tr,
+                                      diag=dg)
+                            got = trsm_one(a, b, f"{dt} m={m} {kw}", **kw)
+                            want = trsm.trsm_dataflow_plain(a, b, **kw)
+                            _, rel = rel_err(got, want)
+                            if not rel <= tol:
+                                raise AssertionError(
+                                    f"trsm {dt} m={m} {kw}: rel err "
+                                    f"{rel:.3e} > {tol:g}")
+                            worst, cases = max(worst, rel), cases + 1
+        a = torch.stack([tri(gen, 300, "L", dt, dev) for _ in range(3)])
+        b = rnd(3, 300, 40, dtype=dt)
+        got = trsm_one(a, b, f"{dt} batched 3 x 300 x 40", trans="T")
+        _, rel = rel_err(got, trsm.trsm_dataflow_plain(a, b, trans="T"))
+        if not rel <= tol:
+            raise AssertionError(f"trsm {dt} batched: rel err {rel:.3e}")
+        log("kernels", f"trsm {str(dt)[6:]}: {cases} solves (24 variants "
+                       f"at m = 300, 1, 63, 64, 65) and a batched one, one "
+                       f"launch each, worst rel err {max(worst, rel):.3e} "
+                       f"vs the kernel's plain order (tol {tol:g})")
+    lu, _ = torch.linalg.lu_factor(rnd(TRSM_LU_M, TRSM_LU_M))
+    lf = lu.tril(-1) + torch.eye(TRSM_LU_M, dtype=lu.dtype, device=dev)
+    b = rnd(TRSM_LU_M, 32)
+    cond = torch.linalg.cond(lf).item()
+    tol = TRSM_LU_FACTOR * cond * torch.finfo(torch.float64).eps
+    got = trsm_one(lu, b, "LU factor", diag="U")
+    _, rel = rel_err(got, torch.linalg.solve_triangular(
+        lf, b, upper=False, unitriangular=True))
+    if not rel <= tol:
+        raise AssertionError(f"trsm LU factor: rel err {rel:.3e} > {tol:.3e}")
+    log("kernels", f"trsm float64 on the unit-lower factor of lu_factor("
+                   f"randn({TRSM_LU_M})), cond {cond:.3e}: rel err {rel:.3e} "
+                   f"vs solve_triangular (tol {TRSM_LU_FACTOR} cond eps64 = "
+                   f"{tol:.3e})")
+    del lu, lf
     a, b = tri(gen, 300, "L", torch.float64, dev), rnd(300, 40)
     trsm_times(a, b, "300x40", plain_reps=3)
     M, R = 6912, 32
     a, b = tri(gen, M, "L", torch.float64, dev), rnd(M, R)
-    trsm_err = check(f"trsm float64 {M}x{R}", trsm.trsm(a, b),
-                     trsm.trsm_plain(a, b), TRSM_TOL["float64"])
-    trsm_row = dict(name="trsm", route="cuda",
-                    source="src/repro_torch/csrc/trsm.cu",
-                    replaces="src/repro/kernels/trsm.py:32",
-                    max_abs_err=trsm_err,
-                    **trsm_times(a, b, f"{M}x{R}", plain_reps=2))
-    del a, b
-    rows = {"gemm": gemm_row, "trsm": trsm_row}
-    rows.update(phase_kernels_parsec(dev, gen))
-    rows.update(phase_kernels_attention(dev))
-    return rows
+    err = check(f"trsm float64 {M}x{R}", trsm_one(a, b, f"{M}x{R}"),
+                trsm.trsm_dataflow_plain(a, b), TRSM_TOL["float64"])
+    return dict(name="trsm", route="cuda",
+                source="src/repro_torch/csrc/trsm.cu",
+                replaces="src/repro/kernels/trsm.py:32", max_abs_err=err,
+                **trsm_times(a, b, f"{M}x{R}", plain_reps=2))
 
 
 def syrk_times(psi) -> dict:
@@ -659,6 +761,82 @@ def sdpa(q, k, v, **kw):
     return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
 
 
+def flash_bound(logits: int, d: int, nbytes: float, softcap: bool) -> tuple:
+    """The least time of a flash call: the larger of its tensor-core
+    operations (4 d per live logit) at the bf16 peak, its special-function
+    operations (ex2 and rcp of the soft-cap's tanh and ex2 of the softmax:
+    3 per live logit, 1 without the cap) at PEAK_MUFU, and its bytes (q, k,
+    v read once, the output written once).  Returns (ms, bound_by, which
+    term binds)."""
+    terms = {
+        "tensor-core operations": 4.0 * d * logits / PEAK_OPS["bfloat16"],
+        "MUFU operations": (3 if softcap else 1) * logits / PEAK_MUFU,
+        "bytes": nbytes / PEAK_BYTES}
+    term = max(terms, key=terms.get)
+    detail = ", ".join(f"{k} {v * 1e3:.4f} ms" for k, v in terms.items())
+    return (terms[term] * 1e3, "bytes" if term == "bytes" else "operations",
+            f"{term}; {detail}")
+
+
+def flash_head_sizes(dev, gen) -> None:
+    """The wgmma path at qwen1.5-4b's head size (128) and at 64, in bf16
+    and f16: per-row checks where softcap 50 bites, path asserted."""
+    import torch
+    from repro_torch.kernels import attention
+    for d in (128, 64):
+        for dt in (torch.bfloat16, torch.float16):
+            q, k, v = (torch.randn(*shape, generator=gen, device=dev,
+                                   dtype=dt)
+                       for shape in ((2, 8, 2048, d), (2, 4, 2048, d),
+                                     (2, 4, 2048, d)))
+            q = q * ATTN_Q_SCALE
+            kw = dict(causal=True, softcap=50.0)
+            before = attention.launches_by_path[attention.WGMMA]
+            got = attention.flash_attention(q, k, v, **kw)
+            if attention.launches_by_path[attention.WGMMA] != before + 1:
+                raise AssertionError(f"flash_attention D={d} {dt}: not on "
+                                     f"the wgmma path")
+            check_rows(f"flash_attention {str(dt)[6:]} [2,8,2048,{d}] "
+                       f"softcap 50 (wgmma path)", got,
+                       attention.flash_attention_plain(q, k, v, **kw),
+                       ATTN_TOL)
+
+
+def flash_fma_checks(dev, gen) -> None:
+    """The FMA path, which the plan keeps for float32 and D 16/32: float32
+    at the serve shape (window 4096) and bf16 at D 32, each per row against
+    the plain version where softcap 50 bites, path asserted, beside a
+    control without the softcap that must fail the same check.  float32's
+    tolerance is TOL's: both sides compute in float32 and differ in
+    summation order and in tanhf/expf against torch's, ~1e-6 of a row."""
+    import torch
+    from repro_torch.kernels import attention
+    cases = (("float32", torch.float32, (2, 16, SERVE_PROMPT, 256),
+              (2, 8, SERVE_PROMPT, 256), 4096, TOL["float32"]),
+             ("bf16", torch.bfloat16, (2, 8, 2048, 32), (2, 4, 2048, 32), 0,
+              ATTN_TOL))
+    for label, dt, q_shape, kv_shape, window, tol in cases:
+        q, k, v = (torch.randn(*shape, generator=gen, device=dev, dtype=dt)
+                   for shape in (q_shape, kv_shape, kv_shape))
+        q = q * ATTN_Q_SCALE
+        kw = dict(causal=True, softcap=50.0, window=window)
+        name = (f"flash_attention {label} {list(q_shape)} window {window} "
+                f"softcap 50 (FMA path)")
+        before = attention.launches_by_path[attention.FMA]
+        got = attention.flash_attention(q, k, v, **kw)
+        if attention.launches_by_path[attention.FMA] != before + 1:
+            raise AssertionError(f"{name}: not on the FMA path")
+        want = attention.flash_attention_plain(q, k, v, **kw)
+        check_rows(name, got, want, tol)
+        control(f"{name} without softcap vs plain with softcap 50",
+                attention.flash_attention(q, k, v, causal=True,
+                                          window=window), want, tol)
+        if dt == torch.float32:
+            ms = time_ms(lambda: attention.flash_attention(q, k, v, **kw),
+                         reps=3)
+            log("kernels", f"{name}: kernel {ms:.3f} ms")
+
+
 def phase_kernels_attention(dev) -> dict:
     """Flash and decode attention against their plain versions at
     gemma2-9b's serve shapes, in bf16, with q scaled so that the softcap
@@ -679,27 +857,43 @@ def phase_kernels_attention(dev) -> dict:
     log("kernels", f"attention inputs: randn q x {ATTN_Q_SCALE:g}, k, v; "
                    f"logits q.k / 16 with std {std:.1f} before softcap 50")
     nbytes = 2 * (2 * b * hq * t * d + 2 * b * hkv * t * d)
+    if attention.plan(q, k, v) != attention.Plan(attention.WGMMA,
+                                                 (False,) * 3):
+        raise AssertionError(f"flash_attention at the serve shape: plan "
+                             f"{attention.plan(q, k, v)}, want the wgmma "
+                             f"path without copies")
     flash_row, outs = None, {}
     for window in (0, 4096):
         kw = dict(causal=True, softcap=50.0, window=window)
+        before = attention.launches_by_path[attention.WGMMA]
         got = attention.flash_attention(q, k, v, **kw)
+        if attention.launches_by_path[attention.WGMMA] != before + 1:
+            raise AssertionError("flash_attention: the serve shape did not "
+                                 "launch the wgmma path")
         want = attention.flash_attention_plain(q, k, v, **kw)
         err = check_rows(f"flash_attention bf16 [{b},{hq},{t},{d}] window "
-                         f"{window} softcap 50", got, want, ATTN_TOL)
+                         f"{window} softcap 50 (wgmma path)", got, want,
+                         ATTN_TOL)
         outs[window] = (got, want)
         ms = time_ms(lambda: attention.flash_attention(q, k, v, **kw), reps=5)
+        differ = sum(not torch.equal(attention.flash_attention(q, k, v, **kw),
+                                     got) for _ in range(FLASH_REPEATS))
+        if differ:
+            raise AssertionError(f"flash_attention window {window}: {differ} "
+                                 f"of {FLASH_REPEATS} repeats differ from "
+                                 f"the first call")
+        log("kernels", f"flash_attention window {window}: {FLASH_REPEATS} "
+                       f"repeats equal to the first call bit for bit")
         plain_ms = time_ms(
             lambda: attention.flash_attention_plain(q, k, v, **kw), reps=2)
         lib_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True), reps=5)
         pairs = causal_pairs(t, window)
-        ops_ = 4.0 * b * hq * d * pairs
-        bms, by = bound(ops_, nbytes, "bfloat16")
+        bms, by, term = flash_bound(b * hq * pairs, d, nbytes, softcap=True)
         log("kernels", f"flash_attention window {window}: kernel {ms:.3f} ms "
-                       f"({ops_ / ms / 1e9:.1f} TFLOP/s on {pairs} live "
-                       f"pairs), plain {plain_ms:.3f} ms, sdpa (causal, "
-                       f"no softcap or window) {lib_ms:.3f} ms, bound "
-                       f"{bms:.4f} ms ({by}; bytes alone "
-                       f"{nbytes / PEAK_BYTES * 1e3:.4f} ms)")
+                       f"({4.0 * b * hq * d * pairs / ms / 1e9:.1f} TFLOP/s "
+                       f"on {pairs} live pairs), plain {plain_ms:.3f} ms, "
+                       f"sdpa (causal, no softcap or window) {lib_ms:.3f} "
+                       f"ms, bound {bms:.4f} ms ({term})")
         if window == 0:
             flash_row = dict(
                 name="flash_attention", route="cuda",
@@ -713,6 +907,8 @@ def phase_kernels_attention(dev) -> dict:
             attention.flash_attention(q, k, v, causal=True), outs[0][1],
             ATTN_TOL)
     del q, k, v, outs
+    flash_head_sizes(dev, gen)
+    flash_fma_checks(dev, gen)
     s_len, kv_len = SERVE_LEN, SERVE_PROMPT + 1
     q, k, v = rnd(b, hq, 1, d) * ATTN_Q_SCALE, rnd(b, hkv, s_len, d), \
         rnd(b, hkv, s_len, d)
@@ -804,8 +1000,9 @@ def phase_blas(s, dev) -> dict:
         raise AssertionError(f"blas counters {want} != {expect}")
     if sg.transient_bytes != 2 * 64 * 64 * 4:
         raise AssertionError(f"small mm streamed {sg.transient_bytes} B")
-    if launched["gemm"] < 3 or launched["trsm"] < 1:
-        raise AssertionError(f"blas launches {launched}")
+    if launched["gemm"] < 3 or launched["trsm"] != 1:
+        raise AssertionError(f"blas launches {launched}: want 3 or more "
+                             f"gemm and 1 trsm (one launch per solve)")
     ad, bd, cd = a.to(dev), b.to(dev), c.to(dev)
     plain = 1.5 * ref.matmul(ad.mT.contiguous(), bd) - 0.5 * cd
     for name, got in (("gemm call 1", out1), ("gemm call 2", out2)):
@@ -827,6 +1024,7 @@ def phase_blas(s, dev) -> dict:
 
 
 def phase_lsms(s, dev, n: int = 6912) -> dict:
+    import numpy as np
     import torch
     import repro_torch
     from repro_torch import OffloadConfig
@@ -847,12 +1045,22 @@ def phase_lsms(s, dev, n: int = 6912) -> dict:
     # the production KKR size, inside the main session, timed per call
     atoms, energies = 2, 2
     s.reconfigure(sync=True)
+    blas_before = sum(r.seconds for r in s.stats.per_routine.values())
     reset_counts()
     t0 = time.perf_counter()
     out = lsms.run_mini(atoms=atoms, energies=energies, scf=1, n=n,
                         dtype=torch.complex128, device=dev)
     s.sync()
     wall = time.perf_counter() - t0
+    blas_s = sum(r.seconds for r in s.stats.per_routine.values()) \
+        - blas_before
+    # the loop's numpy draws alone (run_mini's order: G per atom, then a
+    # t-matrix per solve), timed apart: host work inside the wall
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    for _ in range(2 * atoms + atoms * energies):
+        rng.standard_normal((n, n))
+    draws_s = time.perf_counter() - t0
     launched = counts()
     z = s.stats.per_routine["zgemm"]
     if (z.calls, z.offloaded) != (4, 4):
@@ -874,6 +1082,10 @@ def phase_lsms(s, dev, n: int = 6912) -> dict:
                 f"{z.seconds / z.calls:.4f} s per call (synchronized), "
                 f"bytes_in {z.bytes_in} (G once per atom), residency hits "
                 f"{z.cache_hits}, launches {launched}, loop wall {wall:.2f} s")
+    log("lsms", f"loop wall {wall:.3f} s: intercepted BLAS calls "
+                f"{blas_s:.3f} s, the rest (host draws and arithmetic, "
+                f"copies, LU and checks) {wall - blas_s:.3f} s; the numpy "
+                f"draws alone {draws_s:.3f} s")
     for line in s.report().splitlines():
         log("lsms", line)
     return launched
@@ -1145,7 +1357,7 @@ def phase_serve(dev) -> dict:
     decode step."""
     import dataclasses
     import torch
-    from repro_torch.kernels import gemm
+    from repro_torch.kernels import attention, gemm
     from repro_torch.models import Model, get_config
     cfg = dataclasses.replace(get_config("gemma2_9b"), prefill_fresh_kv=True)
     model = Model.from_config(cfg)
@@ -1176,6 +1388,8 @@ def phase_serve(dev) -> dict:
                                    dev)
     got = counts()
     reduces = gemm.reduce_launches
+    flash_paths = dict(attention.launches_by_path)
+    flash_copies = attention.copies
     peak = torch.cuda.max_memory_allocated()
     add(got)
     st = srv.stats
@@ -1192,6 +1406,10 @@ def phase_serve(dev) -> dict:
                              f"{cfg.n_layers} (prefill), decode "
                              f"{n_global} x {SERVE_GEN - 1} and gemm "
                              f"{gemms_per_forward} x {SERVE_GEN}")
+    if flash_paths[attention.WGMMA] != got["flash_attention"]:
+        raise AssertionError(f"serve dfu: flash launches by path "
+                             f"{flash_paths}; all {got['flash_attention']} "
+                             f"must take the wgmma path")
     if tuple(out.shape) != (SERVE_BATCH, SERVE_GEN) or not bool(
             ((out >= 0) & (out < cfg.vocab)).all()):
         raise AssertionError(f"serve dfu: tokens {out}")
@@ -1203,7 +1421,9 @@ def phase_serve(dev) -> dict:
                  f"{st.bytes_host_to_dev} B, d->h {st.bytes_dev_to_host} B, "
                  f"migrations {st.migrations}, reuses {st.cache_reuses}; "
                  f"launches {got} (gemm {gemms_per_forward} per forward, "
-                 f"plus {reduces} split-K reductions); peak device memory "
+                 f"plus {reduces} split-K reductions; flash by path "
+                 f"{flash_paths}, {flash_copies} operand copies); peak "
+                 f"device memory "
                  f"{peak / 1e9:.2f} GB")
     del srv
 
@@ -1220,6 +1440,10 @@ def phase_serve(dev) -> dict:
     got = counts()
     add(got)
     st = mc.stats
+    if attention.launches_by_path[attention.WGMMA] != got["flash_attention"]:
+        raise AssertionError(f"serve memcopy: flash launches by path "
+                             f"{attention.launches_by_path}; all must take "
+                             f"the wgmma path")
     if got["gemm"] != gemms_per_forward * 4:
         raise AssertionError(f"serve memcopy: {got['gemm']} gemm launches, "
                              f"want {gemms_per_forward} x 4")

@@ -7,6 +7,15 @@ tensor launches the kernel or raises; a CPU tensor takes the plain
 version, :func:`flash_attention_plain` (the ``ref.attention`` formula),
 which the CPU tests use and the chip check compares the kernel with.
 
+The kernel has two paths, and :func:`plan` picks one from the dtype, the
+head size and the operands' layout alone: bf16/f16 at D = 64, 128 or 256
+run on the tensor cores (wgmma fed by TMA), float32 and D = 16 or 32 on
+the FMA units.  An operand that breaks the chosen path's layout rules is
+copied with ``.contiguous()`` first, and the copy is counted
+(:data:`copies`).  :func:`flash_tiles_plain` is the wgmma path's
+arithmetic in plain PyTorch (its tiles, its form of tanh, P rounded to
+the 16-bit type before P.V), for the CPU tests.
+
 The kernel walks only the key tiles that the causal and window masks
 leave live, masks ragged Tq and Tk itself (so the wrapper neither pads
 nor crops), and reads K and V through the GQA head map without copying
@@ -20,14 +29,23 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import compat, ref
 
-#: launches of the CUDA kernel since the last reset
+#: the kernel's paths (csrc/flash_attention.cu)
+WGMMA, FMA = "wgmma", "fma"
+#: head sizes the wgmma path takes (whole 64-column TMA boxes of D)
+WGMMA_HEAD_DIMS = (64, 128, 256)
+_WGMMA_DTYPES = (torch.bfloat16, torch.float16)
+
+#: launches of the CUDA kernel since the last reset, in all and per path
 launches = 0
+launches_by_path = {WGMMA: 0, FMA: 0}
+#: operands copied to meet a path's layout rules since the last reset
+copies = 0
 
 #: dtype codes of csrc/flash_attention.cu and csrc/decode_attention.cu
 CODES = {torch.float32: 0, torch.bfloat16: 2, torch.float16: 3}
@@ -44,16 +62,48 @@ _ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p]
 
 
+class Plan(NamedTuple):
+    path: str                       # WGMMA or FMA
+    copy: Tuple[bool, bool, bool]   # q, k, v each copied before the launch
+
+
 def reset_launches() -> None:
-    global launches
+    global launches, copies
     launches = 0
+    copies = 0
+    launches_by_path.update({WGMMA: 0, FMA: 0})
 
 
-def _entry():
-    fn = compat.library("flash_attention").repro_flash_attention
+def _entry(path: str):
+    lib = compat.library("flash_attention")
+    fn = (lib.repro_flash_attention_wgmma if path == WGMMA
+          else lib.repro_flash_attention)
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
+
+
+def tma_ready(x: torch.Tensor) -> bool:
+    """The wgmma path's TMA rules for one of q, k, v: a 16-byte aligned
+    base, a unit stride on D, and b, h, t strides that are positive
+    multiples of 16 bytes."""
+    es = x.element_size()
+    return (x.data_ptr() % 16 == 0 and x.stride(-1) == 1
+            and all(x.stride(i) > 0 and x.stride(i) * es % 16 == 0
+                    for i in range(3)))
+
+
+def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Plan:
+    """The kernel's path for these operands, and which of them it copies:
+    the wgmma path for bf16/f16 at a head size of :data:`WGMMA_HEAD_DIMS`
+    (an operand off the TMA rules is copied), else the FMA path (float32,
+    whose tolerance TF32 would miss, and D = 16 or 32; an operand without
+    a unit stride on D is copied).  Fixed by dtype, D and layout: never a
+    fallback taken on failure."""
+    if q.dtype in _WGMMA_DTYPES and q.shape[-1] in WGMMA_HEAD_DIMS:
+        return Plan(WGMMA, tuple(not tma_ready(x) for x in (q, k, v)))
+    return Plan(FMA, tuple(x.stride(-1) != 1 and x.shape[-1] > 1
+                           for x in (q, k, v)))
 
 
 def strides(x: torch.Tensor, dims) -> "ctypes.Array":
@@ -62,7 +112,8 @@ def strides(x: torch.Tensor, dims) -> "ctypes.Array":
 
 
 def unit_last(x: torch.Tensor) -> torch.Tensor:
-    """``x`` itself when its last dim has unit stride, else a copy."""
+    """``x`` itself when its last dim has unit stride, else a copy (the
+    decode kernel's rule)."""
     return x if x.stride(-1) == 1 or x.shape[-1] <= 1 else x.contiguous()
 
 
@@ -104,6 +155,72 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          softcap=softcap, scale=scale)
 
 
+#: the wgmma path's tiles: query rows per block (two consumer warpgroups
+#: of 64) and keys per step
+WG_BQ, WG_BK = 128, 64
+_LOG2E = 1.4426950408889634
+
+
+def flash_tiles_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: int = 0,
+                      softcap: float = 0.0,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """The wgmma path's arithmetic in plain PyTorch, tile for tile: blocks
+    of 128 query rows walk the 64-key tiles that the masks leave live for
+    any of their rows; logits in float32 in log2 units, soft-capped as
+    ``c * (1 - 2 / (1 + 2^(2 y log2 e)))`` with ``y = x / c`` (the kernel's
+    form of tanh); an online max and denominator; P rounded to q's dtype
+    before P.V, as the tensor cores take it, and the denominator summing
+    the same rounded P; float32 accumulation.  The reference keeps P in
+    float32 (``repro/kernels/attention.py:70-75``): this rounding is the
+    kernel's one departure from it."""
+    check_shapes("flash_tiles_plain", q, k, v)
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    s = float(scale if scale is not None else 1.0 / math.sqrt(d))
+    qf = q.float()
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    out = torch.empty((b, hq, tq, d), dtype=torch.float32, device=q.device)
+    q_offset = tk - tq
+    for q0 in range(0, tq, WG_BQ):
+        q1 = min(q0 + WG_BQ, tq)
+        k_lo, k_hi = 0, tk
+        if causal:
+            k_hi = min(k_hi, q_offset + q1)
+        if window > 0:
+            k_lo = max(0, q_offset + q0 - window + 1)
+        qpos = torch.arange(q0, q1, device=q.device)[:, None] + q_offset
+        m = torch.full((b, hq, q1 - q0, 1), ref.NEG_INF, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, hq, q1 - q0, d), device=q.device)
+        for k0 in range(k_lo // WG_BK * WG_BK, k_hi if k_hi > k_lo else 0,
+                        WG_BK):
+            k1 = min(k0 + WG_BK, tk)
+            x = ref.torch_matmul(qf[:, :, q0:q1], kf[:, :, k0:k1].mT)
+            if softcap > 0.0:
+                e = torch.exp2(x * (2.0 * _LOG2E * s / softcap))
+                x = (1.0 - 2.0 / (1.0 + e)) * (softcap * _LOG2E)
+            else:
+                x = x * (s * _LOG2E)
+            kpos = torch.arange(k0, k1, device=q.device)[None, :]
+            live = kpos < tk
+            if causal:
+                live = live & (qpos >= kpos)
+            if window > 0:
+                live = live & (qpos - kpos < window)
+            x = torch.where(live, x, ref.NEG_INF)
+            m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(x - m_new).to(q.dtype).float()
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + ref.torch_matmul(p, vf[:, :, k0:k1])
+            m = m_new
+        out[:, :, q0:q1] = acc / l.clamp_min(1e-30)
+    return out.to(q.dtype)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0,
@@ -118,17 +235,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     check_kernel_inputs("flash_attention", q, k, v)
     b, hq, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
-    q, k, v = unit_last(q), unit_last(k), unit_last(v)
     s = float(scale if scale is not None else 1.0 / math.sqrt(d))
     out = torch.empty((b, hq, tq, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    global launches
+    pl = plan(q, k, v)
+    q, k, v = (x.contiguous() if c else x for x, c in zip((q, k, v), pl.copy))
+    global launches, copies
+    copies += sum(pl.copy)
     launches += 1
-    rc = _entry()(CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  out.data_ptr(), b, hq, hkv, tq, tk, d,
-                  strides(q, (0, 1, 2)), strides(k, (0, 1, 2)),
-                  strides(v, (0, 1, 2)), s, float(softcap), int(causal),
-                  int(window), torch.cuda.current_stream(q.device).cuda_stream)
+    launches_by_path[pl.path] += 1
+    rc = _entry(pl.path)(
+        CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), b, hq, hkv, tq, tk, d, strides(q, (0, 1, 2)),
+        strides(k, (0, 1, 2)), strides(v, (0, 1, 2)), s, float(softcap),
+        int(causal), int(window),
+        torch.cuda.current_stream(q.device).cuda_stream)
     compat.check(rc, "flash_attention")
     return out

@@ -8,9 +8,11 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds), loaded with :mod:`ctypes`.  Libraries live under
 ``build/kernels/`` at the root of the checkout, named by a hash of the
-source and the flags, so a second process reuses them.  Nothing is built
-when a module is imported: the first launch asks for its library, and
-that request compiles every source at once, one ``nvcc`` process each.
+source, the shared headers (``csrc/*.cuh``) and the flags, so a second
+process reuses them and an edited header rebuilds every library.
+Nothing is built when a module is imported: the first launch asks for
+its library, and that request compiles every source at once, one
+``nvcc`` process each.
 """
 from __future__ import annotations
 
@@ -57,11 +59,16 @@ def sources() -> Dict[str, Path]:
     return {p.stem: p for p in sorted(CSRC.glob("*.cu"))}
 
 
+def headers() -> Dict[str, Path]:
+    return {p.name: p for p in sorted(CSRC.glob("*.cuh"))}
+
+
 def library_path(name: str) -> Path:
-    src = sources()[name]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256(sources()[name].read_bytes())
+    for path in headers().values():
+        h.update(path.name.encode() + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> Dict[str, Path]:

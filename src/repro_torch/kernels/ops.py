@@ -89,7 +89,7 @@ def trsm(a: torch.Tensor, b: torch.Tensor, *, side: str = "L",
          uplo: str = "L", trans: str = "N", diag: str = "N"
          ) -> torch.Tensor:
     """Solve op(A) X = B (side L) or X op(A) = B (side R).  Real float32
-    and float64 run the kernel recursion; bf16/f16 solve on it in
+    and float64 run the trsm kernel; bf16/f16 solve on it in
     float32; complex goes to the library."""
     if a.is_complex() or b.is_complex():
         return ref.trsm(a, b, side=side, uplo=uplo, trans=trans, diag=diag)
@@ -218,7 +218,7 @@ def kernel_syrk(a: torch.Tensor, *, uplo: str = "L", trans: str = "N",
 def kernel_trsm(a: torch.Tensor, b: torch.Tensor, *, side: str = "L",
                 uplo: str = "L", trans: str = "N", diag: str = "N",
                 block: int = 0) -> torch.Tensor:
-    """The triangular solve on the `pallas` venue: the trsm kernel
-    recursion (complex on the library, as :func:`trsm`)."""
-    del block   # the recursion's base edge is fixed (trsm.BASE)
+    """The triangular solve on the `pallas` venue: one launch of the trsm
+    kernel (complex on the library, as :func:`trsm`)."""
+    del block   # the kernel's block rows are fixed (trsm.NB)
     return trsm(a, b, side=side, uplo=uplo, trans=trans, diag=diag)

@@ -111,3 +111,65 @@ def test_session_on_card_places_once_and_launches(dev):
     an = a.numpy()
     np.testing.assert_allclose(d.cpu().numpy(), an.T @ (an @ an),
                                rtol=1e-10, atol=1e-9)
+
+
+VARIANTS = [(side, uplo, trans, diag) for side in "LR" for uplo in "LU"
+            for trans in "NT" for diag in "NU"]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-4),
+                                       (torch.float64, 1e-10)])
+@pytest.mark.parametrize("side,uplo,trans,diag", VARIANTS)
+def test_trsm_kernel_every_variant_one_launch(dev, dtype, tol, side, uplo,
+                                              trans, diag):
+    """Every variant against the kernel's plain order, at m in {1, 63, 64,
+    65, 300} and n in {1, 40}: one launch and one flag memset per solve,
+    whatever m (no recursion on the card)."""
+    gen = torch.Generator().manual_seed(VARIANTS.index((side, uplo, trans,
+                                                        diag)))
+    for m in (1, 63, 64, 65, 300):
+        for n in (1, 40):
+            a = torch.randn(m if side == "L" else n,
+                            m if side == "L" else n, generator=gen,
+                            dtype=torch.float64) / m
+            a = a.tril() if uplo == "L" else a.triu()
+            a.diagonal().copy_(1.0 + a.diagonal().abs())
+            a, b = a.to(dtype).to(dev), torch.randn(
+                m, n, generator=gen, dtype=torch.float64).to(dtype).to(dev)
+            kw = dict(side=side, uplo=uplo, trans=trans, diag=diag)
+            launched, memsets = trsm.launches, trsm.memsets
+            got = trsm.trsm(a, b, **kw)
+            torch.cuda.synchronize()
+            assert (trsm.launches, trsm.memsets) == (launched + 1,
+                                                     memsets + 1)
+            assert _rel(got, trsm.trsm_dataflow_plain(a, b, **kw)) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-4),
+                                       (torch.float64, 1e-10)])
+def test_trsm_kernel_batched_and_large(dev, dtype, tol):
+    """A batch of 3 solves in one launch (batch is the ticket order's
+    slowest index), and the main path's 6912 x 32 solve in one launch of
+    108 blocks."""
+    a = torch.stack([_tri(200, dtype, dev) for _ in range(3)])
+    b = torch.randn(3, 200, 33, device=dev).to(dtype)
+    launched = trsm.launches
+    assert _rel(trsm.trsm(a, b), trsm.trsm_dataflow_plain(a, b)) <= tol
+    a, b = _tri(6912, dtype, dev), torch.randn(6912, 32, device=dev).to(dtype)
+    assert _rel(trsm.trsm(a, b), trsm.trsm_dataflow_plain(a, b)) <= tol
+    assert trsm.launches == launched + 2
+
+
+def test_trsm_kernel_on_lu_factor(dev):
+    """The unit-lower triangle of an LU factor (entries up to 1, condition
+    in the thousands): within 20 cond(L) eps64 of solve_triangular."""
+    gen = torch.Generator().manual_seed(7)
+    lu, _ = torch.linalg.lu_factor(torch.randn(2048, 2048, generator=gen,
+                                               dtype=torch.float64))
+    lf = lu.tril(-1) + torch.eye(2048, dtype=torch.float64)
+    b = torch.randn(2048, 32, generator=gen, dtype=torch.float64)
+    tol = 20 * torch.linalg.cond(lf).item() * torch.finfo(torch.float64).eps
+    want = torch.linalg.solve_triangular(lf, b, upper=False,
+                                         unitriangular=True)
+    got = trsm.trsm(lu.to(dev), b.to(dev), diag="U").cpu()
+    assert _rel(got, want) <= tol

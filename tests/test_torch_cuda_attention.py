@@ -147,3 +147,77 @@ def test_cuda_tensors_raise_instead_of_falling_back(dev):
     q, k, v = _qkv(dev, torch.float32, 1, 18, 2, 1, 16, 64)
     with pytest.raises(ValueError, match="at most"):
         decode_attention.decode_attention(q, k, v, 8)
+
+
+def _row_rel(got, want):
+    """Per query row: max|got - want| / max|want| along D, the worst row
+    (chip_smoke.py's measure)."""
+    g, w = got.float(), want.float()
+    den = w.abs().amax(-1).clamp_min(torch.finfo(torch.float32).tiny)
+    return ((g - w).abs().amax(-1) / den).max().item()
+
+
+@pytest.mark.parametrize("d", attention.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", list(TOL))
+def test_flash_plan_path_per_dtype_and_head_size(dev, d, dtype):
+    """bf16/f16 at D 64, 128, 256 take the wgmma path; float32 and D 16,
+    32 the FMA path; each launch is counted on its path."""
+    q, k, v = _qkv(dev, dtype, 1, 2, 1, 16, 16, d)
+    want = (attention.WGMMA if dtype != torch.float32
+            and d in attention.WGMMA_HEAD_DIMS else attention.FMA)
+    assert attention.plan(q, k, v) == attention.Plan(want, (False,) * 3)
+    before = dict(attention.launches_by_path)
+    attention.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert attention.launches_by_path[want] == before[want] + 1
+
+
+@pytest.mark.parametrize("d", attention.WGMMA_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("kw,tq,tk", [
+    (dict(causal=True, softcap=50.0), 300, 300),
+    (dict(causal=True, window=100, softcap=50.0), 300, 300),
+    (dict(causal=False), 200, 237),          # ragged Tk without causal
+    (dict(causal=True), 70, 333),            # right-aligned ragged queries
+    (dict(causal=True, window=64), 256, 256),
+])
+def test_wgmma_path_masks_per_row(dev, d, dtype, kw, tq, tk):
+    """The wgmma path per query row at ATTN_TOL (1e-2): q scaled so that
+    the softcap bites, GQA group 2, ragged Tq and Tk past the 128-row and
+    64-key tiles."""
+    q, k, v = _qkv(dev, dtype, 2, 4, 2, tq, tk, d, seed=4)
+    q = q * 8
+    launched = attention.launches_by_path[attention.WGMMA]
+    got = attention.flash_attention(q, k, v, **kw)
+    want = attention.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert attention.launches_by_path[attention.WGMMA] == launched + 1
+    assert got.shape == q.shape and bool(torch.isfinite(got).all())
+    assert _row_rel(got, want) <= 1e-2
+
+
+def test_wgmma_path_reads_views_and_copies_misaligned_ones(dev):
+    """Head-transposed views of a fused qkv projection go in uncopied;
+    views whose base is off 16 bytes are copied, and counted."""
+    b, t, hq, hkv, d = 2, 200, 4, 2, 128
+    qkv = torch.randn(b, t, (hq + 2 * hkv) * d, device=dev,
+                      dtype=torch.bfloat16)
+    q, k, v = qkv.split([hq * d, hkv * d, hkv * d], dim=-1)
+    q = q.reshape(b, t, hq, d).transpose(1, 2)
+    k = k.reshape(b, t, hkv, d).transpose(1, 2)
+    v = v.reshape(b, t, hkv, d).transpose(1, 2)
+    assert attention.plan(q, k, v) == attention.Plan(attention.WGMMA,
+                                                     (False,) * 3)
+    copies = attention.copies
+    got = attention.flash_attention(q, k, v, softcap=50.0)
+    assert attention.copies == copies
+    assert _row_rel(got, attention.flash_attention_plain(
+        q, k, v, softcap=50.0)) <= 1e-2
+    raw = torch.randn(b, hq, t, d + 1, device=dev, dtype=torch.bfloat16)
+    qm = raw[..., 1:]                         # base 2 bytes off, row 258 B
+    pl = attention.plan(qm, k, v)
+    assert pl == attention.Plan(attention.WGMMA, (True, False, False))
+    got = attention.flash_attention(qm, k, v, softcap=50.0)
+    assert attention.copies == copies + 1
+    assert _row_rel(got, attention.flash_attention_plain(
+        qm, k, v, softcap=50.0)) <= 1e-2
