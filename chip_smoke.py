@@ -22,13 +22,17 @@ First-Use decode cache.  Phases, in order:
              each of its paths, at the serve path's bf16 shapes too
              (prefill MLP, decode projections, the vocab head over the
              table's transposed view); trsm in every variant, ragged,
-             batched and on an LU factor, one launch per solve; the
-             fused split kernel's slices bit for bit, its exact-pass
-             check and dropped-pass controls; flash attention on its
-             wgmma path at the serve shape (each call repeated and held
-             bit for bit to the first) and at head sizes 128 and 64 in
-             bf16 and f16, and on its FMA path in float32 at the serve
-             shape and in bf16 at head size 32.
+             batched and on an LU factor, one launch per solve; syrk
+             float64 on DMMA at PARSEC's shape with its K split plan,
+             two calls bit for bit; the fused split kernel's slices bit
+             for bit, its exact-pass check and dropped-pass controls;
+             flash attention on its wgmma path at the serve shape (each
+             call repeated and held bit for bit to the first) and at
+             head sizes 128 and 64 in bf16 and f16, and on its FMA path
+             in float32 at the serve shape and in bf16 at head size 32;
+             decode attention at the serve shape, one launch, kv_len by
+             value and on the device bit for bit, 100 repeats held to
+             the first.
 3. blas    — gemm/trsm/small mm inside a DFU session; counters and one
              trsm launch asserted.
 4. lsms    — run_mini(atoms=2, energies=2, scf=1, n=6912, complex128)
@@ -133,9 +137,10 @@ ATTN_TOL = 1e-2
 #: row's ~4600 logits, ~100, caps to 48.2, and its runner-up, ~96, to
 #: 47.9, so the cap spreads the weight over tens of keys
 ATTN_Q_SCALE = 30.0
-#: repeats of each serve-shape flash call held bit for bit against the
-#: first: the kernel's arithmetic order is fixed, so a race in its
-#: pipeline's barriers would show as a difference
+#: repeats of each serve-shape flash call, and of the decode call, held
+#: bit for bit against the first: each kernel's arithmetic order is fixed,
+#: so a race in a pipeline's barriers or in the decode kernel's tickets
+#: would show as a difference
 FLASH_REPEATS = 100
 #: gemma2-9b serve cell: batch, prompt (past the 4096 window), generation
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 2, 4608, 16
@@ -172,6 +177,38 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_events(prof) -> list:
+    """(name, microseconds) of each device event (kernel, copy, memset)
+    that a torch.profiler run recorded.  Only device events: an
+    operator's device time would count its kernels twice."""
+    from torch.autograd import DeviceType
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn`` from torch.profiler over ``reps``
+    calls: the summed duration of every device event, divided by
+    ``reps``.  Unlike
+    time_ms it leaves out the host's time between launches, which for a
+    call of tens of microseconds can exceed the device's own.  Raises
+    where the profiler records no such device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(us for _, us in device_events(prof))
+    if not total > 0:
+        raise RuntimeError("device_ms: the profiler recorded no device "
+                           "event")
+    return total / 1e3 / reps
 
 
 def rel_err(got, want) -> tuple:
@@ -248,36 +285,6 @@ def tri(gen, n: int, uplo: str, dtype, device):
     return a.to(dtype).to(device)
 
 
-def variants(ptxas_log: str) -> list:
-    """Per entry function of one source's ``ptxas -v`` log: its template
-    arguments (mangled, e.g. ``ddLb1`` = double in, double
-    accumulator, TRANS true), registers,
-    shared memory, stack and spill bytes, and how many 256-thread blocks
-    an H100 SM holds by registers, shared memory and threads (65536
-    registers allocated 8 per thread at a time, 228 KiB of shared memory
-    with 1 KiB reserved per block, 2048 threads)."""
-    import re
-    out, cur = [], None
-    for ln in ptxas_log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", ln)
-        if m:
-            t = re.search(r"\d*([a-z][a-z0-9_]*_kernel)I(\w+?)E+v",
-                          m.group(1))
-            cur = dict(name=f"{t.group(1)}<{t.group(2)}>" if t
-                       else m.group(1), stack=0, spill=0)
-            out.append(cur)
-        elif cur is not None and "stack frame" in ln:
-            nums = [int(x) for x in re.findall(r"(\d+) bytes", ln)]
-            cur["stack"], cur["spill"] = nums[0], nums[1]
-        elif cur is not None and "registers" in ln:
-            cur["regs"] = int(re.search(r"Used (\d+) registers", ln)[1])
-            sm = re.search(r"(\d+) bytes smem", ln)
-            cur["smem"] = int(sm[1]) if sm else 0
-            cur["blocks"] = min(65536 // (-(-cur["regs"] // 8) * 8 * 256),
-                                233472 // (cur["smem"] + 1024), 2048 // 256)
-    return out
-
-
 def wgmma_waits(lib: Path) -> list:
     """Per wgmma kernel of a built library, from its SASS (cuobjdump):
     the wgmma instructions and the warpgroup waits among them.  As many
@@ -294,9 +301,8 @@ def wgmma_waits(lib: Path) -> list:
         name = func.split("\n", 1)[0]
         mma = len(re.findall(r"\bHGMMA\.", func))
         if mma:
-            t = re.search(r"\d*([a-z][a-z0-9_]*_kernel)I(\w+?)E+v", name)
-            out.append((f"{t.group(1)}<{t.group(2)}>" if t else name[:60],
-                        mma, len(re.findall(r"WARPGROUP\.DEPBAR", func))))
+            out.append((compat.kernel_name(name.strip()), mma,
+                        len(re.findall(r"WARPGROUP\.DEPBAR", func))))
     return out
 
 
@@ -307,7 +313,7 @@ def phase_build():
     secs = time.perf_counter() - t0
     for name, path in sorted(paths.items()):
         log("build", f"{name}: {path.name}")
-        for v in variants(compat.BUILD_LOG.get(name, "")):
+        for v in compat.ptxas_variants(compat.BUILD_LOG.get(name, "")):
             log("build", f"  {v['name']}: {v.get('regs')} registers, "
                          f"{v.get('smem')} B smem, {v['stack']} B stack, "
                          f"{v['spill']} B spill stores, {v.get('blocks')} "
@@ -545,6 +551,15 @@ def syrk_times(psi) -> dict:
     import torch
     from repro_torch.kernels import syrk
     k, n = psi.shape
+    p = syrk.plan(n, k, psi.dtype, "T")
+    first = syrk.syrk(psi, trans="T")
+    if not torch.equal(syrk.syrk(psi, trans="T"), first):
+        raise AssertionError("syrk float64: two calls on the same Psi differ")
+    del first
+    log("kernels", f"syrk float64 n={n} k={k}: {p.tiles} tiles of "
+                   f"{p.edge}, K split {p.splits} ways ({p.chunk} each), "
+                   f"{p.blocks} blocks, {p.waves:.2f} waves on "
+                   f"{syrk.SMS} SMs; two calls equal bit for bit")
     ms = time_ms(lambda: syrk.syrk(psi, trans="T"), reps=5)
     plain_ms = time_ms(lambda: syrk.syrk_plain(psi, trans="T"), reps=5)
     lib_ms = time_ms(lambda: torch.matmul(psi.mT, psi), reps=5)
@@ -927,20 +942,65 @@ def phase_kernels_attention(dev) -> dict:
     control("decode_attention without softcap vs plain with softcap 50",
             decode_attention.decode_attention(q, k, v, kv_len), want,
             ATTN_TOL)
-    ms = time_ms(lambda: decode_attention.decode_attention(q, k, v, kv_len,
-                                                           **kw), reps=50)
-    plain_ms = time_ms(lambda: decode_attention.decode_attention_plain(
-        q, k, v, kv_len, **kw), reps=10)
+    # kv_len read on the device: the grid covers every chunk of the cache,
+    # the same arithmetic on the same chunks, so the same bits
+    got = decode_attention.decode_attention(q, k, v, kv_len, **kw)
+    dev_len = torch.tensor([kv_len], dtype=torch.int32, device=dev)
+    before = (decode_attention.launches, decode_attention.memsets,
+              decode_attention.copies)
+    on_dev = decode_attention.decode_attention(q, k, v, dev_len, **kw)
+    after = (decode_attention.launches, decode_attention.memsets,
+             decode_attention.copies)
+    if tuple(a - b for a, b in zip(after, before)) != (1, 1, 0):
+        raise AssertionError(f"decode_attention: (launches, ticket "
+                             f"memsets, cache copies) of one call "
+                             f"{tuple(a - b for a, b in zip(after, before))}"
+                             f", want (1, 1, 0)")
+    if not torch.equal(on_dev, got):
+        raise AssertionError("decode_attention: device kv_len != host int")
+    differ = sum(not torch.equal(decode_attention.decode_attention(
+        q, k, v, dev_len if i % 2 else kv_len, **kw), got)
+        for i in range(FLASH_REPEATS))
+    if differ:
+        raise AssertionError(f"decode_attention: {differ} of "
+                             f"{FLASH_REPEATS} repeats differ from the "
+                             f"first call")
+    log("kernels", f"decode_attention: device kv_len equals the host int "
+                   f"bit for bit; {FLASH_REPEATS} repeats (host and device "
+                   f"kv_len in turn) equal to the first call")
+    # ms, as every row: CUDA events around back-to-back calls, which for a
+    # call of tens of microseconds the wrapper's host time can set; beside
+    # it the device time per call from the profiler, over every device
+    # event of the call (the kernel, the tickets' memset, a copy if any)
     live = (torch.arange(s_len, device=dev) < kv_len)[None, None, None]
-    lib_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=live), reps=50)
+    calls = {
+        "kernel": lambda: decode_attention.decode_attention(q, k, v, kv_len,
+                                                            **kw),
+        "kernel, kv_len on the device": lambda: decode_attention.
+        decode_attention(q, k, v, dev_len, **kw),
+        "plain": lambda: decode_attention.decode_attention_plain(
+            q, k, v, kv_len, **kw),
+        "sdpa (kv_len mask, no softcap)": lambda: sdpa(q, k, v,
+                                                       attn_mask=live)}
+    per = {name: (device_ms(fn, 50), time_ms(fn, reps=50 if name !=
+                                               "plain" else 10))
+           for name, fn in calls.items()}
+    ms, plain_ms = per["kernel"][1], per["plain"][1]
+    lib_ms = per["sdpa (kv_len mask, no softcap)"][1]
     nbytes = 2 * (2 * b * hkv * kv_len * d + 2 * b * hq * d)
     bms, by = bound(4.0 * b * hq * d * kv_len, nbytes, "bfloat16")
-    n_chunks = -(-kv_len // 256)
-    log("kernels", f"decode_attention: kernel {ms:.4f} ms "
-                   f"({nbytes / ms / 1e6:.1f} GB/s; {n_chunks} x {b * hkv} "
-                   f"blocks on 132 SMs, then {b * hq} combine blocks), plain "
-                   f"{plain_ms:.3f} ms, sdpa (kv_len mask, no softcap) "
-                   f"{lib_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+    p = decode_attention.plan(b, hkv, s_len, d, kv_len)
+    log("kernels", f"decode_attention: one launch of {p.grid} chunks of "
+                   f"{p.chunk} keys x {b * hkv} pairs = {p.blocks} blocks "
+                   f"on 132 SMs ({decode_attention.plan(b, hkv, s_len, d).blocks}"
+                   f" with kv_len on the device); device ms per call "
+                   f"(profiler), and ms per call back to back (CUDA "
+                   f"events, the JSON's): "
+                   + "; ".join(f"{name} {dms:.4f} / {ems:.4f}"
+                               for name, (dms, ems) in per.items())
+                   + f"; kernel {nbytes / per['kernel'][0] / 1e6:.1f} GB/s "
+                   f"of the bound's bytes in device time, bound {bms:.4f} "
+                   f"ms ({by})")
     decode_row = dict(
         name="decode_attention", route="cuda",
         source="src/repro_torch/csrc/decode_attention.cu",
@@ -1328,24 +1388,22 @@ def device_profile(fn, label: str, top: int = 6) -> None:
         fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-    events = [e for e in prof.key_averages() if dev_us(e) > 0]
-    total_ms = sum(dev_us(e) for e in events) / 1e3
-    events.sort(key=dev_us, reverse=True)
-    if not events:
+    by_name = {}
+    for name, us in device_events(prof):
+        count, total = by_name.get(name, (0, 0.0))
+        by_name[name] = (count + 1, total + us)
+    if not by_name:
         ms = time_ms(fn, reps=1)
         log("serve", f"profile {label}: the profiler recorded no device "
                      f"time; {ms:.1f} ms by CUDA events")
         return
+    total_ms = sum(t for _, t in by_name.values()) / 1e3
     log("serve", f"profile {label}: wall {wall_ms:.1f} ms (under the "
                  f"profiler), device {total_ms:.1f} ms, idle share "
                  f"{max(0.0, 1 - total_ms / wall_ms):.3f}")
-    for e in events[:top]:
-        log("serve", f"  {dev_us(e) / 1e3:9.2f} ms  {e.count:5d} x  "
-                     f"{e.key[:90]}")
+    for name, (count, us) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][1])[:top]:
+        log("serve", f"  {us / 1e3:9.2f} ms  {count:5d} x  {name[:90]}")
 
 
 def phase_serve(dev) -> dict:
@@ -1357,7 +1415,7 @@ def phase_serve(dev) -> dict:
     decode step."""
     import dataclasses
     import torch
-    from repro_torch.kernels import attention, gemm
+    from repro_torch.kernels import attention, decode_attention, gemm
     from repro_torch.models import Model, get_config
     cfg = dataclasses.replace(get_config("gemma2_9b"), prefill_fresh_kv=True)
     model = Model.from_config(cfg)
@@ -1390,6 +1448,7 @@ def phase_serve(dev) -> dict:
     reduces = gemm.reduce_launches
     flash_paths = dict(attention.launches_by_path)
     flash_copies = attention.copies
+    decode_copies = decode_attention.copies
     peak = torch.cuda.max_memory_allocated()
     add(got)
     st = srv.stats
@@ -1410,6 +1469,10 @@ def phase_serve(dev) -> dict:
         raise AssertionError(f"serve dfu: flash launches by path "
                              f"{flash_paths}; all {got['flash_attention']} "
                              f"must take the wgmma path")
+    if decode_copies:
+        raise AssertionError(f"serve dfu: decode_attention copied the "
+                             f"cache {decode_copies} times; the cache's "
+                             f"views must go in uncopied")
     if tuple(out.shape) != (SERVE_BATCH, SERVE_GEN) or not bool(
             ((out >= 0) & (out < cfg.vocab)).all()):
         raise AssertionError(f"serve dfu: tokens {out}")
@@ -1422,7 +1485,8 @@ def phase_serve(dev) -> dict:
                  f"migrations {st.migrations}, reuses {st.cache_reuses}; "
                  f"launches {got} (gemm {gemms_per_forward} per forward, "
                  f"plus {reduces} split-K reductions; flash by path "
-                 f"{flash_paths}, {flash_copies} operand copies); peak "
+                 f"{flash_paths}, {flash_copies} operand copies; decode "
+                 f"{decode_copies} cache copies); peak "
                  f"device memory "
                  f"{peak / 1e9:.2f} GB")
     del srv
@@ -1444,6 +1508,9 @@ def phase_serve(dev) -> dict:
         raise AssertionError(f"serve memcopy: flash launches by path "
                              f"{attention.launches_by_path}; all must take "
                              f"the wgmma path")
+    if decode_attention.copies:
+        raise AssertionError(f"serve memcopy: decode_attention copied the "
+                             f"cache {decode_attention.copies} times")
     if got["gemm"] != gemms_per_forward * 4:
         raise AssertionError(f"serve memcopy: {got['gemm']} gemm launches, "
                              f"want {gemms_per_forward} x 4")

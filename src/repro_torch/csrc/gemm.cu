@@ -52,7 +52,7 @@
 // Operands are given as [MN, K] views with element strides, so row-major,
 // transposed and row-strided views all go in uncopied; batches run on the
 // grid's last axis.
-#include "hopper.cuh"
+#include "dmma.cuh"
 
 namespace {
 
@@ -60,13 +60,6 @@ namespace {
 enum Code { F32 = 0, F64 = 1, BF16 = 2, F16 = 3 };
 // paths, as kernels/gemm.py:plan numbers them
 enum Path { TC = 1, SKINNY = 2, DMMA = 3, SIMT = 4 };
-
-// One operand as a logical [MN, K] matrix per batch: element (mn, k) of
-// batch z is p[z * sb + mn * smn + k * sk].
-struct Op {
-    const void* p;
-    long long smn, sk, sb;
-};
 
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
@@ -82,80 +75,10 @@ __device__ __forceinline__ void store_code(void* c, long long i, int out_code, f
     else store(static_cast<float*>(c) + i, v);
 }
 
-// ---------------------------------------------------------------------------
-// cp.async (paths 3 and 4)
-// ---------------------------------------------------------------------------
-// Copy BYTES from global to shared memory, or zero-fill them when !valid
-// (src-size 0: nothing is read, src only has to be a mapped address).
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
-    const int n = valid ? BYTES : 0;
-    if constexpr (BYTES == 16)
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                     :: "r"(saddr(dst)), "l"(src), "r"(n) : "memory");
-    else
-        asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
-                     :: "r"(saddr(dst)), "l"(src), "n"(BYTES), "r"(n) : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// Stage the BT x BK tile at (mn0, k0) of one operand k-major into shared
-// memory, s[k * LDS + mn], zero outside the matrix.  `vec`: the operand is
-// contiguous along MN with 16-byte aligned base and strides, so whole
-// 16-byte runs are copied; otherwise one element per copy, neighbouring
-// threads on neighbouring addresses of whichever dimension is contiguous.
-template <typename T, int BT, int BK, int LDS, int THREADS>
-__device__ __forceinline__ void load_tile(T* s, const T* g, long long smn, long long sk,
-                                          int MN, int K, int mn0, int k0, int tid, bool vec) {
-    constexpr int V = 16 / sizeof(T);
-    if (vec) {
-#pragma unroll
-        for (int e = tid; e < BT * BK / V; e += THREADS) {
-            const int k = e / (BT / V), mn = (e % (BT / V)) * V;
-            const int gk = k0 + k, gm = mn0 + mn;
-            T* dst = s + k * LDS + mn;
-            if (gk < K && gm + V <= MN) {
-                cp_async<16>(dst, g + static_cast<long long>(gk) * sk + gm, true);
-            } else {
-#pragma unroll
-                for (int v = 0; v < V; ++v) {
-                    const bool ok = gk < K && gm + v < MN;
-                    cp_async<sizeof(T)>(dst + v, ok ? g + static_cast<long long>(gk) * sk + gm + v : g, ok);
-                }
-            }
-        }
-    } else if (sk == 1) {
-#pragma unroll
-        for (int e = tid; e < BT * BK; e += THREADS) {
-            const int k = e % BK, mn = e / BK;
-            const int gk = k0 + k, gm = mn0 + mn;
-            const bool ok = gk < K && gm < MN;
-            cp_async<sizeof(T)>(s + k * LDS + mn, ok ? g + static_cast<long long>(gm) * smn + gk : g, ok);
-        }
-    } else {
-#pragma unroll
-        for (int e = tid; e < BT * BK; e += THREADS) {
-            const int mn = e % BT, k = e / BT;
-            const int gk = k0 + k, gm = mn0 + mn;
-            const bool ok = gk < K && gm < MN;
-            cp_async<sizeof(T)>(s + k * LDS + mn,
-                                ok ? g + static_cast<long long>(gm) * smn + static_cast<long long>(gk) * sk : g, ok);
-        }
-    }
-}
-
 constexpr int PIPE_THREADS = 256;
 constexpr int PIPE_BK = 16;
 constexpr int PIPE_STAGES = 3;
 
-template <typename T, int BT>
-__host__ __device__ constexpr int pipe_lds() { return BT + (sizeof(T) == 8 ? 8 : 4); }
 template <typename T, int BT>
 __host__ __device__ constexpr int pipe_smem() { return PIPE_STAGES * 2 * PIPE_BK * pipe_lds<T, BT>() * sizeof(T); }
 
@@ -237,61 +160,6 @@ simt_f32_kernel(Op A, Op B, float* __restrict__ C, int M, int N, int K,
 // ---------------------------------------------------------------------------
 // Path 3: float64 on the DMMA tensor cores
 // ---------------------------------------------------------------------------
-// m16n8k4: the shape that reaches the full fp64 tensor rate on sm_90;
-// m8n8k4 issues at half of it there
-__device__ __forceinline__ void dmma(double* c, double a0, double a1, double b) {
-    asm volatile("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
-                 "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-                 : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
-                 : "d"(a0), "d"(a1), "d"(b));
-}
-
-constexpr int DMMA_BK = 32;
-constexpr int DMMA_STAGES = 3;
-constexpr int DMMA_LDK = DMMA_BK + 4;    // [mn][k] rows of 288 bytes
-
-// elements of one operand tile in either shared layout
-template <int BT>
-__host__ __device__ constexpr int dmma_tile() {
-    return BT * DMMA_LDK > DMMA_BK * pipe_lds<double, BT>() ? BT * DMMA_LDK
-                                                          : DMMA_BK * pipe_lds<double, BT>();
-}
-template <int BT>
-__host__ __device__ constexpr int dmma_smem() { return DMMA_STAGES * 2 * dmma_tile<BT>() * 8; }
-
-// Stage the BT x BK tile at (mn0, k0) of a K-contiguous operand as it lies,
-// s[mn * LDK + k], zero outside the matrix.  `vec`: 16-byte aligned base
-// and strides, so pairs of k are copied at once.
-template <int BT, int BK, int LDK, int THREADS>
-__device__ __forceinline__ void load_tile_km(double* s, const double* g, long long smn, long long sk,
-                                             int MN, int K, int mn0, int k0, int tid, bool vec) {
-    if (vec) {
-#pragma unroll
-        for (int e = tid; e < BT * BK / 2; e += THREADS) {
-            const int mn = e / (BK / 2), k = (e % (BK / 2)) * 2;
-            const int gm = mn0 + mn, gk = k0 + k;
-            double* dst = s + mn * LDK + k;
-            const double* src = g + static_cast<long long>(gm) * smn + gk;
-            if (gm < MN && gk + 2 <= K) {
-                cp_async<16>(dst, src, true);
-            } else {
-                const bool ok0 = gm < MN && gk < K, ok1 = gm < MN && gk + 1 < K;
-                cp_async<8>(dst, ok0 ? src : g, ok0);
-                cp_async<8>(dst + 1, ok1 ? src + 1 : g, ok1);
-            }
-        }
-    } else {
-#pragma unroll
-        for (int e = tid; e < BT * BK; e += THREADS) {
-            const int mn = e / BK, k = e % BK;
-            const int gm = mn0 + mn, gk = k0 + k;
-            const bool ok = gm < MN && gk < K;
-            cp_async<8>(s + mn * LDK + k,
-                        ok ? g + static_cast<long long>(gm) * smn + static_cast<long long>(gk) * sk : g, ok);
-        }
-    }
-}
-
 // 8 warps as 2 x 4, each a (BT/2) x (BT/4) block of 16 x 8 mma tiles.  The
 // fragments of m16n8k4 (g = l/4, t = l%4 for lane l): A[g][t] and
 // A[g+8][t], B[t][g], and C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1].
@@ -749,16 +617,6 @@ bool make_map(CUtensorMap* map, int code, const void* p, long long inner, long l
               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename K>
-int set_smem(K kernel, int bytes) {
-    return static_cast<int>(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
-}
-
-// 16-byte copies of an operand along MN (paths 3 and 4)
-bool vec_ok(const Op& o, int elem, int batch) {
-    return o.smn == 1 && aligned16(o.p) && (o.sk * elem) % 16 == 0
-           && (batch == 1 || (o.sb * elem) % 16 == 0);
-}
 
 template <int BT>
 int launch_simt(const Op& A, const Op& B, void* C, int M, int N, int K, long long ldc, int batch,
@@ -770,11 +628,6 @@ int launch_simt(const Op& A, const Op& B, void* C, int M, int N, int K, long lon
     simt_f32_kernel<BT><<<grid, PIPE_THREADS, smem, s>>>(A, B, static_cast<float*>(C), M, N, K, ldc, sc,
                                                          vec_ok(A, 4, batch), vec_ok(B, 4, batch));
     return static_cast<int>(cudaGetLastError());
-}
-
-// 16-byte copies of a K-contiguous fp64 operand (pairs of k)
-bool vec_km(const Op& o, int batch) {
-    return aligned16(o.p) && o.smn % 2 == 0 && (batch == 1 || o.sb % 2 == 0);
 }
 
 template <int BT, bool AKM, bool BKM>

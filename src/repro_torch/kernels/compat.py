@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -112,6 +113,46 @@ def library(name: str) -> ctypes.CDLL:
             if lib is None:
                 lib = _LIBS[name] = ctypes.CDLL(str(build_all()[name]))
     return lib
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's readable name from its mangled one, e.g.
+    ``dmma_f64_kernel<Li128ELb0ELb1>``: the name and its template
+    arguments (still mangled), without the anonymous namespace's hash,
+    which differs between two builds of the same source."""
+    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+    if m:
+        end = m.end() + int(m.group(1))
+        args = re.match(r"I(\w+?)E+v", mangled[end:])
+        base = mangled[m.end():end]
+        return f"{base}<{args.group(1)}>" if args else base
+    t = re.search(r"\d*([a-z][a-z0-9_]*_kernel)I(\w+?)E+v", mangled)
+    return f"{t.group(1)}<{t.group(2)}>" if t else mangled
+
+
+def ptxas_variants(log: str) -> list:
+    """Per entry function of one source's ``ptxas -v`` log (BUILD_LOG):
+    its name (:func:`kernel_name`), registers, static shared memory, stack
+    and spill bytes, and how many 256-thread blocks an H100 SM holds by
+    registers, static shared memory and threads (65536 registers allocated
+    8 per thread at a time, 228 KiB of shared memory with 1 KiB reserved
+    per block, 2048 threads)."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            cur = dict(name=kernel_name(m.group(1)), stack=0, spill=0)
+            out.append(cur)
+        elif cur is not None and "stack frame" in ln:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", ln)]
+            cur["stack"], cur["spill"] = nums[0], nums[1]
+        elif cur is not None and "registers" in ln:
+            cur["regs"] = int(re.search(r"Used (\d+) registers", ln)[1])
+            sm = re.search(r"(\d+) bytes smem", ln)
+            cur["smem"] = int(sm[1]) if sm else 0
+            cur["blocks"] = min(65536 // (-(-cur["regs"] // 8) * 8 * 256),
+                                233472 // (cur["smem"] + 1024), 2048 // 256)
+    return out
 
 
 def check(rc: int, kernel: str) -> None:

@@ -127,6 +127,66 @@ def test_decode_kernel_ignores_keys_past_kv_len(dev):
     assert _rel(got, want) <= TOL[torch.bfloat16]
 
 
+@pytest.mark.parametrize("kv_len", [1, 255, 256, 257, 1000])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+def test_decode_device_kv_len_equals_host_bit_for_bit(dev, kv_len, group):
+    """kv_len as a one-element int32 tensor on the card (the grid covers
+    every chunk of S = 1000, chunks of 32 keys) against the same length
+    by value (only the live chunks): the same bits, one launch counted per
+    call, repeats equal to the first; both within tolerance of the plain
+    version."""
+    q, k, v = _qkv(dev, torch.bfloat16, 2, 2 * group, 2, 1, 1000, 128,
+                   seed=group)
+    assert decode_attention.plan(2, 2, 1000, 128).chunk == 32
+    dev_len = torch.tensor([kv_len], dtype=torch.int32, device=dev)
+    launched, memsets = decode_attention.launches, decode_attention.memsets
+    host = decode_attention.decode_attention(q, k, v, kv_len, softcap=50.0)
+    on_dev = decode_attention.decode_attention(q, k, v, dev_len,
+                                               softcap=50.0)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == launched + 2
+    assert decode_attention.memsets == memsets + 2
+    assert torch.equal(host, on_dev)
+    for _ in range(3):
+        assert torch.equal(decode_attention.decode_attention(
+            q, k, v, dev_len, softcap=50.0), host)
+    want = decode_attention.decode_attention_plain(q, k, v, kv_len,
+                                                   softcap=50.0)
+    assert _rel(host, want) <= TOL[torch.bfloat16]
+
+
+def test_decode_device_kv_len_outside_the_cache_gives_nan(dev):
+    """A device kv_len the wrapper cannot check without a sync: outside
+    [1, S] the rows are NaN, never a silent answer."""
+    q, k, v = _qkv(dev, torch.bfloat16, 1, 4, 2, 1, 64, 64)
+    for bad in (0, 65):
+        kv = torch.tensor([bad], dtype=torch.int32, device=dev)
+        assert bool(torch.isnan(decode_attention.decode_attention(
+            q, k, v, kv)).all())
+    # the next call is right
+    got = decode_attention.decode_attention(q, k, v, 40)
+    assert _rel(got, decode_attention.decode_attention_plain(
+        q, k, v, 40)) <= TOL[torch.bfloat16]
+
+
+def test_decode_reads_cache_views_and_copies_misaligned_ones(dev):
+    """The live prefix of a larger cache goes in uncopied; a cache whose
+    base is off 16 bytes is copied, and counted."""
+    q, k, v = _qkv(dev, torch.bfloat16, 2, 4, 2, 1, 300, 128, seed=4)
+    copies = decode_attention.copies
+    got = decode_attention.decode_attention(q, k[:, :, :200], v[:, :, :200],
+                                            150, softcap=50.0)
+    assert decode_attention.copies == copies
+    assert _rel(got, decode_attention.decode_attention_plain(
+        q, k, v, 150, softcap=50.0)) <= TOL[torch.bfloat16]
+    raw = torch.randn(2, 2, 300, 129, device=dev, dtype=torch.bfloat16)
+    km = raw[..., 1:]                         # base 2 bytes off, row 258 B
+    got = decode_attention.decode_attention(q, km, v, 150, softcap=50.0)
+    assert decode_attention.copies == copies + 1
+    assert _rel(got, decode_attention.decode_attention_plain(
+        q, km, v, 150, softcap=50.0)) <= TOL[torch.bfloat16]
+
+
 def test_ops_attention_takes_the_kernels_on_the_card(dev):
     q, k, v = _qkv(dev, torch.bfloat16, 1, 4, 2, 16, 64, 64)
     flash0, dec0 = attention.launches, decode_attention.launches

@@ -56,6 +56,29 @@ def test_syrk_kernel_matches_plain_version(dev, dtype, tol, uplo, trans):
                 syrk.syrk_plain(view, uplo=uplo, trans=trans)) <= tol
 
 
+@pytest.mark.parametrize("uplo", ["L", "U"])
+@pytest.mark.parametrize("trans", ["N", "T"])
+@pytest.mark.parametrize("n,k", [(301, 9001), (1000, 50001)])
+def test_syrk_float64_splits_k_in_a_fixed_order(dev, uplo, trans, n, k):
+    """float64 on DMMA with K split across blocks (2 and 7 ranges; n not a
+    multiple of the 128-wide tile, k not a multiple of the range): within
+    1e-10 of the plain version, the other triangle zero, one launch
+    counted per call, and two calls equal bit for bit (the partials are
+    summed in split order, without atomics)."""
+    assert syrk.plan(n, k).splits > 1
+    shape = (n, k) if trans == "N" else (k, n)
+    a = torch.randn(*shape, dtype=torch.float64, device=dev)
+    launched = syrk.launches
+    got = syrk.syrk(a, uplo=uplo, trans=trans)
+    again = syrk.syrk(a, uplo=uplo, trans=trans)
+    torch.cuda.synchronize()
+    assert syrk.launches == launched + 2
+    assert _rel(got, syrk.syrk_plain(a, uplo=uplo, trans=trans)) <= 1e-10
+    assert torch.equal(got, again)
+    other = got.triu(1) if uplo == "L" else got.tril(-1)
+    assert not bool(other.any())
+
+
 def test_split_passes_run_the_gemm_kernel_within_bound(dev):
     """split3 at k = 1000 in the fused split kernel: two launches (the
     passes, the reduction) and no gemm launch; the error relative to

@@ -193,14 +193,40 @@ def test_library_name_hashes_the_shared_headers(tmp_path, monkeypatch):
     for p in list(compat.CSRC.glob("*.cu")) + list(compat.CSRC.glob("*.cuh")):
         (tmp_path / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(compat, "CSRC", tmp_path)
-    assert sorted(compat.headers()) == ["hopper.cuh"]
+    assert sorted(compat.headers()) == ["dmma.cuh", "hopper.cuh"]
     assert all(p.suffix == ".cu" for p in compat.sources().values())
-    before = {name: compat.library_path(name) for name in compat.sources()}
-    (tmp_path / "hopper.cuh").write_bytes(
-        (tmp_path / "hopper.cuh").read_bytes() + b"\n// edited\n")
-    after = {name: compat.library_path(name) for name in compat.sources()}
-    assert all(before[n] != after[n] for n in before)
+    for header in compat.headers():
+        before = {name: compat.library_path(name)
+                  for name in compat.sources()}
+        (tmp_path / header).write_bytes(
+            (tmp_path / header).read_bytes() + b"\n// edited\n")
+        after = {name: compat.library_path(name)
+                 for name in compat.sources()}
+        assert all(before[n] != after[n] for n in before)
     assert before["gemm"].parent == compat.BUILD_DIR
+
+
+def test_ptxas_lines_name_kernels_without_the_namespace_hash():
+    """compat.ptxas_variants reads registers, shared memory, stack and
+    spills per entry function, and names it without the anonymous
+    namespace's hash, so two builds of one source compare line by line."""
+    def entry(h, name):
+        return ("ptxas info    : Compiling entry function '_ZN39_GLOBAL__N__"
+                f"{h}_7_gemm_cu_98398241{name}' for 'sm_90a'")
+    logs = ["\n".join([
+        entry(h, "15dmma_f64_kernelILi64ELb0ELb1EEEv2OpS0_Pdiiixxii"),
+        "ptxas info    : Function properties for x",
+        "    40 bytes stack frame, 44 bytes spill stores",
+        "ptxas info    : Used 80 registers, used 1 barriers",
+        entry(h, "20splitk_reduce_kernelEPKfPviiiiixx"),
+        "ptxas info    : Used 32 registers, 16 bytes smem"])
+        for h in ("1ec7fc5d", "63f6632c")]
+    parsed = [compat.ptxas_variants(log) for log in logs]
+    assert parsed[0] == parsed[1] == [
+        dict(name="dmma_f64_kernel<Li64ELb0ELb1>", stack=40, spill=44,
+             regs=80, smem=0, blocks=3),
+        dict(name="splitk_reduce_kernel", stack=0, spill=0, regs=32,
+             smem=16, blocks=8)]
 
 
 def test_flash_probe_reads_d256_ptxas_lines_and_needs_a_card(capsys):
