@@ -10,9 +10,11 @@ gives it, then drives the main path through the entry points a user
 calls: intercepted BLAS under Device First-Use (``repro_torch.session``
 with ``host_array`` inputs), then the LSMS KKR loop
 (``repro_torch.apps.lsms.run_mini``) at the production KKR size
-n = 6912 in complex128, then the kernel venue, adaptive per-site racing
-and split-precision fp64 at PARSEC's production shapes (ngrid 93536,
-nstates 2400, nblock 32), then the serving loop
+n = 6912 in complex128, then the same loop and the real dense solvers
+through the LAPACK solver tier (``OffloadConfig(lapack=True)``, the
+patched ``torch.linalg`` symbols), then the kernel venue, adaptive
+per-site racing and split-precision fp64 at PARSEC's production shapes
+(ngrid 93536, nstates 2400, nblock 32), then the serving loop
 (``repro_torch.train.Server``) on gemma2-9b at full width with a Device
 First-Use decode cache.  Phases, in order:
 
@@ -32,20 +34,31 @@ First-Use decode cache.  Phases, in order:
              in float32 at the serve shape and in bf16 at head size 32;
              decode attention at the serve shape, one launch, kv_len by
              value and on the device bit for bit, 100 repeats held to
-             the first.
+             the first; gemm and trsm at the solver tier's shapes, and
+             the library's complex trsm there.
 3. blas    — gemm/trsm/small mm inside a DFU session; counters and one
              trsm launch asserted.
 4. lsms    — run_mini(atoms=2, energies=2, scf=1, n=6912, complex128)
              inside the same session; counters, residual and launches
              asserted; the loop's wall split into intercepted BLAS time
              and the rest.
-5. venue   — (a) kernel_path + adaptive: 8 calls of blas.syrk(psi,
+5. solvers — one DFU session with lapack=True, lapack_nb 256: (a) the
+             LSMS loop again, its LU now the tier's blocked getrf/getrs
+             spans (span counts, panels, residual, energy against the
+             native LU's, G moved once per atom; each span's time split
+             into panels, zgemm and ztrsm, beside cuSOLVER's); (b)
+             torch.linalg.solve and cholesky + cholesky_solve in float64
+             at n 6912 (backward error), eigh at n 2400 (residual,
+             orthogonality, eigenvalues); (c) the session's trace
+             replayed by the port's memtier simulator to the live
+             per-solver counters, and the autotuner's recommendation.
+6. venue   — (a) kernel_path + adaptive: 8 calls of blas.syrk(psi,
              trans="T") at one call site race host/xla/pallas and lock;
              (b) kernel_path + precision="auto": intercepted
              torch.matmul(hpsi_blk.T, psi) runs split3 on the pallas
              venue, within its a-priori bound; (c) a cancelling dgemm
              escalates to native fp64.  One session each.
-6. serve   — gemma2-9b (42 layers, d_model 3584, vocab 256000, bf16,
+7. serve   — gemma2-9b (42 layers, d_model 3584, vocab 256000, bf16,
              prefill_fresh_kv) with seeded random weights, batch 2 x
              4608 prompt tokens: generate 16 under dfu and 4 under
              memcopy (every attention kernel call there also held to its
@@ -56,10 +69,10 @@ First-Use decode cache.  Phases, in order:
              tokens against the cached steps' logits; a device profile
              of one prefill and one decode step.
 
-The kernels line's launches are those of the main path's runs: the BLAS
-and LSMS phases, the venue phase's (a)-(c), and the serve phase's dfu
-and memcopy runs, each with the counts set to 0 just before it.  The
-cross-check's and the profile's launches are not among them.
+The kernels line's launches are those of the main path's runs: the
+BLAS, LSMS and solvers phases, the venue phase's (a)-(c), and the serve
+phase's dfu and memcopy runs, each with the counts set to 0 just before
+it.  The cross-check's and the profile's launches are not among them.
 Every mismatch or missing launch raises, so the script exits non-zero.
 The lines before the last are a JSON object of per-kernel numbers and
 the card's name and power limit; the last line is
@@ -105,6 +118,26 @@ TRSM_LU_M = 2048
 #: stable, |r| <~ n*eps64*|M||tau| ~ 8e-13 at n = 6912 for M ~ I; 1e-9
 #: leaves a thousandfold margin and still catches a float32 path (~1e-4)
 LSMS_RESID = 1e-9
+#: the solvers phase: the production LU block size (repro_torch.apps.lsms
+#: PROD["nb"]), the energy of LSMS through the solver tier against the
+#: lsms phase's native LU on the same matrices (two float64 LUs of M ~ I:
+#: both energies carry ~n*eps64 ~ 1e-12 of rounding, so 1e-9 relative
+#: leaves a thousandfold margin)
+SOLVER_NB = 256
+LSMS_ENERGY_RTOL = 1e-9
+#: normwise backward error |A x - b|_inf / (|A|_inf |x|_inf) of the
+#: real tier's solves: LU with partial pivoting and Cholesky are backward
+#: stable, with an error of a modest multiple of n * eps64 in theory and
+#: ~eps64 in practice on random matrices; 4 n eps64 = 3.1e-12 at n = 6912,
+#: eps64 the unit roundoff 2^-53
+SOLVE_BERR_FACTOR = 4
+EPS64 = 2.0 ** -53
+#: eigh at PARSEC's Rayleigh-Ritz size (nstates): Householder
+#: tridiagonalization is backward stable, |A S - S diag(w)|_1 and
+#: |S^T S - I|_1 ~ n eps64 |A|_1 = 5e-13 |A|_1 at n = 2400 (the port's
+#: syev reads 7e-15 and 2e-13 at this size on the CPU); 1e-11 leaves a
+#: twentyfold margin over the larger
+EIGH_TOL = 1e-11
 #: PARSEC's production shapes (src/repro_torch/apps/dft.py PROD)
 NGRID, NSTATES, NBLOCK = 93536, 2400, 32
 #: launches of csrc/split_gemm.cu per split product: the fused passes,
@@ -149,6 +182,8 @@ SERVE_LEN = SERVE_PROMPT + SERVE_GEN
 #: 8 KV heads, SERVE_LEN slots, head size 256) in bf16
 SERVE_CACHE_BYTES = 4 * 21 * SERVE_BATCH * 8 * SERVE_LEN * 256 * 2
 assert SERVE_CACHE_BYTES == 3_181_903_872
+#: profiles taken by device_ms before an empty one is an error
+PROFILE_TRIES = 3
 
 
 def log(phase: str, msg: str) -> None:
@@ -193,22 +228,29 @@ def device_ms(fn, reps: int) -> float:
     calls: the summed duration of every device event, divided by
     ``reps``.  Unlike
     time_ms it leaves out the host's time between launches, which for a
-    call of tens of microseconds can exceed the device's own.  Raises
-    where the profiler records no such device event."""
+    call of tens of microseconds can exceed the device's own.  A profile
+    that records no device event at all is taken again, up to
+    ``PROFILE_TRIES`` times in all (the card's profiler has once returned
+    an empty trace for a window in which the calls ran); raises if every
+    try records none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(us for _, us in device_events(prof))
-    if not total > 0:
-        raise RuntimeError("device_ms: the profiler recorded no device "
-                           "event")
-    return total / 1e3 / reps
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(us for _, us in device_events(prof))
+        if total > 0:
+            if attempt > 1:
+                log("profile", f"device events recorded on try {attempt} "
+                               f"of {PROFILE_TRIES}")
+            return total / 1e3 / reps
+    raise RuntimeError(f"device_ms: the profiler recorded no device event "
+                       f"in {PROFILE_TRIES} tries")
 
 
 def rel_err(got, want) -> tuple:
@@ -387,26 +429,78 @@ def serve_gemm_checks(dev) -> None:
     del w_ff, w_kv, table
 
 
-def trsm_times(a, b, label: str, plain_reps: int) -> dict:
-    """The same for a lower-left solve: m*m*n operations; the triangle
-    read once, B read once, X written once.  The plain version is the
-    kernel's block-row order (trsm_dataflow_plain); each timed kernel
-    call is one launch after one memset of its flags."""
+def trsm_times(a, b, label: str, plain_reps: int, **kw) -> dict:
+    """The same for a triangular solve (lower-left unless ``kw`` says
+    otherwise): mt*mt*r operations for a triangle of order mt and r
+    right-hand sides; the triangle read once, B read once, X written
+    once.  The plain version is the kernel's block-row order
+    (trsm_dataflow_plain); each timed kernel call is one launch after
+    one memset of its flags."""
     from repro_torch.kernels import ref, trsm
-    m, n = b.shape
-    ms = time_ms(lambda: trsm.trsm(a, b), reps=5)
-    plain_ms = time_ms(lambda: trsm.trsm_dataflow_plain(a, b),
+    mt = a.shape[-1]
+    r = b.numel() // mt
+    ms = time_ms(lambda: trsm.trsm(a, b, **kw), reps=5)
+    plain_ms = time_ms(lambda: trsm.trsm_dataflow_plain(a, b, **kw),
                        reps=plain_reps)
-    lib_ms = time_ms(lambda: ref.trsm(a, b), reps=5)
-    bms, by = bound(float(m) * m * n,
-                    a.element_size() * (m * (m + 1) / 2 + 2 * m * n),
+    lib_ms = time_ms(lambda: ref.trsm(a, b, **kw), reps=5)
+    bms, by = bound(float(mt) * mt * r,
+                    a.element_size() * (mt * (mt + 1) / 2 + 2 * mt * r),
                     str(a.dtype)[6:])
     log("kernels", f"trsm {str(a.dtype)[6:]} {label}: kernel {ms:.3f} ms "
-                   f"({trsm.units(m, n, 1)} blocks, one launch), "
+                   f"({trsm.units(mt, r, 1)} blocks, one launch), "
                    f"plain {plain_ms:.3f} ms, solve_triangular "
                    f"{lib_ms:.3f} ms, bound {bms:.4f} ms ({by})")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=lib_ms)
+
+
+def phase_kernels_tier(dev, gen) -> None:
+    """gemm and trsm at the shapes the solver tier gives them (the
+    solvers phase), each against its plain version with kernel, plain,
+    library and bound times: the f64 DMMA path at getrf's first trailing
+    update plane at nb 256 (6656 x 6656 x 256); trsm at potrf's first
+    right-side solve (X L^H = B, B 6656 x 256) and at getrs's upper
+    non-unit 6912 x 32.  Complex trsm is the library's on the card
+    (kernels/ops.py), as XLA's in the reference: its times at getrf's
+    unit-lower 256 x 6656 and getrs's 6912 x 6912 x 6912 are library
+    rows, with their bound."""
+    import torch
+    from repro_torch.kernels import gemm, ref, trsm
+    n, nb = 6912, SOLVER_NB
+    m = n - nb
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen,
+                           dtype=torch.float64).to(dev)
+    a, b = rnd(m, nb), rnd(nb, m)
+    label = f"{m}x{m}x{nb} (getrf's first trailing update plane)"
+    check(f"gemm float64 {label}", gemm.gemm(a, b), gemm.gemm_plain(a, b),
+          TOL["float64"])
+    gemm_times(a, b, label)
+    del a, b
+    for tri_n, uplo, b, kw, label in (
+            (nb, "L", rnd(m, nb), dict(side="R", uplo="L", trans="C"),
+             f"{m}x{nb} side R lower C (potrf's first panel solve)"),
+            (n, "U", rnd(n, 32), dict(uplo="U"),
+             f"{n}x32 upper non-unit (getrs's second solve)")):
+        t = tri(gen, tri_n, uplo, torch.float64, dev)
+        check(f"trsm float64 {label}", trsm_one(t, b, label, **kw),
+              trsm.trsm_dataflow_plain(t, b, **kw), TRSM_TOL["float64"])
+        trsm_times(t, b, label, plain_reps=2, **kw)
+    for tri_n, cols, reps, label in (
+            (nb, m, 5, f"{nb}x{m} unit lower (getrf's panel row)"),
+            (n, n, 2, f"{n}x{n}x{n} unit lower (getrs's solve)")):
+        t = torch.complex(tri(gen, tri_n, "L", torch.float64, dev),
+                          tri(gen, tri_n, "L", torch.float64, dev))
+        b = torch.complex(rnd(tri_n, cols), rnd(tri_n, cols))
+        ms = time_ms(lambda: ref.trsm(t, b, diag="U"), reps=reps)
+        bms, by = bound(4.0 * tri_n * tri_n * cols,
+                        16 * (tri_n * (tri_n + 1) / 2 + 2 * tri_n * cols),
+                        "float64")
+        log("kernels", f"ztrsm complex128 {label}: solve_triangular (the "
+                       f"library, no kernel) {ms:.3f} ms, bound {bms:.4f} "
+                       f"ms ({by}), {bms / ms:.1%} of it")
+        del t, b
 
 
 def phase_kernels(dev) -> dict:
@@ -455,6 +549,7 @@ def phase_kernels(dev) -> dict:
     serve_gemm_checks(dev)
 
     rows = {"gemm": gemm_row, "trsm": phase_kernels_trsm(dev, gen)}
+    phase_kernels_tier(dev, gen)
     rows.update(phase_kernels_parsec(dev, gen))
     rows.update(phase_kernels_attention(dev))
     return rows
@@ -1083,7 +1178,7 @@ def phase_blas(s, dev) -> dict:
     return launched
 
 
-def phase_lsms(s, dev, n: int = 6912) -> dict:
+def phase_lsms(s, dev, n: int = 6912) -> tuple:
     import numpy as np
     import torch
     import repro_torch
@@ -1148,6 +1243,286 @@ def phase_lsms(s, dev, n: int = 6912) -> dict:
                 f"draws alone {draws_s:.3f} s")
     for line in s.report().splitlines():
         log("lsms", line)
+    return launched, out["energy"]
+
+
+class SolverClock:
+    """Times the solver tier on the card for the ``with`` block: each
+    driver call of ``repro_torch.solvers.drivers`` (one span each) and
+    the unblocked panels (``repro_torch.core.lapack._pivot_panel``)
+    inside it, each synchronized before and after, with the bytes the
+    session moved during the span.  ``first`` keeps each driver's first
+    arguments, for the library yardstick on the same inputs."""
+
+    DRIVERS = ("getrf", "getrs", "gesv", "potrf", "potrs", "syev")
+
+    def __init__(self, stats):
+        self.stats = stats
+        self.spans = []          # (span id, wall s, panels s, moved B)
+        self.first = {}
+        self._panel_s = 0.0
+        self._saved = []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.core import lapack
+        from repro_torch.solvers import drivers
+        panel = lapack._pivot_panel
+
+        def timed_panel(p):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = panel(p)       # ends with the pivots' copy to the host
+            self._panel_s += time.perf_counter() - t0
+            return out
+        self._saved = [(lapack, "_pivot_panel", panel)]
+        lapack._pivot_panel = timed_panel
+        for name in self.DRIVERS:
+            fn = getattr(drivers, name)
+            self._saved.append((drivers, name, fn))
+            setattr(drivers, name, self._timed(name, fn))
+        return self
+
+    def _timed(self, name, fn):
+        import torch
+
+        def timed(*args, **kw):
+            self.first.setdefault(name, args)
+            torch.cuda.synchronize()
+            moved0 = self.stats.total_moved_bytes
+            self._panel_s = 0.0
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.spans.append((f"{name}#{len(self.spans)}",
+                               time.perf_counter() - t0, self._panel_s,
+                               self.stats.total_moved_bytes - moved0))
+            return out
+        return timed
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+    def split(self, trace, sid: str) -> tuple:
+        """(wall, panels, gemm, trsm, calls of each) of one span: the
+        intercepted calls' synchronized seconds off the trace."""
+        from repro_torch.core import threshold as thr
+        wall, panel_s = next((w, p) for i, w, p, _ in self.spans
+                             if i == sid)
+        secs = {"gemm": 0.0, "trsm": 0.0}
+        n = {"gemm": 0, "trsm": 0}
+        for c in trace.calls:
+            base = thr.base_routine(c.routine)
+            if c.solver_id == sid and base in secs:
+                secs[base] += c.seconds
+                n[base] += 1
+        return wall, panel_s, secs["gemm"], secs["trsm"], n["gemm"], n["trsm"]
+
+
+def backward_error(a, x, b) -> float:
+    """|A x - b|_inf / (|A|_inf |x|_inf), matrix infinity norms, with the
+    plain (uncounted) product."""
+    import torch
+    from repro_torch.kernels import ref
+    r = ref.torch_matmul(a, x) - b
+    inf = float("inf")
+    return (torch.linalg.matrix_norm(r, ord=inf)
+            / (torch.linalg.matrix_norm(a, ord=inf)
+               * torch.linalg.matrix_norm(x, ord=inf))).item()
+
+
+def wall_s(fn, reps: int = 1) -> float:
+    """Mean synchronized wall seconds of ``fn`` over ``reps`` calls after
+    one warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
+def phase_solvers(dev, lsms_energy: float, n: int = 6912) -> dict:
+    """The LAPACK solver tier on the card, in one DFU session with
+    ``lapack`` on (lapack_nb 256, synchronized so that each intercepted
+    call's seconds are device-inclusive) and a trace: (a) LSMS's KKR loop
+    at n 6912 through torch.linalg.lu_factor/lu_solve, now the patched
+    tier; (b) the real tier at production widths: torch.linalg.solve and
+    cholesky + cholesky_solve at n 6912, eigh at n 2400; (c) the dumped
+    trace replayed by the port's memtier simulator to the live
+    per-solver counters, and the autotuner's recommendation for it."""
+    import numpy as np
+    import torch
+    import repro_torch
+    from repro_torch import OffloadConfig
+    from repro_torch.apps import lsms
+    from repro_torch.core.trace import Trace
+    from repro_torch.kernels import ref
+    from repro_torch.memtier import MemTierSimulator
+    from repro_torch.memtier.spec import SPECS
+    from repro_torch.tools import autotune
+    atoms, energies = 2, 2
+    panels = -(-n // SOLVER_NB)
+    f64 = torch.float64
+    cfg = OffloadConfig(policy="dfu", threshold=500.0, lapack=True,
+                        lapack_nb=SOLVER_NB, sync=True)
+    path = ROOT / "build" / "solvers_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, dtype=f64, device=dev)
+    reset_counts()
+    with repro_torch.session(cfg, device=dev) as s, \
+            SolverClock(s.stats) as clock:
+        # (a) LSMS through the tier
+        t0 = time.perf_counter()
+        out = lsms.run_mini(atoms=atoms, energies=energies, scf=1, n=n,
+                            dtype=torch.complex128, device=dev)
+        s.sync()
+        wall = time.perf_counter() - t0
+        launched_a = counts()
+        st = s.stats
+        want = atoms * energies          # solves: one getrf, one getrs
+        got = (st.solvers["getrf"].spans, st.solvers["getrs"].spans,
+               s.trace.event_count("solver_begin"),
+               s.trace.event_count("solver_end"),
+               st.solvers["getrf"].panel_calls)
+        expect = (want, want, 2 * want, 2 * want, want * panels)
+        if got != expect:
+            raise AssertionError(f"solvers (a): getrf/getrs spans, begin/"
+                                 f"end events, panels {got} != {expect}")
+        if not out["max_resid"] < LSMS_RESID:
+            raise AssertionError(f"solvers (a): max_resid "
+                                 f"{out['max_resid']:.3e}")
+        if not (abs(out["energy"] - lsms_energy)
+                <= LSMS_ENERGY_RTOL * abs(lsms_energy)):
+            raise AssertionError(f"solvers (a): energy {out['energy']!r} "
+                                 f"vs the native LU's {lsms_energy!r}")
+        z = st.per_routine["zgemm"]
+        if z.bytes_in != atoms * n * n * 16:
+            raise AssertionError(f"solvers (a): zgemm moved {z.bytes_in} "
+                                 f"B, want G once per atom")
+        log("solvers", f"(a) lsms n={n} through the tier: energy "
+                       f"{out['energy']:.12f} (native LU "
+                       f"{lsms_energy:.12f}), max_resid "
+                       f"{out['max_resid']:.3e}, {want} getrf + {want} getrs "
+                       f"spans, {st.solvers['getrf'].panel_calls} panels, "
+                       f"zgemm bytes_in {z.bytes_in} (G once per atom), "
+                       f"loop wall {wall:.3f} s, launches {launched_a}")
+        for sid, _, _, moved in clock.spans:
+            if sid.startswith("getrf"):
+                w, p, g, t, ng, nt = clock.split(s.trace, sid)
+                log("solvers", f"(a) {sid}: {w:.3f} s = panels {p:.3f} + "
+                               f"zgemm {g:.3f} ({ng} calls) + ztrsm {t:.3f} "
+                               f"({nt}) + the rest {w - p - g - t:.3f} "
+                               f"(row swaps, copies); moved {moved} B")
+            else:
+                w, _, g, t, ng, nt = clock.split(s.trace, sid)
+                log("solvers", f"(a) {sid}: {w:.3f} s, ztrsm {t:.3f} "
+                               f"({nt} calls); moved {moved} B")
+        m_first, = clock.first["getrf"]
+        tm_first = clock.first["getrs"][2]
+        n_a = len(clock.spans)
+        # (b) the real tier at production widths
+        b = rnd(n, 32)
+        a = rnd(n, n)
+        x = torch.linalg.solve(a, b)
+        berr_solve = backward_error(a, x, b)
+        g = rnd(n, n)
+        h = ref.torch_matmul(g, g.mT) / n + torch.eye(n, dtype=f64,
+                                                      device=dev)
+        del g
+        lf = torch.linalg.cholesky(h)
+        y = torch.cholesky_solve(b, lf)
+        berr_chol = backward_error(h, y, b)
+        upper = lf.triu(1).abs().max().item()
+        ne = NSTATES
+        e0 = rnd(ne, ne)
+        e = (e0 + e0.mT) / 2
+        del e0
+        w, vecs = torch.linalg.eigh(e)
+        launched = counts()
+        live = {name: (sv.spans, sv.calls, sv.panel_calls)
+                for name, sv in st.solvers.items()}
+        for line in s.report().splitlines():
+            log("solvers", line)
+        s.trace.dump(str(path))
+    lim = SOLVE_BERR_FACTOR * n * EPS64
+    for label, berr in (("solve", berr_solve), ("cholesky_solve",
+                                                 berr_chol)):
+        if not berr <= lim:
+            raise AssertionError(f"solvers (b): {label} backward error "
+                                 f"{berr:.3e} > {lim:.3e}")
+    if upper != 0.0:
+        raise AssertionError(f"solvers (b): cholesky factor has {upper} "
+                             f"above its diagonal")
+    def n1(mat):
+        return torch.linalg.matrix_norm(mat, ord=1).item()
+    norm_e = n1(e)
+    resid = n1(ref.torch_matmul(e, vecs) - vecs * w) / norm_e
+    orth = n1(ref.torch_matmul(vecs.mT, vecs)
+              - torch.eye(ne, dtype=f64, device=dev))
+    w_native = torch.linalg.eigvalsh(e)
+    werr = (w - w_native).abs().max().item() / norm_e
+    if not (resid <= EIGH_TOL and orth <= EIGH_TOL and werr <= EIGH_TOL):
+        raise AssertionError(f"solvers (b): eigh |AS - Sw|_1/|A|_1 "
+                             f"{resid:.3e}, |S^T S - I|_1 {orth:.3e}, "
+                             f"|w - eigvalsh| / |A|_1 {werr:.3e} (limit "
+                             f"{EIGH_TOL:g})")
+    tier = {sid.split("#")[0]: (wl, p) for sid, wl, p, _ in
+            clock.spans[n_a:]}
+    log("solvers", f"(b) solve f64 {n}x32: backward error {berr_solve:.3e} "
+                   f"(limit {lim:.3e}); cholesky + cholesky_solve f64 {n}: "
+                   f"{berr_chol:.3e}, nothing above the factor's diagonal; "
+                   f"eigh f64 {ne}: |AS - Sw|_1/|A|_1 {resid:.3e}, "
+                   f"|S^T S - I|_1 {orth:.3e}, |w - eigvalsh|/|A|_1 "
+                   f"{werr:.3e} (limit {EIGH_TOL:g}); phase launches "
+                   f"{launched}")
+    # the library yardstick on the same inputs, outside the session
+    lu_native = wall_s(lambda: torch.linalg.lu_solve(
+        *torch.linalg.lu_factor(m_first), tm_first))
+    getrf_w = [wl for sid, wl, _, _ in clock.spans if sid.startswith("getrf")]
+    getrs_w = [wl for sid, wl, _, _ in clock.spans if sid.startswith("getrs")]
+    log("solvers", f"(a) LU of M ({n}, complex128): the tier's getrf "
+                   f"{np.mean(getrf_w):.3f} s + getrs {np.mean(getrs_w):.3f} "
+                   f"s per solve (mean of {len(getrf_w)}); cuSOLVER "
+                   f"lu_factor + lu_solve {lu_native:.3f} s")
+    natives = {
+        "gesv": wall_s(lambda: torch.linalg.solve(a, b)),
+        "potrf": wall_s(lambda: torch.linalg.cholesky(h)),
+        "potrs": wall_s(lambda: torch.cholesky_solve(b, lf)),
+        "syev": wall_s(lambda: torch.linalg.eigh(e)),
+    }
+    for name, nat in natives.items():
+        wl, p = tier[name]
+        log("solvers", f"(b) {name}: the tier {wl:.3f} s (panels {p:.3f} "
+                       f"s), the library {nat:.3f} s")
+    del a, b, x, h, lf, y, e, vecs, m_first, tm_first
+    # (c) live equals replay, off the dumped trace
+    trace = Trace.load(str(path))
+    rep = MemTierSimulator(SPECS["gh200"], policy="dfu",
+                           threshold=500.0).run(trace)
+    replay = {name: (d["spans"], d["calls"], d["panel_calls"])
+              for name, d in rep.per_solver.items()}
+    if replay != live:
+        raise AssertionError(f"solvers (c): replay {replay} != live {live}")
+    t0 = time.perf_counter()
+    tuned = autotune.autotune(trace, policies=("dfu", "memcopy"),
+                              device_counts=(1,), device_bytes=None)
+    log("solvers", f"(c) replay of {len(trace)} calls equals the live "
+                   f"per-solver counters {live}; autotune "
+                   f"({len(tuned.points)} points, "
+                   f"{time.perf_counter() - t0:.1f} s):")
+    for line in autotune.format_recommendation(tuned).splitlines():
+        log("solvers", f"(c)   {line}")
+    torch.cuda.empty_cache()
+    if launched["gemm"] == 0 or launched["trsm"] == 0:
+        raise AssertionError(f"solvers: launches {launched}: gemm.cu and "
+                             f"trsm.cu must both launch")
     return launched
 
 
@@ -1600,14 +1975,17 @@ def main() -> int:
     with repro_torch.session(OffloadConfig(policy="dfu",
                                            threshold=500.0)) as s:
         blas_launches = phase_blas(s, dev)
-        lsms_launches = phase_lsms(s, dev)
+        lsms_launches, lsms_energy = phase_lsms(s, dev)
+    solver_launches = phase_solvers(dev, lsms_energy)
     venue_launches = phase_venue(dev)
     serve_launches = phase_serve(dev)
     for name, row in rows.items():
         row["launches"] = (blas_launches[name] + lsms_launches[name]
-                           + venue_launches[name] + serve_launches[name])
+                           + solver_launches[name] + venue_launches[name]
+                           + serve_launches[name])
         log("done", f"{name} launches: blas {blas_launches[name]}, lsms "
-                    f"{lsms_launches[name]}, venue {venue_launches[name]}, "
+                    f"{lsms_launches[name]}, solvers "
+                    f"{solver_launches[name]}, venue {venue_launches[name]}, "
                     f"serve {serve_launches[name]}")
         if row["launches"] == 0:
             raise AssertionError(f"{name} kernel never launched on the "

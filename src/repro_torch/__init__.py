@@ -11,7 +11,9 @@ surface is the session API:
         print(s.report())
 
 A session runs on the card (``cuda:0``) unless ``device="cpu"`` asks for
-the simulated-tier mode on the CPU; without CUDA it raises.  The dense LM
+the simulated-tier mode on the CPU; without CUDA it raises.  The legacy
+``install()``/``uninstall()``/``offload()`` surface is a shim over an
+implicit session.  The dense LM
 stack and its serving loop (``repro_torch.models``,
 ``repro_torch.train.Server``) follow the same rule.  Attributes resolve
 lazily, so ``import repro_torch`` imports nothing heavy and
@@ -19,8 +21,9 @@ builds no kernel.
 """
 from typing import TYPE_CHECKING
 
-__all__ = ["OffloadConfig", "Session", "session", "active_session", "core",
-           "models", "train"]
+__all__ = ["OffloadConfig", "Session", "session", "active_session",
+           "install", "uninstall", "offload", "core", "models", "train",
+           "solvers", "memtier", "tools"]
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from repro_torch.core.config import OffloadConfig
@@ -28,6 +31,7 @@ if TYPE_CHECKING:  # pragma: no cover - typing only
 
 _CONFIG_NAMES = ("OffloadConfig",)
 _SESSION_NAMES = ("Session", "session", "active_session")
+_LEGACY_NAMES = ("install", "uninstall", "offload")
 
 
 def __getattr__(name: str):
@@ -38,7 +42,10 @@ def __getattr__(name: str):
     if name in _SESSION_NAMES:
         return getattr(importlib.import_module("repro_torch.core.session"),
                        name)
-    if name in ("core", "models", "train"):
+    if name in _LEGACY_NAMES:
+        return getattr(importlib.import_module("repro_torch.core.intercept"),
+                       name)
+    if name in ("core", "models", "train", "solvers", "memtier", "tools"):
         return importlib.import_module(f"repro_torch.{name}")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.core import memspace
 from repro_torch.core.trace import Trace
+from repro_torch.solvers.intercept import native
 
 # Production shape (paper §4.3 / Table 6 row 4)
 PROD = dict(ngrid=93536, nstates=2400, nblock=32, scf=2, filt_per_scf=9)
@@ -68,7 +69,9 @@ def run_mini(ngrid: int = 2048, nstates: int = 48, cheb_order: int = 10,
     Ritz values against dense eigh.  The products ``H @ psi`` and
     ``psi^T H psi`` go through the public symbols (intercepted dgemms
     under an open session); QR and eigh are PyTorch's own, as the
-    reference leaves them to XLA.  ``device=None`` runs on ``cuda:0`` and
+    reference leaves them to XLA: the eigh is the native one also while a
+    ``lapack`` session has patched ``torch.linalg.eigh``, so this loop
+    opens no solver span.  ``device=None`` runs on ``cuda:0`` and
     raises without CUDA; ``device="cpu"`` runs on the CPU.  The inputs
     are drawn with numpy from ``seed`` in the reference's order.
     """
@@ -87,7 +90,9 @@ def run_mini(ngrid: int = 2048, nstates: int = 48, cheb_order: int = 10,
     def rayleigh_ritz(p):
         hpsi = torch.matmul(hj, p)                 # (ngrid, nstates)
         s = torch.einsum("gi,gj->ij", p, hpsi)     # skinny^T x panel
-        evals, vecs = torch.linalg.eigh((s + s.T) / 2.0)
+        # the native eigh, also under a lapack session: the reference's
+        # jnp.linalg.eigh is not a symbol its solver tier patches
+        evals, vecs = native("eigh")((s + s.T) / 2.0)
         return torch.matmul(p, vecs), evals
 
     psi, ritz = rayleigh_ritz(psi)                 # bootstrap the window

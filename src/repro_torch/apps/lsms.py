@@ -10,9 +10,12 @@ the zgemm/ztrsm stream that is 80 %+ of runtime.
 ``run_mini`` executes the real numerics through the public PyTorch
 symbols: under an open session the ``t @ G`` product is an intercepted
 zgemm, G is host-first-touched and migrates once per atom under Device
-First-Use, and the LU factorization and solve are PyTorch's own
-(``torch.linalg.lu_factor``/``lu_solve``), as the reference leaves them
-to XLA outside any kernel.  ``production_trace`` emits the 50-node-scale
+First-Use, and the LU factorization and solve go through
+``torch.linalg.lu_factor``/``lu_solve``.  Under ``OffloadConfig.lapack``
+those are the patched solver tier (:mod:`repro_torch.solvers`): a getrf
+and a getrs span per solve, whose panel updates are the zgemm/ztrsm
+stream; without it they are PyTorch's own, as the reference leaves them
+to XLA.  ``production_trace`` emits the 50-node-scale
 call structure of Table 3 — one resident KKR buffer per atom reused
 across all (energy x SCF) solves, the reuse pattern (~780x) Device
 First-Use exploits.
@@ -95,10 +98,10 @@ def run_mini(atoms: int = 4, energies: int = 4, scf: int = 2,
     and the number of solves, so callers can assert the physics loop is
     numerically sound under every offload policy.  ``device=None`` runs
     on ``cuda:0`` and raises without CUDA; ``device="cpu"`` runs on the
-    CPU.  ``nb`` is kept for the reference's signature: the LU here is
-    PyTorch's own and takes no block size.  The inputs are drawn with
-    numpy from ``seed`` in the reference's order, so both packages see
-    the same matrices.
+    CPU.  ``nb`` is kept for the reference's signature, which ignores it
+    too: the solver tier's block size is the session's ``lapack_nb``.
+    The inputs are drawn with numpy from ``seed`` in the reference's
+    order, so both packages see the same matrices.
     """
     del nb
     dev = memspace.resolve_device(device)
@@ -129,6 +132,8 @@ def run_mini(atoms: int = 4, energies: int = 4, scf: int = 2,
                     dtype=dtype, device=dev)
                 tg = torch.matmul(tm, gmats[a])    # intercepted zgemm
                 m = eye - z * tg
+                # the public symbols: the patched solver tier under a
+                # lapack session, PyTorch's own without one
                 lu, piv = torch.linalg.lu_factor(m)
                 tau = torch.linalg.lu_solve(lu, piv, tm)
                 # verification with the plain product: not BLAS stream

@@ -4,7 +4,11 @@ The port's counterpart of ``repro/core``.  Public surface:
 
 * :mod:`repro_torch.core.blas` — BLAS routines (dlsym-mode API).
 * :mod:`repro_torch.core.intercept` — the trampolines over
-  ``torch.matmul``/``@``/``mm``/``einsum``/``tensordot`` (DBI mode).
+  ``torch.matmul``/``@``/``mm``/``mv``/``dot``/``bmm``/``einsum``/
+  ``tensordot`` (DBI mode), and the legacy ``install``/``uninstall``/
+  ``offload`` shims.
+* :mod:`repro_torch.core.lapack` — blocked LU and Cholesky over the
+  intercepted BLAS (the solver tier's arithmetic).
 * :mod:`repro_torch.core.runtime` — the placement runtime + statistics
   (asynchronous on the card; ``sync=True`` or ``runtime.sync()`` fence).
 * :mod:`repro_torch.core.policy` — Mem-Copy / counter / Device-First-Use
@@ -19,14 +23,16 @@ The port's counterpart of ``repro/core``.  Public surface:
 * :mod:`repro_torch.core.session` — :class:`Session`.
 * :mod:`repro_torch.core.trace` — the BLAS trace, in the reference schema.
 """
-from repro_torch.core import blas, callsite, memspace, residency
+from repro_torch.core import blas, callsite, lapack, memspace, residency
 from repro_torch.core.config import OffloadConfig
+from repro_torch.core.intercept import install, offload, uninstall
 from repro_torch.core.policy import host_array
 from repro_torch.core.residency import ResidencyStore
 from repro_torch.core.runtime import OffloadRuntime, active, pin, unpin
 from repro_torch.core.session import Session, active_session
 from repro_torch.core.trace import BlasCall, Trace
 
-__all__ = ["blas", "callsite", "memspace", "residency", "OffloadRuntime",
+__all__ = ["blas", "callsite", "lapack", "memspace", "residency",
+           "install", "offload", "uninstall", "OffloadRuntime",
            "active", "BlasCall", "Trace", "host_array", "ResidencyStore",
            "pin", "unpin", "OffloadConfig", "Session", "active_session"]

@@ -28,11 +28,19 @@ import threading
 from typing import Dict, Iterator, List, Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-#: dispatch-machinery files whose frames never count as the call site.
+#: dispatch-machinery files whose frames never count as the call site;
+#: other trampoline layers add themselves (:func:`register_machinery`)
 _MACHINERY = set(
     os.path.join(_HERE, name)
     for name in ("callsite.py", "runtime.py", "blas.py", "intercept.py"))
 _MAX_WALK = 16
+
+
+def register_machinery(path: str) -> None:
+    """Mark a module file as dispatch machinery: its frames are skipped
+    when fingerprinting call sites, so a patched ``torch.linalg`` call
+    fingerprints to the application line, not to the trampoline."""
+    _MACHINERY.add(os.path.abspath(path))
 
 UNKNOWN = "<unknown>"
 

@@ -515,6 +515,30 @@ class OffloadConfig:
                               stacklevel=3)
         return cfg
 
+    @classmethod
+    def legacy(cls, policy: Optional[str] = None,
+               threshold: Optional[float] = None,
+               sync: Optional[bool] = None,
+               device_bytes: Optional[int] = None) -> "OffloadConfig":
+        """Resolve the legacy ``install()`` arguments with their
+        historical precedence: ``SCILIB_POLICY``/``SCILIB_THRESHOLD``
+        override the arguments, while explicit ``sync``/``device_bytes``
+        arguments override their env vars.  ``None`` means "not given":
+        the process-default base (:func:`set_default`) supplies it."""
+        seed: Dict[str, Any] = {}
+        if policy is not None:
+            seed["policy"] = policy
+        if threshold is not None:
+            seed["threshold"] = threshold
+        cfg = cls.from_env(get_default().replace(**seed) if seed
+                           else get_default())
+        over: Dict[str, Any] = {}
+        if sync is not None:
+            over["sync"] = bool(sync)
+        if device_bytes is not None:
+            over["device_bytes"] = device_bytes
+        return cfg.replace(**over) if over else cfg
+
     # ------------------------------------------------------------------ #
     # serialization                                                       #
     # ------------------------------------------------------------------ #

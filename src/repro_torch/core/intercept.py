@@ -12,22 +12,31 @@ PyTorch symbol                             reference symbol
 =========================================  ==========================
 ``torch.matmul`` and ``Tensor.__matmul__`` ``jnp.matmul``
 ``torch.mm``                               ``jnp.dot`` (2-D operands)
+``torch.mv``                               ``jnp.dot`` (matrix, vector)
+``torch.dot``                              ``jnp.dot`` (two vectors)
+``torch.bmm``                              ``jnp.matmul`` (3-D operands)
 ``torch.einsum``                           ``jnp.einsum``
 ``torch.tensordot``                        ``jnp.tensordot``
 =========================================  ==========================
 
-Matrix-vector products through ``torch.matmul``/``@`` are intercepted as
-gemv-shaped calls (counted, traced, threshold-dispatched).  ``torch.mm``
-takes matrices only, as the original does.  Calls made while the runtime
-is already dispatching (:func:`repro_torch.core.runtime.dispatching`), and
-calls traced by ``torch.compile``, go straight to the originals and count
-nowhere.
+Matrix-vector products through ``torch.matmul``/``@``/``torch.mv`` are
+intercepted as gemv-shaped calls (counted, traced, threshold-dispatched);
+``torch.bmm`` is a batched gemm.  ``torch.dot`` of two vectors has no
+BLAS-3 or gemv shape: it is counted as uninstrumented and runs the
+original, as ``jnp.dot`` of two vectors does in the reference.
+``torch.mm`` takes matrices only, as the original does.  Calls made while
+the runtime is already dispatching
+(:func:`repro_torch.core.runtime.dispatching`), and calls traced by
+``torch.compile``, go straight to the originals and count nowhere.
 
 The patch is refcounted and lock-guarded, so nested sessions share one set
 of trampolines and the originals come back only when the last one closes.
+:func:`install`, :func:`uninstall` and :func:`offload` are the legacy
+shims of ``repro/core/intercept.py:254-293`` over an implicit session.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Dict, Optional
 
@@ -115,6 +124,35 @@ def _mm(a, b, **kw):
         return blas.gemm(a, b)
     _note_uninstrumented()
     return _ORIG["mm"](a, b, **kw)
+
+
+def _mv(a, x, **kw):
+    if _passthrough():
+        return _ORIG["mv"](a, x, **kw)
+    if (not kw and _blasable(a, x) and a.dim() == 2 and x.dim() == 1
+            and a.shape[1] == x.shape[0]):
+        return blas.gemv(a, x)
+    _note_uninstrumented()
+    return _ORIG["mv"](a, x, **kw)
+
+
+def _dot(a, b, **kw):
+    """Two vectors: no BLAS shape the runtime models (``_dot`` of
+    ``repro/core/intercept.py:108-119`` on 1-D operands)."""
+    if _passthrough():
+        return _ORIG["dot"](a, b, **kw)
+    _note_uninstrumented()
+    return _ORIG["dot"](a, b, **kw)
+
+
+def _bmm(a, b, **kw):
+    if _passthrough():
+        return _ORIG["bmm"](a, b, **kw)
+    if (not kw and _blasable(a, b) and a.dim() == 3 and b.dim() == 3
+            and a.shape[0] == b.shape[0] and a.shape[2] == b.shape[1]):
+        return blas.gemm(a, b)
+    _note_uninstrumented()
+    return _ORIG["bmm"](a, b, **kw)
 
 
 _GEMM_PATTERNS = {}
@@ -207,6 +245,10 @@ def _tensordot(a, b, dims=2, out=None):
 _PATCHED = 0
 _PATCH_LOCK = threading.Lock()
 
+#: the module-level symbols patched over ``torch``
+_SYMBOLS = (("matmul", _matmul), ("mm", _mm), ("mv", _mv), ("dot", _dot),
+            ("bmm", _bmm), ("einsum", _einsum), ("tensordot", _tensordot))
+
 
 def patch_symbols() -> None:
     """Install the trampolines over the public symbols (refcounted)."""
@@ -214,15 +256,10 @@ def patch_symbols() -> None:
     with _PATCH_LOCK:
         _PATCHED += 1
         if _PATCHED == 1:
-            _ORIG["matmul"] = torch.matmul
-            _ORIG["mm"] = torch.mm
-            _ORIG["einsum"] = torch.einsum
-            _ORIG["tensordot"] = torch.tensordot
+            for name, wrapper in _SYMBOLS:
+                _ORIG[name] = getattr(torch, name)
+                setattr(torch, name, wrapper)
             _ORIG["__matmul__"] = torch.Tensor.__matmul__
-            torch.matmul = _matmul
-            torch.mm = _mm
-            torch.einsum = _einsum
-            torch.tensordot = _tensordot
             # Tensor.__matmul__ is inherited from the C base class; the
             # subclass attribute shadows it and deleting it restores it
             torch.Tensor.__matmul__ = _tensor_matmul
@@ -236,9 +273,49 @@ def unpatch_symbols() -> None:
             return
         _PATCHED -= 1
         if _PATCHED == 0:
-            torch.matmul = _ORIG.pop("matmul")
-            torch.mm = _ORIG.pop("mm")
-            torch.einsum = _ORIG.pop("einsum")
-            torch.tensordot = _ORIG.pop("tensordot")
+            for name, _ in _SYMBOLS:
+                setattr(torch, name, _ORIG.pop(name))
             _ORIG.pop("__matmul__")
             del torch.Tensor.__matmul__
+
+
+# --------------------------------------------------------------------- #
+# install / uninstall / offload: legacy shims over an implicit session   #
+# --------------------------------------------------------------------- #
+def install(policy: Optional[str] = None,
+            threshold: Optional[float] = None,
+            record_trace: bool = True, config=None,
+            device=None) -> rt.OffloadRuntime:
+    """Activate a runtime and patch the public symbols (the
+    ``.init_array`` analogue), as a shim over an implicit session.  The
+    ``SCILIB_*`` knobs are honoured through ``OffloadConfig.legacy``; an
+    explicit ``config`` bypasses the environment.  ``device`` is the
+    session's (``None``: ``cuda:0``; ``"cpu"``: the simulated tiers)."""
+    from repro_torch.core import session as ses
+    from repro_torch.core.config import OffloadConfig
+    if config is None:
+        config = OffloadConfig.legacy(policy=policy, threshold=threshold)
+    return ses.open_legacy(config, record_trace=record_trace,
+                           intercept=True, device=device).runtime
+
+
+def uninstall():
+    """Restore the symbols and return the final statistics (the
+    ``.fini_array`` analogue); shares one stack with
+    ``runtime.uninstall``."""
+    from repro_torch.core import session as ses
+    return ses.close_legacy()
+
+
+@contextlib.contextmanager
+def offload(policy: Optional[str] = None,
+            threshold: Optional[float] = None,
+            record_trace: bool = True, device=None):
+    """``with offload("dfu", device="cpu"): ...`` — scoped automatic BLAS
+    offload."""
+    runtime = install(policy=policy, threshold=threshold,
+                      record_trace=record_trace, device=device)
+    try:
+        yield runtime
+    finally:
+        uninstall()

@@ -57,9 +57,17 @@ calls at each site rotate over the venues (host, xla and, with
 pseudo-venue with a ``precision`` scheme), timed, and the venue with the
 best sample is then locked — the paper's warmup-then-patch behaviour.
 
+**LAPACK-tier solver spans** (``lapack``, driven by
+:mod:`repro_torch.solvers`): :meth:`OffloadRuntime.solver_begin` opens a
+span that pins the factor buffer on the device tier, every BLAS call
+recorded while it is the innermost span is stamped with its
+``solver_id``, panels are recorded by :meth:`OffloadRuntime.note_panel`,
+and :meth:`OffloadRuntime.solver_end` folds the span's time and movement
+into :class:`SolverStats`.
+
 Not ported yet, and refused when configured (:func:`check_ported`): the
-multi-device tile scheduler, fault injection and the breaker, the shared
-device pool and the LAPACK solver spans.  The kernel block-edge override
+multi-device tile scheduler, fault injection and the breaker, and the
+shared device pool.  The kernel block-edge override
 (``kernel_block``) picks a tile edge the gemm kernel compiles
 (``kernels/gemm.py:EDGES``); another value is refused.
 """
@@ -95,8 +103,6 @@ _DECISION_CACHE_LIMIT = 65536
 #: config fields this slice does not implement -> the ROADMAP.md item
 #: that brings them.  Setting one to a non-default value raises.
 UNPORTED_FIELDS = {
-    "lapack": "Queue 1 item 6 (the solver tier)",
-    "lapack_nb": "Queue 1 item 6 (the solver tier)",
     "faults": "Queue 1 item 7 (the _guarded fault units and the breaker)",
     "pool_bytes": "Queue 1 item 7 (SharedDevicePool tenancy)",
     "pool_quota": "Queue 1 item 7 (SharedDevicePool tenancy)",
@@ -220,8 +226,24 @@ class RoutineStats:
 
 
 @dataclasses.dataclass
+class SolverStats:
+    """Per-solver accounting of the LAPACK tier (:mod:`repro_torch.solvers`):
+    one row per solver name, aggregated over that solver's spans."""
+
+    spans: int = 0               # solver_begin/solver_end pairs
+    calls: int = 0               # inner BLAS + panel calls in the spans
+    panel_calls: int = 0         # unblocked getf2 panels
+    moved_bytes: int = 0         # movement attributed to the spans
+    seconds: float = 0.0         # wall time inside the spans
+
+
+@dataclasses.dataclass
 class RuntimeStats:
     per_routine: Dict[str, RoutineStats] = dataclasses.field(
+        default_factory=dict)
+    # LAPACK-tier solver spans keyed by solver name: empty (and absent
+    # from the report) unless repro_torch.solvers ran
+    solvers: Dict[str, SolverStats] = dataclasses.field(
         default_factory=dict)
     uninstrumented_calls: int = 0
     # placement-registry cap pressure (mirrors the residency store)
@@ -235,6 +257,14 @@ class RuntimeStats:
 
     def routine(self, name: str) -> RoutineStats:
         return self.per_routine.setdefault(name, RoutineStats())
+
+    def solver(self, name: str) -> SolverStats:
+        return self.solvers.setdefault(name, SolverStats())
+
+    @property
+    def total_moved_bytes(self) -> int:
+        return sum(r.bytes_in + r.bytes_out
+                   for r in self.per_routine.values())
 
     def report(self) -> str:
         """The report of ``repro/core/runtime.py``, in the same layout."""
@@ -271,6 +301,16 @@ class RuntimeStats:
             esc = sum(r.escalations for r in routines)
             lines.append(f"split precision: {split_calls} calls "
                          f"({ssec:.3f} s, {esc} escalations)")
+        if self.solvers:
+            # only once a LAPACK-tier span ran (same rule)
+            lines.append("solvers (LAPACK tier)")
+            lines.append(f"{'solver':<10}{'spans':>7}{'calls':>8}"
+                         f"{'panel%':>8}{'GB moved':>10}{'sec':>9}")
+            for name, sv in sorted(self.solvers.items()):
+                pct = 100.0 * sv.panel_calls / max(1, sv.calls)
+                lines.append(f"{name:<10}{sv.spans:>7}{sv.calls:>8}"
+                             f"{pct:>8.0f}{sv.moved_bytes / 1e9:>10.3f}"
+                             f"{sv.seconds:>9.3f}")
         if self.callsites is not None and len(self.callsites):
             lines.append("call sites (top by flops; * = adaptive lock)")
             lines.append(f"{'site':<44}{'calls':>7}{'GFLOP':>9}"
@@ -308,6 +348,32 @@ def _flops_of(routine: str, m: int, n: int, k: int, batch: int = 1) -> float:
         return 0.0
     mult = 4.0 if routine[:1] in ("c", "z") else 1.0
     return mult * batch * fn(m, n, k)
+
+
+class SolverSpan:
+    """A live LAPACK-tier solver span (``solver_begin`` ..
+    ``solver_end``).  While it is the innermost open span, every BLAS
+    call the runtime records is stamped with its ``span_id``
+    (``"<solver>#<seq>"``).  ``factor`` stays pinned on the device tier
+    for the span's lifetime; ``placed`` is its device-tier tensor, the
+    one the driver computes on, so a host factor crosses the link once
+    per span."""
+
+    __slots__ = ("name", "span_id", "factor", "placed", "pinned", "t0",
+                 "moved0")
+
+    def __init__(self, name: str, span_id: str, factor, placed,
+                 pinned: bool, t0: float, moved0: int):
+        self.name = name
+        self.span_id = span_id
+        self.factor = factor
+        self.placed = placed
+        self.pinned = pinned
+        self.t0 = t0
+        self.moved0 = moved0
+
+    def __repr__(self) -> str:
+        return f"SolverSpan({self.span_id})"
 
 
 class OffloadRuntime:
@@ -368,6 +434,10 @@ class OffloadRuntime:
         self._trace_ids = res.ResidencyStore("traceids")
         self._reuse_by_buffer: Dict[int, int] = {}
         self.session_id = session_id
+        # LAPACK-tier solver spans: innermost-last stack of open spans;
+        # the top span stamps every recorded BLAS call
+        self._solver_stack: list = []
+        self._solver_seq = 0
 
     # ------------------------------------------------------------------ #
     # safe mid-run reconfiguration (Session.reconfigure lands here)       #
@@ -487,6 +557,75 @@ class OffloadRuntime:
 
     def resident_bytes(self) -> int:
         return self.placements.resident_bytes
+
+    # ------------------------------------------------------------------ #
+    # LAPACK-tier solver spans (repro_torch.solvers drives these)         #
+    # ------------------------------------------------------------------ #
+    def solver_begin(self, name: str, factor=None) -> SolverSpan:
+        """Open a solver span: emit the ``solver_begin`` trace event,
+        pin the factor buffer for the span's lifetime (the factorization
+        re-reads it in every inner BLAS call) and make the span the stamp
+        of every BLAS call recorded until :meth:`solver_end`.  Under
+        ``policy="cpu"`` nothing is pinned and ``placed`` is the factor
+        itself."""
+        with self._lock:
+            span_id = f"{name}#{self._solver_seq}"
+            self._solver_seq += 1
+            nbytes = (memspace.nbytes(factor)
+                      if isinstance(factor, torch.Tensor) else 0)
+            placed, pinned = factor, False
+            if (isinstance(factor, torch.Tensor)
+                    and self.config.policy != "cpu"):
+                placed = self.pin(factor)
+                pinned = True
+            self.stats.solver(name).spans += 1
+            span = SolverSpan(name, span_id, factor, placed, pinned,
+                              time.perf_counter(),
+                              self.stats.total_moved_bytes)
+            self._solver_stack.append(span)
+            self._emit_event("solver_begin", span_id, nbytes)
+            return span
+
+    def solver_end(self, span: SolverSpan) -> None:
+        """Close a solver span: unpin the factor (it stays resident until
+        cap pressure selects it), fold the span's wall time and movement
+        into the per-solver statistics, and emit the ``solver_end`` trace
+        event.  Idempotent."""
+        with self._lock:
+            try:
+                self._solver_stack.remove(span)
+            except ValueError:
+                return
+            if span.pinned:
+                self.unpin(span.factor)
+            sv = self.stats.solver(span.name)
+            sv.seconds += time.perf_counter() - span.t0
+            sv.moved_bytes += max(
+                0, self.stats.total_moved_bytes - span.moved0)
+            self._emit_event("solver_end", span.span_id, 0)
+
+    def note_panel(self, prec: str, m: int, nb: int,
+                   panel: torch.Tensor) -> None:
+        """Record one unblocked panel factorization (``getf2``).  Only
+        inside a solver span: outside the LAPACK tier the drivers emit
+        exactly the BLAS stream they always did."""
+        with self._lock:
+            if not self._solver_stack:
+                return
+            span = self._solver_stack[-1]
+            sv = self.stats.solver(span.name)
+            sv.calls += 1
+            sv.panel_calls += 1
+            st = self.stats.routine(f"{prec}getf2")
+            st.calls += 1
+            st.on_host += 1
+            if self.trace is not None:
+                bid = self._trace_id(panel, "P")
+                self.trace.calls.append(BlasCall(
+                    routine=f"{prec}getf2", m=m, n=nb, k=0,
+                    operands=(("P", bid, m * nb * panel.element_size(),
+                               float(nb), True),),
+                    solver_id=span.span_id))
 
     # ------------------------------------------------------------------ #
     # async mode                                                          #
@@ -893,7 +1032,12 @@ class OffloadRuntime:
                                    call.batch),
                          dt, decision.offload, venue=decision.venue,
                          precision=decision.precision)
-        self._record_trace(call, decision, out, dt)
+        solver_id = ""
+        if self._solver_stack:
+            span = self._solver_stack[-1]
+            solver_id = span.span_id
+            self.stats.solver(span.name).calls += 1
+        self._record_trace(call, decision, out, dt, solver_id)
         if self.debug >= 2:
             where = ((decision.venue or "offload") if decision.offload
                      else "host")
@@ -917,7 +1061,8 @@ class OffloadRuntime:
         return _flops_of(routine, m, n, k, batch) / max(1, size)
 
     def _record_trace(self, call: CallContext, decision: DispatchDecision,
-                      out: torch.Tensor, seconds: float) -> None:
+                      out: torch.Tensor, seconds: float,
+                      solver_id: str = "") -> None:
         if self.trace is None:
             return
         ops = []
@@ -940,7 +1085,7 @@ class OffloadRuntime:
             batch=call.batch, operands=tuple(ops),
             callsite_id=call.site_id, seconds=seconds,
             out_buf=out_buf, out_nbytes=out_nbytes, venue=decision.venue,
-            precision=decision.precision))
+            precision=decision.precision, solver_id=solver_id))
 
 
 # --------------------------------------------------------------------- #
@@ -962,6 +1107,34 @@ def activate(runtime: Optional[OffloadRuntime]) -> None:
 
 def active() -> Optional[OffloadRuntime]:
     return _ACTIVE.get()
+
+
+def install(policy: Optional[str] = None,
+            threshold: Optional[float] = None,
+            record_trace: bool = True, sync: Optional[bool] = None,
+            device_bytes: Optional[int] = None,
+            config: Optional[OffloadConfig] = None,
+            device=None) -> OffloadRuntime:
+    """The ``.init_array`` analogue: a shim over an implicit
+    :class:`~repro_torch.core.session.Session` without symbol
+    interception (the dlsym-mode surface).  The ``SCILIB_*`` knobs are
+    honoured through :meth:`OffloadConfig.legacy`; an explicit ``config``
+    bypasses that resolution and the environment.  ``device`` is the
+    session's (``None``: ``cuda:0``; ``"cpu"``: the simulated tiers)."""
+    from repro_torch.core import session as ses
+    if config is None:
+        config = OffloadConfig.legacy(policy=policy, threshold=threshold,
+                                      sync=sync, device_bytes=device_bytes)
+    return ses.open_legacy(config, record_trace=record_trace,
+                           intercept=False, device=device).runtime
+
+
+def uninstall() -> Optional[RuntimeStats]:
+    """The ``.fini_array`` analogue: close the most recent legacy session
+    (draining in-flight work and dumping its trace to
+    ``config.trace_path``) and return its final statistics."""
+    from repro_torch.core import session as ses
+    return ses.close_legacy()
 
 
 def pin(x: torch.Tensor) -> torch.Tensor:

@@ -5,9 +5,12 @@ owns the offload stack of one workload:
 
 * its :class:`~repro_torch.core.runtime.OffloadRuntime` (placement
   registry, dispatch pipeline, statistics, trace) on one device,
-* the installed interceptors (``torch.matmul``/``@``/``mm``/``einsum``/
-  ``tensordot`` trampolines, patched while at least one intercepting
-  session is open, refcounted),
+* the installed interceptors (``torch.matmul``/``@``/``mm``/``bmm``/
+  ``mv``/``dot``/``einsum``/``tensordot`` trampolines, patched while at
+  least one intercepting session is open, refcounted), and with
+  ``config.lapack`` the solver trampolines of
+  :mod:`repro_torch.solvers.intercept` (``torch.linalg.solve`` and the
+  rest, refcounted the same way),
 * its :class:`~repro_torch.core.config.OffloadConfig`.
 
 A session runs on the card (``cuda:0``) unless the caller asks for the
@@ -24,9 +27,11 @@ the active dispatch target, and closing it restores the outer one:
         print(s.report())
 
 An ``atexit`` hook dumps the recorded trace of any session still open at
-interpreter shutdown to its ``config.trace_path``.  The reference's
-legacy ``install()``/``uninstall()`` shims, ``Session.scope()`` and the
-shared device pool are not ported yet.
+interpreter shutdown to its ``config.trace_path``.  The legacy
+``install()``/``uninstall()`` shims (:mod:`repro_torch.core.intercept`,
+:mod:`repro_torch.core.runtime`) open and close implicit sessions on one
+shared stack (:func:`open_legacy`, :func:`close_legacy`).
+``Session.scope()`` and the shared device pool are not ported yet.
 """
 from __future__ import annotations
 
@@ -91,6 +96,9 @@ class Session:
         self.name = name
         self.runtime = None
         self._trace_dumped = False
+        # whether this session holds a reference on the solver patch
+        # (config.lapack with intercept)
+        self._lapack_patched = False
 
     # ------------------------------------------------------------------ #
     # lifecycle                                                           #
@@ -113,6 +121,8 @@ class Session:
         rt.activate(self.runtime)
         if self.intercept:
             icp.patch_symbols()
+            if self.config.lapack:
+                self._patch_solvers(True)
         _ensure_atexit()
         return self
 
@@ -137,6 +147,7 @@ class Session:
                 if self in _OPEN:
                     _OPEN.remove(self)
             if self.intercept:
+                self._patch_solvers(False)
                 icp.unpatch_symbols()
             stack = _STACK.get()
             prev = stack[-1] if stack else None
@@ -201,7 +212,22 @@ class Session:
         new = self.config.replace(**kw)
         self.runtime.apply_config(new)
         self.config = new
+        if self.intercept:
+            # the solver patch follows the flag
+            self._patch_solvers(new.lapack)
         return new
+
+    def _patch_solvers(self, want: bool) -> None:
+        """Take or release this session's reference on the solver
+        trampolines, so that it holds one exactly when ``want``."""
+        if want == self._lapack_patched:
+            return
+        from repro_torch.solvers import intercept as slv
+        if want:
+            slv.patch_symbols()
+        else:
+            slv.unpatch_symbols()
+        self._lapack_patched = want
 
     # ------------------------------------------------------------------ #
     def _dump_trace(self, runtime=None, reason: str = "close") -> None:
@@ -255,3 +281,34 @@ def active_session() -> Optional[Session]:
     """The innermost open session of the current context, or None."""
     stack = _STACK.get()
     return stack[-1] if stack else None
+
+
+# --------------------------------------------------------------------- #
+# the implicit session stack behind the legacy shims                     #
+# --------------------------------------------------------------------- #
+#: sessions opened by ``install()`` (the runtime- and the intercept-level
+#: shim share it), closed last-in first-out by ``uninstall()``
+_LEGACY: ContextVar[Tuple[Session, ...]] = (
+    ContextVar("scilib_torch_legacy_stack", default=()))
+
+
+def open_legacy(config: OffloadConfig, *, record_trace: bool = True,
+                intercept: bool = False, device=None) -> Session:
+    """Open the implicit session behind a legacy ``install()`` call.
+    Repeated calls nest: each ``uninstall()`` closes the most recent."""
+    s = Session(config, device=device, record_trace=record_trace,
+                intercept=intercept).open()
+    _LEGACY.set(_LEGACY.get() + (s,))
+    return s
+
+
+def close_legacy():
+    """Close the most recent legacy session (the ``uninstall()`` shim);
+    else the innermost open session; else nothing.  Returns its final
+    statistics, or None."""
+    legacy = _LEGACY.get()
+    if legacy:
+        _LEGACY.set(legacy[:-1])
+        return legacy[-1].close()
+    s = active_session()
+    return s.close() if s is not None else None

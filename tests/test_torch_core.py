@@ -252,15 +252,20 @@ def test_callsite_fingerprint_skips_port_frames():
 def test_unported_fields_raise_naming_the_roadmap_item(field, value):
     """A field the port does not implement raises, naming the ROADMAP.md
     item that brings it; the fields ported since (the adaptive mode, the
-    kernel venue, split precision, the gemm tile edge) open a session and
-    reconfigure."""
+    kernel venue, split precision, the gemm tile edge, the solver tier)
+    open a session and reconfigure."""
     cfg = OffloadConfig(**{field: value})
-    if field in ("adaptive", "kernel_path", "precision", "kernel_block"):
+    if field in ("adaptive", "kernel_path", "precision", "kernel_block",
+                 "lapack", "lapack_nb"):
+        def live(s):
+            holder = s.runtime.config if field.startswith("lapack") \
+                else s.runtime
+            return getattr(holder, field)
         with repro_torch.session(cfg, device="cpu") as s:
-            assert getattr(s.runtime, field) == value
+            assert live(s) == value
         with repro_torch.session(device="cpu") as s:
             s.reconfigure(**{field: value})
-            assert getattr(s.runtime, field) == value
+            assert live(s) == value
         return
     item = trt.UNPORTED_FIELDS.get(field, "Queue 1 item 7")
     with pytest.raises(NotImplementedError,
