@@ -58,21 +58,42 @@ First-Use decode cache.  Phases, in order:
              torch.matmul(hpsi_blk.T, psi) runs split3 on the pallas
              venue, within its a-priori bound; (c) a cancelling dgemm
              escalates to native fp64.  One session each.
-7. serve   — gemma2-9b (42 layers, d_model 3584, vocab 256000, bf16,
+7. runtime — the rest of the runtime: (a) the tile scheduler over 4
+             tiers of the card (OffloadConfig(devices=4)): LSMS's zgemm
+             at n 6912 twice (4 tiles, 2 blocks of 382.2 MB moved per
+             tier, then only affinity hits), its trsm against 256
+             columns (4 panels, the triangle on every tier, 4 trsm.cu
+             launches), and on the pallas venue PARSEC's split3
+             projection and syrk (tiles on split_gemm.cu and gemm.cu),
+             each against the same call on one tier, the trace replayed
+             on 4 tiers; (b) faults: the (a) sequence under injected
+             transfer and kernel faults, bit for bit the clean run's; the
+             breaker walk (3 fallbacks, a quarantine, degraded calls, the
+             half-open probe's recovery); a real OOM under a memory
+             fraction (the breaker's quarantine frees a placement and
+             the fallback streams into that room); (c) tenancy: 3 threads,
+             each a named session on one 2 GiB SharedDevicePool, the
+             ledger sampled between calls, cross-tenant evictions,
+             allocator growth, results bit for bit each tenant's serial
+             run.  Every phase that injects nothing asserts zero faults,
+             retries, fallbacks and quarantines.
+8. serve   — gemma2-9b (42 layers, d_model 3584, vocab 256000, bf16,
              prefill_fresh_kv) with seeded random weights, batch 2 x
              4608 prompt tokens: generate 16 under dfu and 4 under
              memcopy (every attention kernel call there also held to its
              plain version), byte/migration/reuse counts and kernel
              launches asserted, every flash launch on the wgmma path;
-             then, at the same widths over 2 layers,
+             (d) launch/serve.py's streams path: 2 worker threads over
+             the shared weights, each stream's 8 tokens equal the dfu
+             run's first 8; then, at the same widths over 2 layers,
              a forward without a cache over the prompt and 15 generated
              tokens against the cached steps' logits; a device profile
              of one prefill and one decode step.
 
 The kernels line's launches are those of the main path's runs: the
-BLAS, LSMS and solvers phases, the venue phase's (a)-(c), and the serve
-phase's dfu and memcopy runs, each with the counts set to 0 just before
-it.  The cross-check's and the profile's launches are not among them.
+BLAS, LSMS and solvers phases, the venue phase's (a)-(c), every run of
+the runtime phase, and the serve phase's dfu, streams and memcopy runs,
+each with the counts set to 0 just before it.  The cross-check's and the profile's launches are not among them.
 Every mismatch or missing launch raises, so the script exits non-zero.
 The lines before the last are a JSON object of per-kernel numbers and
 the card's name and power limit; the last line is
@@ -1125,6 +1146,15 @@ def counts() -> dict:
         for name, mod in MODULES.items()}
 
 
+def no_faults(stats, where: str) -> None:
+    """A phase that injects nothing must see no fault path run: a fault
+    absorbed quietly would hide a broken kernel behind a host fallback."""
+    got = (stats.faults, stats.retries, stats.fallbacks, stats.quarantines)
+    if got != (0, 0, 0, 0):
+        raise AssertionError(f"{where}: (faults, retries, fallbacks, "
+                             f"quarantines) {got} != (0, 0, 0, 0)")
+
+
 def phase_blas(s, dev) -> dict:
     import numpy as np
     import torch
@@ -1146,6 +1176,7 @@ def phase_blas(s, dev) -> dict:
     small = torch.mm(small_a, small_b)
     s.sync()
     launched = counts()
+    no_faults(s.stats, "blas")
     st = s.stats.per_routine
     sg, dt = st["sgemm"], st["dtrsm"]
     want = (sg.calls, sg.offloaded, sg.on_host, sg.bytes_in,
@@ -1217,6 +1248,7 @@ def phase_lsms(s, dev, n: int = 6912) -> tuple:
         rng.standard_normal((n, n))
     draws_s = time.perf_counter() - t0
     launched = counts()
+    no_faults(s.stats, "lsms")
     z = s.stats.per_routine["zgemm"]
     if (z.calls, z.offloaded) != (4, 4):
         raise AssertionError(f"zgemm calls/offloaded {z.calls}/"
@@ -1386,6 +1418,7 @@ def phase_solvers(dev, lsms_energy: float, n: int = 6912) -> dict:
         wall = time.perf_counter() - t0
         launched_a = counts()
         st = s.stats
+        no_faults(st, "solvers (a)")
         want = atoms * energies          # solves: one getrf, one getrs
         got = (st.solvers["getrf"].spans, st.solvers["getrs"].spans,
                s.trace.event_count("solver_begin"),
@@ -1446,6 +1479,7 @@ def phase_solvers(dev, lsms_energy: float, n: int = 6912) -> dict:
         del e0
         w, vecs = torch.linalg.eigh(e)
         launched = counts()
+        no_faults(s.stats, "solvers (b)")
         live = {name: (sv.spans, sv.calls, sv.panel_calls)
                 for name, sv in st.solvers.items()}
         for line in s.report().splitlines():
@@ -1565,6 +1599,7 @@ def phase_venue(dev) -> dict:
         venues = [c.venue for c in s.trace.calls]
         per_call = [c.seconds for c in s.trace.calls]
         st = s.stats.per_routine["dsyrk"]
+        no_faults(s.stats, "venue (a)")
     for name in got:
         launched[name] = launched.get(name, 0) + got[name]
     for i, g in enumerate(grams):
@@ -1601,6 +1636,7 @@ def phase_venue(dev) -> dict:
         got = counts()
         calls = [(c.precision, c.venue) for c in s.trace.calls]
         st = s.stats.per_routine["dgemm"]
+        no_faults(s.stats, "venue (b)")
         secs = [c.seconds for c in s.trace.calls]
     peak = torch.cuda.max_memory_allocated()
     for name in got:
@@ -1647,6 +1683,7 @@ def phase_venue(dev) -> dict:
         s.sync()
         got = counts()
         st = s.stats.per_routine["dgemm"]
+        no_faults(s.stats, "venue (c)")
         esc = s.trace.event_count("escalate")
     for name in got:
         launched[name] += got[name]
@@ -1781,6 +1818,90 @@ def device_profile(fn, label: str, top: int = 6) -> None:
         log("serve", f"  {us / 1e3:9.2f} ms  {count:5d} x  {name[:90]}")
 
 
+def serve_streams_check(model, params, prompt, out, alone, n_layers: int,
+                        dev) -> dict:
+    """(d) ``launch/serve.py``'s streams path: 2 worker threads over the
+    shared weights, each its own Server and session on one pool; each
+    stream's tokens are the dfu run's first 8, each migrates its cache
+    once and reuses it 7 times, every flash launch takes the wgmma
+    path.  The Server's cache is not placed through the offload
+    runtime, so it charges the pool nothing: (d) checks concurrent
+    Servers over shared weights, not the pool's accounting, and asserts
+    that every pool count stays 0 so that a change which starts charging
+    the pool shows here.  Throughput is set beside ``alone`` (the dfu
+    run's ServeStats) on two yardsticks: decode tokens over the decode
+    window (from the first stream's decode start to the last stream's
+    end, against one stream's decode time) and tokens over the whole
+    wall, prefill included (against one stream's prefill plus decode).
+    Returns the launches."""
+    import torch
+    from repro_torch.core.residency import SharedDevicePool
+    from repro_torch.kernels import attention
+    from repro_torch.launch.serve import serve_streams
+    from repro_torch.train import ServeConfig
+    pool = SharedDevicePool(STREAMS * SERVE_CACHE_BYTES + (1 << 30),
+                            name="serve")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    results = serve_streams(model, params, ServeConfig(
+        max_len=SERVE_LEN, offload_policy="dfu"), prompt, STREAM_GEN,
+        STREAMS, pool, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts()
+    peak = torch.cuda.max_memory_allocated()
+    for i, (toks, st, row, _) in enumerate(results):
+        if not torch.equal(toks, out[:, :STREAM_GEN]):
+            raise AssertionError(f"serve streams: stream-{i} tokens "
+                                 f"{toks.tolist()} != dfu's first "
+                                 f"{STREAM_GEN} {out[:, :STREAM_GEN].tolist()}")
+        if (st.migrations, st.cache_reuses) != (1, STREAM_GEN - 1):
+            raise AssertionError(f"serve streams: stream-{i} migrations/"
+                                 f"reuses {st.migrations}/{st.cache_reuses}")
+        if row is None or any(v for k, v in row.items() if k != "quota"):
+            raise AssertionError(f"serve streams: stream-{i}'s pool row "
+                                 f"{row}; the cache charges no pool yet, "
+                                 f"so every count must be 0")
+    if (pool.places, pool.evictions, pool.refetches) != (0, 0, 0):
+        raise AssertionError(f"serve streams: pool places/evictions/"
+                             f"refetches {pool.places}/{pool.evictions}/"
+                             f"{pool.refetches}, want 0/0/0")
+    if (got["flash_attention"] != STREAMS * n_layers
+            or attention.launches_by_path[attention.WGMMA]
+            != got["flash_attention"]):
+        raise AssertionError(f"serve streams: flash launches {got} by path "
+                             f"{attention.launches_by_path}; want "
+                             f"{STREAMS} x {n_layers}, all on wgmma")
+    tokens = sum(st.tokens for _, st, _, _ in results)
+    decode_from = min(t1 - st.decode_s for _, st, _, (_, t1) in results)
+    decode_to = max(t1 for _, _, _, (_, t1) in results)
+    window = decode_to - decode_from
+    for i, (_, st, row, (s0, s1)) in enumerate(results):
+        log("serve", f"(d) stream-{i}: prefill {st.prefill_s:.3f} s, "
+                     f"decode {st.decode_s:.3f} s for {STREAM_GEN - 1} "
+                     f"steps ({st.tokens / st.decode_s:.2f} decode tokens/s, "
+                     f"{st.tokens / (s1 - s0):.2f} tokens/s over its "
+                     f"{s1 - s0:.3f} s); migrations {st.migrations}, "
+                     f"reuses {st.cache_reuses}; pool row {row}")
+    one_decode = alone.tokens / alone.decode_s
+    one_wall = alone.tokens / (alone.prefill_s + alone.decode_s)
+    log("serve", f"(d) {STREAMS} streams x {STREAM_GEN} tokens: tokens "
+                 f"equal the dfu run's first {STREAM_GEN}; decode window "
+                 f"{window:.3f} s: {tokens / window:.2f} decode tokens/s "
+                 f"against one stream's {one_decode:.2f} "
+                 f"({tokens / window / one_decode:.3f}x); whole wall "
+                 f"{wall:.3f} s: {tokens / wall:.2f} tokens/s against one "
+                 f"stream's {one_wall:.2f} over prefill + decode "
+                 f"({tokens / wall / one_wall:.3f}x); launches {got}; peak "
+                 f"device memory {peak / 1e9:.2f} GB; pool counts all 0 "
+                 f"(the cache charges no pool)")
+    for line in pool.report().splitlines():
+        log("serve", f"(d) {line}")
+    return got
+
+
 def phase_serve(dev) -> dict:
     """gemma2-9b at full width through the serving loop: dfu, then
     memcopy with every attention kernel call held to its plain version
@@ -1865,6 +1986,8 @@ def phase_serve(dev) -> dict:
                  f"device memory "
                  f"{peak / 1e9:.2f} GB")
     del srv
+    add(serve_streams_check(model, params, prompt, out, st, cfg.n_layers,
+                            dev))
 
     # memcopy: the cache round-trips around the prefill and every step;
     # each attention kernel call is also computed by its plain version
@@ -1952,6 +2075,592 @@ def phase_serve(dev) -> dict:
     return launched
 
 
+#: the runtime phase's (a): LSMS's KKR plane (complex128, n 6912) dealt
+#: over 4 tiers of the one card; its trsm solves LSMS's triangle against
+#: 256 columns, 4 panels of 64 (_grid1d(4, 256) at tile_min 64)
+RUNTIME_N, RUNTIME_RHS, RUNTIME_TIERS = 6912, 256, 4
+#: (a) tiles against the same call on one tier: both sum every element
+#: over the same K in float64 on the same kernel, so they agree to a few
+#: roundings; 1e-12 of max|.| is ~5000 eps64 and still catches a lost
+#: or doubled tile (an error of order 1)
+TILE_TOL = 1e-12
+#: (a) PARSEC's widths (the venue phase's): psi 93536 x 2400, the
+#: projection hpsi_blk.T @ psi over 32 columns
+PARSEC_K, PARSEC_N, PARSEC_BLK = 93536, 2400, 32
+#: (b) the breaker walk's float64 gemm edge, and its cooldown (ms)
+WALK_N, WALK_COOLDOWN_MS = 4096, 200.0
+#: (b) the real OOM: room left on the card above what is reserved, for
+#: one float64 6912^2 operand (382.2 MB) and a call's small output and
+#: workspace, not for two such operands
+OOM_ROOM = 512 << 20
+#: (c) tenancy: 3 threads, each 12 float64 4096^2 gemms over 4 host-born
+#: operand pairs of its own (1.07 GB per tenant) on one 2 GiB pool
+TENANTS, TENANT_CALLS, TENANT_PAIRS, POOL_BYTES = 3, 12, 4, 2 << 30
+#: (d) concurrent serving streams over shared weights, tokens each
+STREAMS, STREAM_GEN = 2, 8
+
+
+def expect_launches(where: str, got: dict, want: dict) -> None:
+    """The launches of the named kernels in one run, exactly."""
+    have = {k: got.get(k, 0) for k in want}
+    if have != want:
+        raise AssertionError(f"{where}: launches {have} != {want}")
+
+
+def tier_snapshot(stats) -> dict:
+    return {d: (v.tiles, v.moved_bytes, v.affinity_hits, v.evictions)
+            for d, v in sorted(stats.per_device.items())}
+
+
+def tile_sequence(cfg, dev, ops: dict) -> dict:
+    """The runtime phase's (a) sequence in one session of ``cfg``: the
+    LSMS zgemm twice, the LSMS trsm, then on the pallas venue the split3
+    PARSEC projection and the PARSEC syrk.  Each call is synchronized and
+    timed; returns outputs, walls, launches, per-tier snapshots after
+    each call, the session's stats and its trace."""
+    import torch
+    import repro_torch
+    from repro_torch.core import blas
+    outs, walls, launches, tiers = {}, {}, {}, {}
+    with repro_torch.session(cfg, device=dev, intercept=False) as s:
+        def timed(name, fn):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[name] = fn()
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            launches[name] = counts()
+            tiers[name] = tier_snapshot(s.stats)
+
+        timed("zgemm 1", lambda: blas.gemm(ops["A"], ops["B"]))
+        timed("zgemm 2", lambda: blas.gemm(ops["A"], ops["B"]))
+        timed("dtrsm", lambda: blas.trsm(ops["L"], ops["R"]))
+        s.reconfigure(kernel_path=True, precision="split3")
+        timed("split3", lambda: blas.gemm(ops["hpsi"], ops["psi"],
+                                          trans_a="T"))
+        s.reconfigure(precision="")
+        timed("dsyrk", lambda: blas.syrk(ops["psi"], trans="T"))
+        stats, trace = s.stats, s.trace
+    return dict(outs=outs, walls=walls, launches=launches, tiers=tiers,
+                stats=stats, trace=trace, cfg=cfg)
+
+
+def runtime_tiles(dev, ops: dict, launched: dict) -> dict:
+    """(a): the tile scheduler at LSMS's width on 4 tiers, each call
+    against the same sequence on one tier, and the trace replayed."""
+    import torch
+    from repro_torch import OffloadConfig
+    from repro_torch.core import precision as prc
+    from repro_torch.memtier import MemTierSimulator
+    n, t = RUNTIME_N, RUNTIME_TIERS
+    base = dict(policy="dfu", threshold=500.0, sync=True)
+    one = tile_sequence(OffloadConfig(**base), dev, ops)
+    four = tile_sequence(OffloadConfig(**base, devices=t), dev, ops)
+    for run in (one, four):
+        for got in run["launches"].values():
+            for name, k in got.items():
+                launched[name] = launched.get(name, 0) + k
+    st, tiers, trace = four["stats"], four["tiers"], four["trace"]
+    no_faults(st, "runtime (a)")
+    no_faults(one["stats"], "runtime (a) one tier")
+    blk = (n // 2) * n * 16                 # one c128 half-plane block
+    # zgemm: a 2 x 2 grid, one tile per tier, 2 blocks moved per tier
+    calls = [c.devices for c in trace.calls]
+    if calls[0] != tuple(range(t)) or calls[1] != calls[0]:
+        raise AssertionError(f"runtime (a) zgemm tiers {calls[:2]}")
+    first = {d: (1, 2 * blk, 0, 0) for d in range(t)}
+    second = {d: (2, 2 * blk, 2, 0) for d in range(t)}
+    if tiers["zgemm 1"] != first or tiers["zgemm 2"] != second:
+        raise AssertionError(f"runtime (a) zgemm per tier "
+                             f"{tiers['zgemm 1']} then {tiers['zgemm 2']},"
+                             f" want {first} then {second}")
+    z = st.per_routine["zgemm"]
+    if (z.sharded, z.tiles, z.bytes_in) != (2, 2 * t, t * 2 * blk):
+        raise AssertionError(f"runtime (a) zgemm sharded/tiles/bytes "
+                             f"{(z.sharded, z.tiles, z.bytes_in)}")
+    # c128 runs 4 real products (4M) per tile on gemm.cu
+    expect_launches("runtime (a) zgemm", four["launches"]["zgemm 1"],
+                    {"gemm": 4 * t, "trsm": 0})
+    # trsm: 4 panels, the triangle replicated on every tier
+    tri_b = n * n * 8
+    panel_b = n * (RUNTIME_RHS // t) * 8
+    moved = {d: four["tiers"]["dtrsm"][d][1] - second[d][1]
+             for d in range(t)}
+    if moved != {d: tri_b + panel_b for d in range(t)}:
+        raise AssertionError(f"runtime (a) trsm moved per tier {moved}, "
+                             f"want the triangle {tri_b} + a panel "
+                             f"{panel_b} each")
+    expect_launches("runtime (a) trsm", four["launches"]["dtrsm"],
+                    {"trsm": t})
+    tr = st.per_routine["dtrsm"]
+    if (tr.sharded, tr.tiles) != (1, t):
+        raise AssertionError(f"runtime (a) trsm sharded/tiles "
+                             f"{(tr.sharded, tr.tiles)}")
+    # split3 on the pallas venue: the fused split kernel, 2 launches per
+    # tile product; syrk tiles the masked full product on gemm.cu
+    sp_tiles = len(trace.calls[3].devices)
+    expect_launches("runtime (a) split3", four["launches"]["split3"],
+                    {"split_gemm": SPLIT3_LAUNCHES * sp_tiles})
+    sy_tiles = len(trace.calls[4].devices)
+    expect_launches("runtime (a) syrk", four["launches"]["dsyrk"],
+                    {"gemm": sy_tiles, "syrk": 0})
+    if (trace.calls[3].precision, trace.calls[3].venue,
+            trace.calls[4].venue) != ("split3", "pallas", "pallas"):
+        raise AssertionError(f"runtime (a) venue tags "
+                             f"{[(c.venue, c.precision) for c in trace.calls]}")
+    if sy_tiles != 6 or sp_tiles < 2:
+        raise AssertionError(f"runtime (a) split3 tiles {sp_tiles}, syrk "
+                             f"tiles {sy_tiles} (want >= 2 and 6)")
+    expect_launches("runtime (a) syrk on one tier",
+                    one["launches"]["dsyrk"], {"syrk": 1, "gemm": 0})
+    errs = {}
+    for name in four["outs"]:
+        _, errs[name] = rel_err(four["outs"][name], one["outs"][name])
+    split_bound = prc.error_bound("split3", PARSEC_K)
+    limits = {"zgemm 1": TILE_TOL, "zgemm 2": TILE_TOL,
+              "dtrsm": TRSM_TOL["float64"], "split3": split_bound,
+              "dsyrk": TOL["float64"]}
+    for name, lim in limits.items():
+        if not errs[name] <= lim:
+            raise AssertionError(f"runtime (a) {name}: 4 tiers vs 1 tier "
+                                 f"rel err {errs[name]:.3e} > {lim:g}")
+    # the trace replayed on 4 tiers: the tile schedule, the offloaded
+    # calls and the (absent) fault counters come back exactly
+    rep = MemTierSimulator.from_config(four["cfg"]).run(trace)
+    per_tier = {}
+    for call in trace.calls:
+        for d in call.devices:
+            per_tier[d] = per_tier.get(d, 0) + 1
+    live_tiles = {d: v.tiles for d, v in st.per_device.items()}
+    offloaded = sum(r.offloaded for r in st.per_routine.values())
+    got = (rep.n_devices, per_tier, rep.offloaded_calls,
+           (rep.faults, rep.retries, rep.fallbacks, rep.quarantines))
+    want = (t, live_tiles, offloaded, (0, 0, 0, 0))
+    if got != want:
+        raise AssertionError(f"runtime (a) replay {got} != live {want}")
+    for name in four["walls"]:
+        log("runtime", f"(a) {name}: 4 tiers {four['walls'][name]:.3f} s, "
+                       f"1 tier {one['walls'][name]:.3f} s (synchronized "
+                       f"wall; the tiers share one card, so tiles "
+                       f"serialize); rel err {errs[name]:.3e} (tol "
+                       f"{limits[name]:g}); launches "
+                       f"{four['launches'][name]}")
+    log("runtime", f"(a) per tier (tiles, moved B, affinity hits, "
+                   f"evictions) after zgemm 1 {tiers['zgemm 1']}, after "
+                   f"zgemm 2 {tiers['zgemm 2']}, at the end "
+                   f"{tier_snapshot(st)}; block {blk} B; zgemm 2 moved "
+                   f"0 B; trsm moved {moved} (triangle {tri_b} + panel "
+                   f"{panel_b} per tier); split3 tiles {sp_tiles}, syrk "
+                   f"tiles {sy_tiles}")
+    log("runtime", f"(a) zgemm 1 moved {t * 2 * blk} B: {t * blk} B of A "
+                   f"(host-born) across the link, {t * blk} B of B "
+                   f"(device-born) copied on the card")
+    log("runtime", f"(a) replay on {t} tiers: tiles per tier {per_tier}, "
+                   f"{rep.offloaded_calls} offloaded calls, faults 0 — equal "
+                   f"to the live run; the simulator's own per-device "
+                   f"h2d (buffer-granular) {rep.per_device_h2d} beside the "
+                   f"live block movement "
+                   f"{ {d: v.moved_bytes for d, v in st.per_device.items()} }")
+    return four
+
+
+def runtime_faults_sequence(dev, ops: dict, clean: dict,
+                            launched: dict) -> None:
+    """(b) 1: the (a) sequence on 4 tiers under injected transfer and
+    kernel faults with retries: every result bit for bit the unfaulted
+    run's, every fault retried, the counters equal to the replay's."""
+    import torch
+    from repro_torch import OffloadConfig
+    from repro_torch.memtier import MemTierSimulator
+    cfg = OffloadConfig(policy="dfu", threshold=500.0, sync=True,
+                        devices=RUNTIME_TIERS,
+                        faults="transfer:nth=3;kernel:nth=4", retries=2)
+    run = tile_sequence(cfg, dev, ops)
+    for got in run["launches"].values():
+        for name, k in got.items():
+            launched[name] = launched.get(name, 0) + k
+    st = run["stats"]
+    for name, out in run["outs"].items():
+        if not torch.equal(out, clean["outs"][name]):
+            raise AssertionError(f"runtime (b) {name} under faults is not "
+                                 f"bit for bit the unfaulted run's")
+    live = (st.faults, st.retries, st.fallbacks, st.quarantines)
+    if not (st.faults > 0 and st.retries == st.faults
+            and st.fallbacks == 0 and st.quarantines == 0):
+        raise AssertionError(f"runtime (b) faulted sequence (faults, "
+                             f"retries, fallbacks, quarantines) {live}")
+    if tier_snapshot(st) != tier_snapshot(clean["stats"]):
+        raise AssertionError(f"runtime (b) per tier {tier_snapshot(st)} "
+                             f"!= unfaulted {tier_snapshot(clean['stats'])}")
+    rep = MemTierSimulator.from_config(run["cfg"]).run(run["trace"])
+    if (rep.faults, rep.retries, rep.fallbacks, rep.quarantines) != live:
+        raise AssertionError(f"runtime (b) replay faults "
+                             f"{(rep.faults, rep.retries, rep.fallbacks)} "
+                             f"!= live {live}")
+    log("runtime", f"(b) the (a) sequence under transfer:nth=3;"
+                   f"kernel:nth=4, retries 2: faults {st.faults}, retries "
+                   f"{st.retries}, fallbacks 0; all 5 results bit for bit "
+                   f"the unfaulted run's, per-tier counters equal; replay "
+                   f"faults/retries {rep.faults}/{rep.retries}; walls "
+                   + ", ".join(f"{k} {v:.3f} s"
+                               for k, v in run["walls"].items()))
+
+
+def runtime_breaker_walk(dev, launched: dict) -> None:
+    """(b) 2: the breaker walk on float64 4096^2 gemms, every result bit
+    for bit the same call's under policy="cpu".  Under kernel:nth=1 with
+    no retries, 3 calls fall back; the breaker does not trip, because
+    each call's operand placements succeed before its kernel fails and a
+    successful unit resets the consecutive count (the reference's rule,
+    ``HealthTracker.ok``).  Under transfer:p=1, calls on fresh host-born
+    operands fail at their first unit: the consecutive count reaches 3,
+    the quarantine invalidates the placements, and the next call is
+    served from the host (degraded).  After the cooldown the half-open
+    probe offloads, launches gemm.cu, re-moves its operands and
+    recovers."""
+    import numpy as np
+    import torch
+    import repro_torch
+    from repro_torch import OffloadConfig
+    from repro_torch.core import blas, host_array
+    n = WALK_N
+    rng = np.random.default_rng(13)
+    a, b, c1, c2 = (host_array(rng.standard_normal((n, n)), torch.float64)
+                    for _ in range(4))
+    with repro_torch.session(OffloadConfig(policy="cpu", sync=True),
+                             device=dev, intercept=False) as s0:
+        want = {"ab": blas.gemm(a, b), "c1": blas.gemm(c1, b),
+                "c2": blas.gemm(c2, b)}
+        no_faults(s0.stats, "runtime (b) policy cpu")
+    cfg = OffloadConfig(policy="dfu", threshold=500.0, sync=True,
+                        faults="kernel:nth=1", retries=0, breaker=3,
+                        breaker_cooldown_ms=WALK_COOLDOWN_MS)
+    calls = [("ab", a), ("ab", a), ("ab", a), ("c1", c1), ("c2", c2),
+             ("ab", a)]
+    steps = []
+    reset_counts()
+    with repro_torch.session(cfg, device=dev, intercept=False) as s:
+        st, rt = s.stats, s.runtime
+        for i, (name, x) in enumerate(calls):
+            if i == 3:
+                s.reconfigure(faults="transfer:p=1")
+            out = blas.gemm(x, b)
+            if not torch.equal(out, want[name]):
+                raise AssertionError(f"runtime (b) walk call {i + 1}: not "
+                                     f"bit for bit policy=cpu's")
+            steps.append((st.faults, st.fallbacks, st.quarantines,
+                          rt.placements.resident_bytes,
+                          rt.health.device(0).state))
+        s.reconfigure(faults="")
+        time.sleep(1.25 * WALK_COOLDOWN_MS / 1e3)
+        moved0 = st.per_routine["dgemm"].bytes_in
+        before = counts()
+        probe = blas.gemm(a, b)
+        got = {k: counts()[k] - before[k] for k in before}
+        moved = st.per_routine["dgemm"].bytes_in - moved0
+        final = (st.faults, st.fallbacks, st.quarantines, st.recoveries,
+                 rt.health.device(0).state)
+        refetches = s.trace.event_count("refetch")
+    for name, k in counts().items():
+        launched[name] = launched.get(name, 0) + k
+    nbytes = n * n * 8
+    want_steps = [(1, 1, 0, 2 * nbytes, "closed"),
+                  (2, 2, 0, 2 * nbytes, "closed"),
+                  (3, 3, 0, 2 * nbytes, "closed"),
+                  (4, 4, 0, 2 * nbytes, "closed"),
+                  (5, 5, 1, 0, "open"), (5, 6, 1, 0, "open")]
+    if steps != want_steps:
+        raise AssertionError(f"runtime (b) walk (faults, fallbacks, "
+                             f"quarantines, resident B, state) {steps} != "
+                             f"{want_steps}")
+    if final != (5, 6, 1, 1, "closed") or moved != 2 * nbytes:
+        raise AssertionError(f"runtime (b) probe: (faults, fallbacks, "
+                             f"quarantines, recoveries, state) {final}, "
+                             f"moved {moved} B (want 2 x {nbytes})")
+    expect_launches("runtime (b) probe", got, {"gemm": 1})
+    if not torch.equal(probe, want["ab"]):
+        raise AssertionError("runtime (b) probe result is not bit for bit "
+                             "policy=cpu's")
+    log("runtime", f"(b) breaker walk, f64 {n}^2, retries 0, breaker 3: "
+                   f"(faults, fallbacks, quarantines, resident B, state) "
+                   f"after each call {steps} (calls 1-3 under "
+                   f"kernel:nth=1, 4-5 under transfer:p=1 on fresh "
+                   f"operands, 6 degraded); each result bit for bit "
+                   f"policy=cpu's; after {WALK_COOLDOWN_MS:g} ms the probe "
+                   f"offloaded ({got['gemm']} gemm.cu launch), re-moved "
+                   f"{moved} B ({refetches} refetch events) and recovered: "
+                   f"{final}")
+
+
+def runtime_real_oom(dev) -> None:
+    """(b) 3: a real OOM.  The card is held to its reservation plus
+    512 MB.  A dfu session with breaker=1 places a host-born float64
+    6912^2 operand ``x`` (382.2 MB) by first touch, so the next host-born
+    operand ``a`` of that size cannot be placed: one DeviceOOMError, no
+    retry, and the breaker trips at once.  Its quarantine invalidates
+    ``x``'s placement, which must free its HBM: the fallback's host path
+    streams ``a`` to the card into that room, and its result is bit for
+    bit policy=cpu's under the same limit.  (The host path streams too,
+    so a placement that fails for lack of room only gets through once
+    room is freed: without the quarantine the fallback's own
+    torch.cuda.OutOfMemoryError would propagate.)"""
+    import numpy as np
+    import torch
+    import repro_torch
+    from repro_torch import OffloadConfig
+    from repro_torch.core import blas, host_array
+    n = RUNTIME_N
+    rng = np.random.default_rng(17)
+    x, a = (host_array(rng.standard_normal((n, n)), torch.float64)
+            for _ in range(2))
+    b = torch.randn(n, 64, dtype=torch.float64, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(17))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    limit = torch.cuda.memory_reserved(dev) + OOM_ROOM
+    torch.cuda.set_per_process_memory_fraction(limit / total, dev)
+    try:
+        with repro_torch.session(OffloadConfig(policy="cpu"), device=dev,
+                                 intercept=False):
+            want = blas.gemm(a, b)
+        with repro_torch.session(OffloadConfig(policy="dfu",
+                                               threshold=500.0,
+                                               breaker=1),
+                                 device=dev, intercept=False) as s:
+            first = blas.gemm(x, b)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated(dev)
+            got = blas.gemm(a, b)
+            torch.cuda.synchronize()
+            after = torch.cuda.memory_allocated(dev)
+            st = s.stats
+            events = [(e.kind, e.store) for e in s.trace.events
+                      if e.kind in ("fault", "retry", "quarantine",
+                                    "fallback")]
+        del first
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        torch.cuda.empty_cache()
+    have = (st.faults, st.retries, st.quarantines, st.fallbacks)
+    want_events = [("fault", "oom@dev0"), ("quarantine", "dev0"),
+                   ("fallback", "oom@dev0")]
+    if have != (1, 0, 1, 1) or events != want_events:
+        raise AssertionError(f"runtime (b) real OOM: (faults, retries, "
+                             f"quarantines, fallbacks) {have}, events "
+                             f"{events}")
+    # x's placement (382.2 MB) is freed; the result (3.5 MB) is held
+    freed = held - after
+    if not freed >= x.nbytes - got.nbytes:
+        raise AssertionError(f"runtime (b) real OOM: the quarantine freed "
+                             f"{freed} B of device memory, not x's "
+                             f"{x.nbytes} B")
+    if got.device.type != "cuda" or not torch.equal(got, want):
+        raise AssertionError("runtime (b) real OOM: the fallback is not "
+                             "bit for bit policy=cpu's result on the card")
+    _, rel = rel_err(got, a.to(dev) @ b)
+    if not rel <= TOL["float64"]:
+        raise AssertionError(f"runtime (b) real OOM result rel err {rel}")
+    log("runtime", f"(b) real OOM: card limit {limit / 1e9:.2f} GB of "
+                   f"{total / 1e9:.1f} GB; x ({x.nbytes} B) placed, then "
+                   f"DeviceOOMError on placing a, 0 retries, breaker=1 "
+                   f"quarantine freed {freed} B, 1 fallback streamed a on "
+                   f"the card, bit for bit policy=cpu's (rel err vs torch "
+                   f"{rel:.3e}); events {events}")
+
+
+def runtime_tenancy(dev, launched: dict) -> None:
+    """(c): 3 threads, each a named session on one 2 GiB pool, each 12
+    float64 4096^2 gemms over 4 host-born operand pairs of its own.  The
+    tenants arrive in turn (each once the one before has placed its
+    operands), so a later tenant's placements must evict an earlier
+    tenant's residents; the pool's ledger is sampled between calls."""
+    import threading
+    import numpy as np
+    import torch
+    import repro_torch
+    from repro_torch import OffloadConfig
+    from repro_torch.core import blas, host_array
+    from repro_torch.core.residency import SharedDevicePool
+    n = WALK_N
+    cfg = OffloadConfig(policy="dfu", threshold=500.0)
+    ops = []
+    for i in range(TENANTS):
+        rng = np.random.default_rng(100 + i)
+        ops.append([tuple(host_array(rng.standard_normal((n, n)),
+                                     torch.float64) for _ in range(2))
+                    for _ in range(TENANT_PAIRS)])
+    pool = SharedDevicePool(POOL_BYTES, name="tenancy")
+    sessions = [repro_torch.session(cfg, device=dev, intercept=False,
+                                    record_trace=False, name=f"tenant-{i}",
+                                    pool=pool) for i in range(TENANTS)]
+    owners, samples, outs = {}, [], {}
+    cross = [0]
+    lock = threading.Lock()
+    for i, s in enumerate(sessions):
+        store = s.runtime.placements
+        hook = store.on_evict
+
+        def on_evict(*args, i=i, hook=hook):
+            if threading.current_thread() is not owners.get(i):
+                with lock:
+                    cross[0] += 1
+            hook(*args)
+        store.on_evict = on_evict
+
+    def sample():
+        # between calls: under every tenant's runtime lock no call is in
+        # flight, so the ledger is settled
+        locks = [s.runtime._lock for s in sessions]
+        for lk in locks:
+            lk.acquire()
+        try:
+            resident = sum(st.resident_bytes for s in sessions
+                           for st in (s.runtime.placements,
+                                      *s.runtime.block_stores))
+            samples.append((pool.usage(), resident))
+        finally:
+            for lk in reversed(locks):
+                lk.release()
+
+    errors = []
+    # tenants arrive in turn: each starts once the one before it has run
+    # its first TENANT_PAIRS calls, then all run at once
+    arrived = [threading.Event() for _ in range(TENANTS)]
+
+    def worker(i):
+        try:
+            owners[i] = threading.current_thread()
+            if i and not arrived[i - 1].wait(300):
+                raise AssertionError(f"tenant-{i - 1} never arrived")
+            mine = []
+            with sessions[i].scope():
+                for k in range(TENANT_CALLS):
+                    mine.append(blas.gemm(*ops[i][k % TENANT_PAIRS]))
+                    sample()
+                    if k + 1 == TENANT_PAIRS:
+                        arrived[i].set()
+                sessions[i].sync()
+            outs[i] = mine
+        except BaseException as exc:   # noqa: BLE001 - re-raised below
+            for ev in arrived:
+                ev.set()
+            errors.append(exc)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    reset_counts()
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(TENANTS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    got = counts()
+    for name, k in got.items():
+        launched[name] = launched.get(name, 0) + k
+    held = sum(o.nbytes for mine in outs.values() for o in mine)
+    growth = torch.cuda.memory_allocated(dev) - base - held
+    usage, rows = pool.usage(), pool.tenant_stats()
+    resident = sum(st.resident_bytes for s in sessions
+                   for st in (s.runtime.placements,
+                              *s.runtime.block_stores))
+    offloaded = sum(s.stats.per_routine["dgemm"].offloaded
+                    for s in sessions)
+    for s in sessions:
+        no_faults(s.stats, f"runtime (c) {s.name}")
+    report = pool.report()
+    for s in sessions:
+        s.close()
+    bad = [x for x in samples if x[0] != x[1] or x[0] > POOL_BYTES]
+    if bad or usage != resident or usage > POOL_BYTES:
+        raise AssertionError(f"runtime (c) ledger vs resident bytes: "
+                             f"{len(bad)} bad samples {bad[:3]}, end "
+                             f"{usage} vs {resident} (pool {POOL_BYTES})")
+    if cross[0] == 0:
+        raise AssertionError("runtime (c): no cross-tenant eviction")
+    expect_launches("runtime (c)", got, {"gemm": offloaded})
+    if offloaded != TENANTS * TENANT_CALLS:
+        raise AssertionError(f"runtime (c) offloaded {offloaded}")
+    if growth > POOL_BYTES:
+        raise AssertionError(f"runtime (c) allocator growth {growth} B "
+                             f"beyond the outputs held exceeds the pool's "
+                             f"{POOL_BYTES} B: evicted placements were not "
+                             f"freed")
+    t1 = time.perf_counter()
+    for i in range(TENANTS):
+        with repro_torch.session(cfg, device=dev, intercept=False,
+                                 record_trace=False):
+            for k in range(TENANT_CALLS):
+                if not torch.equal(blas.gemm(*ops[i][k % TENANT_PAIRS]),
+                                   outs[i][k]):
+                    raise AssertionError(f"runtime (c) tenant-{i} call "
+                                         f"{k}: not bit for bit its "
+                                         f"single-threaded run")
+    torch.cuda.synchronize()
+    serial = time.perf_counter() - t1
+    evictions = sum(r["evictions"] for r in rows.values())
+    log("runtime", f"(c) {TENANTS} threads x {TENANT_CALLS} f64 {n}^2 "
+                   f"gemms on a {POOL_BYTES} B pool: ledger == resident "
+                   f"bytes <= pool at all {len(samples)} samples (max "
+                   f"{max(u for u, _ in samples)} B); evictions "
+                   f"{evictions} ({cross[0]} cross-tenant); gemm launches "
+                   f"{got['gemm']} == offloaded calls; allocator growth "
+                   f"less the {held} B of outputs held: {growth} B; "
+                   f"threads {wall:.3f} s against {serial:.3f} s "
+                   f"serialized (with the bit-for-bit checks); results bit "
+                   f"for bit each tenant's single-threaded run")
+    for line in report.splitlines():
+        log("runtime", f"(c) {line}")
+
+
+def phase_runtime(dev) -> dict:
+    """The runtime phase: a real OOM (part of (b)) first, then (a) the
+    tile scheduler at LSMS's width over 4 tiers of the card, with
+    PARSEC's split3 and syrk on the pallas venue, against one tier and
+    replayed; (b) the (a) sequence under injection and the breaker walk;
+    (c) tenancy: 3 threads on one shared pool.  Returns the launches of
+    every run in it."""
+    import numpy as np
+    import torch
+    from repro_torch.core import host_array
+    n = RUNTIME_N
+    launched: dict = {}
+    # the real OOM first, while the allocator caches little: a free
+    # remainder of a cached block could otherwise take the operand
+    runtime_real_oom(dev)
+    rng = np.random.default_rng(11)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    ops = {
+        "A": host_array(rng.standard_normal((n, n))
+                        + 1j * rng.standard_normal((n, n)),
+                        torch.complex128),
+        "B": torch.randn(n, n, dtype=torch.complex128, device=dev,
+                         generator=gen),
+        "L": host_array(np.tril(rng.standard_normal((n, n)) / n)
+                        + 2.0 * np.eye(n), torch.float64),
+        "R": host_array(rng.standard_normal((n, RUNTIME_RHS)),
+                        torch.float64),
+        "psi": torch.randn(PARSEC_K, PARSEC_N, dtype=torch.float64,
+                           device=dev, generator=gen),
+        "hpsi": torch.randn(PARSEC_K, PARSEC_BLK, dtype=torch.float64,
+                            device=dev, generator=gen),
+    }
+    clean = runtime_tiles(dev, ops, launched)
+    runtime_faults_sequence(dev, ops, clean, launched)
+    del clean, ops
+    runtime_breaker_walk(dev, launched)
+    runtime_tenancy(dev, launched)
+    torch.cuda.empty_cache()
+    return launched
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this "
@@ -1976,17 +2685,21 @@ def main() -> int:
                                            threshold=500.0)) as s:
         blas_launches = phase_blas(s, dev)
         lsms_launches, lsms_energy = phase_lsms(s, dev)
+        no_faults(s.stats, "blas + lsms session")
     solver_launches = phase_solvers(dev, lsms_energy)
     venue_launches = phase_venue(dev)
+    runtime_launches = phase_runtime(dev)
     serve_launches = phase_serve(dev)
     for name, row in rows.items():
         row["launches"] = (blas_launches[name] + lsms_launches[name]
                            + solver_launches[name] + venue_launches[name]
+                           + runtime_launches.get(name, 0)
                            + serve_launches[name])
         log("done", f"{name} launches: blas {blas_launches[name]}, lsms "
                     f"{lsms_launches[name]}, solvers "
                     f"{solver_launches[name]}, venue {venue_launches[name]}, "
-                    f"serve {serve_launches[name]}")
+                    f"runtime {runtime_launches.get(name, 0)}, serve "
+                    f"{serve_launches[name]}")
         if row["launches"] == 0:
             raise AssertionError(f"{name} kernel never launched on the "
                                  f"main path")

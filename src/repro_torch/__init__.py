@@ -13,7 +13,9 @@ surface is the session API:
 A session runs on the card (``cuda:0``) unless ``device="cpu"`` asks for
 the simulated-tier mode on the CPU; without CUDA it raises.  The legacy
 ``install()``/``uninstall()``/``offload()`` surface is a shim over an
-implicit session.  The dense LM
+implicit session.  Concurrent sessions may share one device budget
+(``SharedDevicePool``); ``faults`` is the fault model behind the
+runtime's retry, host fallback and circuit breaker.  The dense LM
 stack and its serving loop (``repro_torch.models``,
 ``repro_torch.train.Server``) follow the same rule.  Attributes resolve
 lazily, so ``import repro_torch`` imports nothing heavy and
@@ -22,8 +24,9 @@ builds no kernel.
 from typing import TYPE_CHECKING
 
 __all__ = ["OffloadConfig", "Session", "session", "active_session",
-           "install", "uninstall", "offload", "core", "models", "train",
-           "solvers", "memtier", "tools"]
+           "install", "uninstall", "offload", "SharedDevicePool",
+           "default_pool", "faults", "core", "models", "train", "solvers",
+           "memtier", "tools"]
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from repro_torch.core.config import OffloadConfig
@@ -32,6 +35,7 @@ if TYPE_CHECKING:  # pragma: no cover - typing only
 _CONFIG_NAMES = ("OffloadConfig",)
 _SESSION_NAMES = ("Session", "session", "active_session")
 _LEGACY_NAMES = ("install", "uninstall", "offload")
+_POOL_NAMES = ("SharedDevicePool", "default_pool")
 
 
 def __getattr__(name: str):
@@ -45,6 +49,11 @@ def __getattr__(name: str):
     if name in _LEGACY_NAMES:
         return getattr(importlib.import_module("repro_torch.core.intercept"),
                        name)
+    if name in _POOL_NAMES:
+        return getattr(importlib.import_module("repro_torch.core.residency"),
+                       name)
+    if name == "faults":
+        return importlib.import_module("repro_torch.core.faults")
     if name in ("core", "models", "train", "solvers", "memtier", "tools"):
         return importlib.import_module(f"repro_torch.{name}")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -17,22 +17,28 @@ The port's counterpart of ``repro/core``.  Public surface:
   ``torch.device`` (simulated tiers on the CPU).
 * :mod:`repro_torch.core.callsite` — per-call-site fingerprints.
 * :mod:`repro_torch.core.residency` — the byte-capped, evicting,
-  pinnable block store behind the placement registry.
+  pinnable block store behind the placement registry, and the
+  :class:`SharedDevicePool` concurrent sessions share.
+* :mod:`repro_torch.core.faults` — the fault model: typed errors,
+  injection, retry/backoff, the per-tier circuit breaker.
 * :mod:`repro_torch.core.config` — :class:`OffloadConfig`, the same
   fields and ``SCILIB_*`` names as the reference.
 * :mod:`repro_torch.core.session` — :class:`Session`.
 * :mod:`repro_torch.core.trace` — the BLAS trace, in the reference schema.
 """
-from repro_torch.core import blas, callsite, lapack, memspace, residency
+from repro_torch.core import (blas, callsite, faults, lapack, memspace,
+                              residency)
 from repro_torch.core.config import OffloadConfig
 from repro_torch.core.intercept import install, offload, uninstall
 from repro_torch.core.policy import host_array
-from repro_torch.core.residency import ResidencyStore
+from repro_torch.core.residency import (ResidencyStore, SharedDevicePool,
+                                        default_pool)
 from repro_torch.core.runtime import OffloadRuntime, active, pin, unpin
 from repro_torch.core.session import Session, active_session
 from repro_torch.core.trace import BlasCall, Trace
 
-__all__ = ["blas", "callsite", "lapack", "memspace", "residency",
+__all__ = ["blas", "callsite", "faults", "lapack", "memspace", "residency",
            "install", "offload", "uninstall", "OffloadRuntime",
            "active", "BlasCall", "Trace", "host_array", "ResidencyStore",
-           "pin", "unpin", "OffloadConfig", "Session", "active_session"]
+           "SharedDevicePool", "default_pool", "pin", "unpin",
+           "OffloadConfig", "Session", "active_session"]

@@ -1,6 +1,6 @@
 """Level-3 BLAS surface in PyTorch (paper §3: "all level-3 BLAS routines").
 
-The port's counterpart of ``repro/core/blas.py`` (single device).  This is
+The port's counterpart of ``repro/core/blas.py``.  This is
 the dlsym-mode API: applications (or the interceptor) call these
 functions directly; each routes through the active ``OffloadRuntime`` for
 the offload decision, data placement and statistics, then computes
@@ -20,20 +20,37 @@ matrix-vector product uses the un-intercepted ``torch.matmul``
 interceptor.  With ``kernel_path`` on, gemm/syrk/trsm also offer the
 runtime the ``pallas``-venue closures over ``kernels.ops.kernel_*`` (the
 syrk kernel computes one triangle), and with a ``precision`` scheme the
-split-precision closures over ``core/precision.py``.  The reference's
-multi-device tile builders are not ported yet.
+split-precision closures over ``core/precision.py``.
+
+With more than one device tier (``OffloadConfig.devices``) each routine
+also hands the runtime a tile builder (``_shard_*``, the reference's
+BLASX-style decomposition): gemm tiles its output 2-D, symm/trmm/trsm
+split the rectangular panel along its free dimension (the triangle
+replicates), syrk/herk and syr2k/her2k tile the stored triangle of C.
+The tiles follow the call's venue: on ``pallas`` gemm tiles run
+``kops.kernel_matmul`` (the gemm kernel), syrk tiles the masked full
+product on it (not the syrk kernel, as in the reference), trsm tiles
+``kops.kernel_trsm``, and split tiles the fused split kernel.
+
+Failure semantics: every call returns a correct result or raises.  A
+transfer or kernel failure on the offload path is retried and, on
+exhaustion, the call reruns on the host path with the same operands
+(:mod:`repro_torch.core.faults`).  Bugs, and the port's own build and
+launch errors, propagate to the caller.
 """
 from __future__ import annotations
 
 import functools
+import math
 import operator
 from contextvars import ContextVar
-from typing import Callable, Dict, Hashable, Optional, Tuple
+from typing import Callable, Dict, Hashable, List, Optional, Tuple
 
 import torch
 
 from repro_torch.core import precision as prc
 from repro_torch.core import runtime as rt
+from repro_torch.core.runtime import Tile, TileOp, TilePlan
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref
 
@@ -261,6 +278,34 @@ def _syr2k_kernel(a, b, c, alpha, beta, *, uplo, trans, conj):
     return tri.to(a.dtype)
 
 
+def _syrk_block_kernel(ai, aj, c, alpha, beta, *, trans, conj,
+                       mm=kops.matmul):
+    """Off-diagonal block of a tiled syrk/herk:
+    C[i,j] := alpha op(A)_i op(A)_j^{T|H} + beta C[i,j] (full block)."""
+    opi, opj = _op(ai, trans), _op(aj, trans)
+    out = alpha * mm(opi, opj.mH if conj else opj.mT)
+    if c is not None:
+        out = out + beta * c
+    return out.to(ai.dtype)
+
+
+def _syr2k_block_kernel(ai, bi, aj, bj, c, alpha, beta, *, trans, conj):
+    """Off-diagonal block of a tiled syr2k/her2k — the two-term rank-2k
+    analogue of :func:`_syrk_block_kernel` (her2k conjugate-transposes
+    and uses conj(alpha) on the second term)."""
+    opai, opbi = _op(ai, trans), _op(bi, trans)
+    opaj, opbj = _op(aj, trans), _op(bj, trans)
+    if conj:
+        out = (alpha * kops.matmul(opai, opbj.mH)
+               + alpha.conjugate() * kops.matmul(opbi, opaj.mH))
+    else:
+        out = alpha * (kops.matmul(opai, opbj.mT)
+                       + kops.matmul(opbi, opaj.mT))
+    if c is not None:
+        out = out + beta * c
+    return out.to(ai.dtype)
+
+
 def _trmm_kernel(a, b, alpha, *, side, uplo, trans, diag):
     tri = _op(ref.triangle(a, uplo, diag), trans)
     out = kops.matmul(tri, b) if side == "L" else kops.matmul(b, tri)
@@ -373,18 +418,358 @@ def _kernel_bound(base, dt, bkey, kfactory):
 
 
 # ----------------------------------------------------------------------- #
+# multi-device tile decomposition (BLASX-style 2-D sharding)               #
+#                                                                          #
+# With more than one device tier, super-threshold calls split into tiles   #
+# the scheduler deals round-robin with affinity across the tiers.  The     #
+# decomposition is per routine: gemm tiles the output 2-D; symm/trmm/trsm  #
+# split the rectangular panel along its free dimension (the triangle       #
+# replicates); syrk/herk tile the stored triangle of C by block, diagonal  #
+# blocks through the masked full product, off-diagonal ones through a      #
+# gemm-shaped block product; syr2k/her2k ride the same triangle grid.      #
+# Builders return None when the matrix is too small to split (tile_min),   #
+# which leaves the call on the single-device path.                         #
+# ----------------------------------------------------------------------- #
+def _tile_min() -> int:
+    """Minimum tile edge, from the active runtime's config."""
+    runtime = rt.active()
+    return runtime.config.tile_min if runtime is not None else 64
+
+
+def _kernel_block() -> int:
+    runtime = rt.active()
+    return runtime.kernel_block if runtime is not None else 0
+
+
+def _shard_active(batch: int, *arrays) -> bool:
+    """Tile decomposition applies to plain 2-D calls only: a leading
+    batch axis — even a singleton one — uses the batched kernels, whose
+    axes the 2-D tile coordinates do not address."""
+    runtime = rt.active()
+    if runtime is None or batch != 1 or runtime.n_devices < 2:
+        return False
+    return all(x is None or x.dim() == 2 for x in arrays)
+
+
+def _splits(dim: int, g: int) -> List[Tuple[int, int]]:
+    """g contiguous block ranges covering [0, dim)."""
+    base, rem = divmod(dim, g)
+    edges = [0]
+    for i in range(g):
+        edges.append(edges[-1] + base + (1 if i < rem else 0))
+    return [(edges[i], edges[i + 1]) for i in range(g)]
+
+
+def _grid2d(n_dev: int, m: int, n: int) -> Optional[Tuple[int, int]]:
+    """Near-square tile grid with >= n_dev tiles, clamped so no tile edge
+    drops under the minimum; None when the call is too small to shard."""
+    min_tile = _tile_min()
+    gm = max(1, math.isqrt(n_dev))
+    gn = -(-n_dev // gm)
+    if n < m:                       # split the longer dimension more finely
+        gm, gn = gn, gm
+    gm = min(gm, max(1, m // min_tile))
+    gn = min(gn, max(1, n // min_tile))
+    if gm * gn < 2:
+        return None
+    return gm, gn
+
+
+def _grid1d(n_dev: int, dim: int) -> Optional[int]:
+    g = min(n_dev, max(1, dim // _tile_min()))
+    return g if g >= 2 else None
+
+
+def _assemble(blocks: List[List[torch.Tensor]]) -> torch.Tensor:
+    rows = [row[0] if len(row) == 1 else torch.cat(row, dim=-1)
+            for row in blocks]
+    return rows[0] if len(rows) == 1 else torch.cat(rows, dim=-2)
+
+
+def _full_coords(x: torch.Tensor) -> Tuple[int, int, int, int]:
+    return (0, x.shape[-2], 0, x.shape[-1])
+
+
+def _rowblock_coords(x: torch.Tensor, trans: str,
+                     r0: int, r1: int) -> Tuple[int, int, int, int]:
+    """Coords on the parent for row block [r0:r1) of op(x)."""
+    if trans == "N":
+        return (r0, r1, 0, x.shape[-1])
+    return (0, x.shape[-2], r0, r1)
+
+
+def _colblock_coords(x: torch.Tensor, trans: str,
+                     c0: int, c1: int) -> Tuple[int, int, int, int]:
+    """Coords on the parent for column block [c0:c1) of op(x)."""
+    if trans == "N":
+        return (0, x.shape[-2], c0, c1)
+    return (c0, c1, 0, x.shape[-1])
+
+
+def _tile_mm(venue: str, precision: str):
+    """The product a tile closure runs: a scheme's split product, the
+    gemm kernel's entry on the pallas venue, else ``kops.matmul``."""
+    if precision:
+        return _split_matmul(precision, venue)
+    if venue == "pallas":
+        return functools.partial(kops.kernel_matmul, block=_kernel_block())
+    return kops.matmul
+
+
+def _shard_gemm(a, b, c, alpha, beta, trans_a, trans_b,
+                n_dev, venue="xla", precision="") -> Optional[TilePlan]:
+    m = a.shape[-2] if trans_a == "N" else a.shape[-1]
+    n = b.shape[-1] if trans_b == "N" else b.shape[-2]
+    g = _grid2d(n_dev, m, n)
+    if g is None:
+        return None
+    gm, gn = g
+    rows, cols = _splits(m, gm), _splits(n, gn)
+    dt = a.dtype
+    has_c = c is not None
+    alpha_, beta_ = _scalar(alpha, dt), _scalar(beta, dt)
+    kw = dict(trans_a=trans_a, trans_b=trans_b,
+              mm=_tile_mm(venue, precision))
+    if has_c:
+        def tile_fn(a_, b_, c_):
+            return _gemm_kernel(a_, b_, c_, alpha_, beta_, **kw)
+    else:
+        def tile_fn(a_, b_):
+            return _gemm_kernel(a_, b_, None, alpha_, beta_, **kw)
+    tiles = []
+    for (r0, r1) in rows:
+        for (q0, q1) in cols:
+            ops = [TileOp("A", a, _rowblock_coords(a, trans_a, r0, r1),
+                          shared=(gm == 1)),
+                   TileOp("B", b, _colblock_coords(b, trans_b, q0, q1),
+                          shared=(gn == 1))]
+            if has_c:
+                ops.append(TileOp("C", c, (r0, r1, q0, q1), written=True))
+            tiles.append(Tile(tuple(ops), tile_fn, (r0, r1, q0, q1)))
+
+    def gather(outs):
+        it = iter(outs)
+        return _assemble([[next(it) for _ in cols] for _ in rows])
+
+    return TilePlan((gm, gn), tuple(tiles), gather)
+
+
+def _shard_symm(a, b, c, alpha, beta, side, uplo, conj,
+                n_dev) -> Optional[TilePlan]:
+    m, n = b.shape[-2], b.shape[-1]
+    dim = n if side == "L" else m
+    g = _grid1d(n_dev, dim)
+    if g is None:
+        return None
+    panels = _splits(dim, g)
+    dt = b.dtype
+    alpha_, beta_ = _scalar(alpha, dt), _scalar(beta, dt)
+    kw = dict(side=side, uplo=uplo, conj=conj)
+    if c is not None:
+        def tile_fn(a_, b_, c_):
+            return _symm_kernel(a_, b_, c_, alpha_, beta_, **kw)
+    else:
+        def tile_fn(a_, b_):
+            return _symm_kernel(a_, b_, None, alpha_, beta_, **kw)
+    tiles = []
+    for (p0, p1) in panels:
+        coords = (0, m, p0, p1) if side == "L" else (p0, p1, 0, n)
+        ops = [TileOp("A", a, _full_coords(a), shared=True),
+               TileOp("B", b, coords)]
+        if c is not None:
+            ops.append(TileOp("C", c, coords, written=True))
+        tiles.append(Tile(tuple(ops), tile_fn, coords))
+
+    def gather(outs):
+        return torch.cat(outs, dim=-1 if side == "L" else -2)
+
+    return TilePlan((1, g) if side == "L" else (g, 1), tuple(tiles), gather)
+
+
+def _tri_blocks(n_dev: int, n: int) -> Optional[List[Tuple[int, int]]]:
+    """Block ranges of the stored-triangle grid: the smallest g whose
+    g(g+1)/2 stored blocks cover the tiers, clamped by the minimum tile
+    edge; None when the call is too small to shard."""
+    g = 2
+    while g * (g + 1) // 2 < n_dev:
+        g += 1
+    g = min(g, max(1, n // _tile_min()))
+    return _splits(n, g) if g >= 2 else None
+
+
+def _tri_plan(blocks, uplo, c, dt, block_ops, diag_fn, off_fn) -> TilePlan:
+    """The stored-triangle tiles of a syrk-like call, and the gather that
+    fills the unreferenced triangle with C verbatim (or zeros)."""
+    g = len(blocks)
+    tiles, stored = [], {}
+    for i in range(g):
+        for j in range(g):
+            if not (i >= j if uplo == "L" else i <= j):
+                continue
+            (r0, r1), (q0, q1) = blocks[i], blocks[j]
+            coords = (r0, r1, q0, q1)
+            ops = block_ops(i, j)
+            if c is not None:
+                ops.append(TileOp("C", c, coords, written=True))
+            stored[(i, j)] = len(tiles)
+            tiles.append(Tile(tuple(ops), diag_fn if i == j else off_fn,
+                              coords))
+
+    def gather(outs):
+        home = outs[0].device
+        grid = []
+        for i in range(g):
+            row = []
+            for j in range(g):
+                idx = stored.get((i, j))
+                if idx is not None:
+                    row.append(outs[idx])
+                    continue
+                (r0, r1), (q0, q1) = blocks[i], blocks[j]
+                if c is not None:      # untouched triangle keeps C verbatim
+                    row.append(c[r0:r1, q0:q1].to(device=home, dtype=dt))
+                else:
+                    row.append(torch.zeros((r1 - r0, q1 - q0), dtype=dt,
+                                           device=home))
+            grid.append(row)
+        return _assemble(grid)
+
+    return TilePlan((g, g), tuple(tiles), gather)
+
+
+def _shard_syrk(a, c, alpha, beta, uplo, trans, conj,
+                n_dev, venue="xla", precision="") -> Optional[TilePlan]:
+    n = a.shape[-2] if trans == "N" else a.shape[-1]
+    blocks = _tri_blocks(n_dev, n)
+    if blocks is None:
+        return None
+    dt = a.dtype
+    alpha_, beta_ = _scalar(alpha, dt), _scalar(beta, dt)
+    mm = _tile_mm(venue, precision)
+    dkw = dict(uplo=uplo, trans=trans, conj=conj, mm=mm)
+    okw = dict(trans=trans, conj=conj, mm=mm)
+    if c is not None:
+        def diag_fn(a_, c_):
+            return _syrk_kernel(a_, c_, alpha_, beta_, **dkw)
+
+        def off_fn(ai, aj, cij):
+            return _syrk_block_kernel(ai, aj, cij, alpha_, beta_, **okw)
+    else:
+        def diag_fn(a_):
+            return _syrk_kernel(a_, None, alpha_, beta_, **dkw)
+
+        def off_fn(ai, aj):
+            return _syrk_block_kernel(ai, aj, None, alpha_, beta_, **okw)
+
+    def block_ops(i, j):
+        ops = [TileOp("A", a, _rowblock_coords(a, trans, *blocks[i]))]
+        if i != j:
+            ops.append(TileOp("A", a,
+                              _rowblock_coords(a, trans, *blocks[j])))
+        return ops
+
+    return _tri_plan(blocks, uplo, c, dt, block_ops, diag_fn, off_fn)
+
+
+def _shard_syr2k(a, b, c, alpha, beta, uplo, trans, conj,
+                 n_dev) -> Optional[TilePlan]:
+    """syr2k/her2k on the syrk triangle grid: diagonal blocks run the
+    full rank-2k closure on the matching op-row blocks of A and B,
+    off-diagonal blocks the two-term block product."""
+    n = a.shape[-2] if trans == "N" else a.shape[-1]
+    blocks = _tri_blocks(n_dev, n)
+    if blocks is None:
+        return None
+    dt = a.dtype
+    alpha_, beta_ = _scalar(alpha, dt), _scalar(beta, dt)
+    dkw = dict(uplo=uplo, trans=trans, conj=conj)
+    okw = dict(trans=trans, conj=conj)
+    if c is not None:
+        def diag_fn(a_, b_, c_):
+            return _syr2k_kernel(a_, b_, c_, alpha_, beta_, **dkw)
+
+        def off_fn(ai, bi, aj, bj, cij):
+            return _syr2k_block_kernel(ai, bi, aj, bj, cij, alpha_, beta_,
+                                       **okw)
+    else:
+        def diag_fn(a_, b_):
+            return _syr2k_kernel(a_, b_, None, alpha_, beta_, **dkw)
+
+        def off_fn(ai, bi, aj, bj):
+            return _syr2k_block_kernel(ai, bi, aj, bj, None, alpha_,
+                                       beta_, **okw)
+
+    def block_ops(i, j):
+        ops = [TileOp("A", a, _rowblock_coords(a, trans, *blocks[i])),
+               TileOp("B", b, _rowblock_coords(b, trans, *blocks[i]))]
+        if i != j:
+            ops += [TileOp("A", a, _rowblock_coords(a, trans, *blocks[j])),
+                    TileOp("B", b, _rowblock_coords(b, trans, *blocks[j]))]
+        return ops
+
+    return _tri_plan(blocks, uplo, c, dt, block_ops, diag_fn, off_fn)
+
+
+def _shard_tri(a, b, side, uplo, trans, diag, alpha, kernel,
+               n_dev, venue="xla", precision="") -> Optional[TilePlan]:
+    """trmm/trsm: the RHS panel splits along its free dimension; each
+    panel solve/multiply is independent, the triangle replicates."""
+    m, n = b.shape[-2], b.shape[-1]
+    dim = n if side == "L" else m
+    g = _grid1d(n_dev, dim)
+    if g is None:
+        return None
+    panels = _splits(dim, g)
+    alpha_ = _scalar(alpha, b.dtype)
+    flags = dict(side=side, uplo=uplo, trans=trans, diag=diag)
+    if precision and kernel is _trsm_kernel:
+        # split trsm panels: the same geometry, refined fp32 solves
+        def tile_fn(a_, b_):
+            return _split_trsm_kernel(a_, b_, alpha_, **flags,
+                                      scheme=precision, venue=venue)
+    elif venue == "pallas" and kernel is _trsm_kernel and alpha_ == 1:
+        # the venue's lean solve (only trsm reaches the pallas venue)
+        def tile_fn(a_, b_):
+            return _trsm_klean(a_, b_, **flags)
+    else:
+        def tile_fn(a_, b_):
+            return kernel(a_, b_, alpha_, **flags)
+    tiles = []
+    for (p0, p1) in panels:
+        coords = (0, m, p0, p1) if side == "L" else (p0, p1, 0, n)
+        tiles.append(Tile((TileOp("A", a, _full_coords(a), shared=True),
+                           TileOp("B", b, coords, written=True)),
+                          tile_fn, coords))
+
+    def gather(outs):
+        return torch.cat(outs, dim=-1 if side == "L" else -2)
+
+    return TilePlan((1, g) if side == "L" else (g, 1), tuple(tiles), gather)
+
+
+def _shard(builder, batch: int, arrays, *args):
+    """A call's tile builder bound to its operands, or None when the call
+    cannot shard (one tier, a batched call)."""
+    if not _shard_active(batch, *arrays):
+        return None
+    return functools.partial(builder, *args)
+
+
+# ----------------------------------------------------------------------- #
 # public routines                                                          #
 # ----------------------------------------------------------------------- #
 def _dispatch(routine, m, n, k, operands, compute, batch=1, key=None,
-              kernel_compute=None, split_compute=None, split_check=None):
+              shard=None, kernel_compute=None, split_compute=None,
+              split_check=None):
     runtime = rt.active()
     if runtime is None:
         return compute(*[x for _, x, _, _ in operands])
     return runtime.blas_call(routine, m, n, k, operands, compute,
-                             batch=batch, key=key,
+                             batch=batch, key=key, shard=shard,
                              kernel_compute=kernel_compute,
                              split_compute=split_compute,
                              split_check=split_check)
+
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None,
@@ -436,9 +821,11 @@ def gemm(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor] = None,
     ops = [("A", a, float(opn), False), ("B", b, float(opm), False)]
     if has_c:
         ops.append(("C", c, 1.0, True))
+    shard = _shard(_shard_gemm, batch, (a, b, c), a, b, c, alpha, beta,
+                   trans_a, trans_b)
     return _dispatch(routine_name("gemm", dt), opm, opn, opk, ops, compute,
                      batch, key=_call_key(bkey, opm, opn, opk, batch),
-                     kernel_compute=kernel_compute,
+                     shard=shard, kernel_compute=kernel_compute,
                      split_compute=split_compute, split_check=split_check)
 
 
@@ -507,9 +894,12 @@ def _symm_like(a, b, c, *, side, uplo, alpha, beta, conj, base):
            ("B", b, float(a.shape[-1]), False)]
     if has_c:
         ops.append(("C", c, 1.0, True))
+    shard = _shard(_shard_symm, batch, (a, b, c), a, b, c, alpha, beta,
+                   side, uplo, conj)
     return _dispatch(routine_name(base, dt), a.shape[-1], n, 0, ops,
                      _bound(bkey, factory), batch,
-                     key=_call_key(bkey, a.shape[-1], n, 0, batch))
+                     key=_call_key(bkey, a.shape[-1], n, 0, batch),
+                     shard=shard)
 
 
 def syrk(a, c=None, *, uplo="L", trans="N", alpha=1.0, beta=0.0):
@@ -564,8 +954,10 @@ def _syrk_like(a, c, *, uplo, trans, alpha, beta, conj, base):
     ops = [("A", a, float(n), False)]
     if has_c:
         ops.append(("C", c, 1.0, True))
+    shard = _shard(_shard_syrk, batch, (a, c), a, c, alpha, beta, uplo,
+                   trans, conj)
     return _dispatch(routine_name(base, dt), n, n, k, ops, compute, batch,
-                     key=_call_key(bkey, n, n, k, batch),
+                     key=_call_key(bkey, n, n, k, batch), shard=shard,
                      kernel_compute=kernel_compute,
                      split_compute=split_compute)
 
@@ -605,9 +997,11 @@ def _syr2k_like(a, b, c, *, uplo, trans, alpha, beta, conj, base):
     ops = [("A", a, float(n), False), ("B", b, float(n), False)]
     if has_c:
         ops.append(("C", c, 1.0, True))
+    shard = _shard(_shard_syr2k, batch, (a, b, c), a, b, c, alpha, beta,
+                   uplo, trans, conj)
     return _dispatch(routine_name(base, dt), n, n, k, ops,
                      _bound(bkey, factory), batch,
-                     key=_call_key(bkey, n, n, k, batch))
+                     key=_call_key(bkey, n, n, k, batch), shard=shard)
 
 
 def trmm(a, b, *, side="L", uplo="L", trans="N", diag="N", alpha=1.0):
@@ -667,7 +1061,9 @@ def _tri_like(a, b, *, side, uplo, trans, diag, alpha, base, kernel):
     opn = n if side == "L" else m
     ops = [("A", a, float(opn), False),
            ("B", b, float(tri_n), True)]
+    shard = _shard(_shard_tri, batch, (a, b), a, b, side, uplo, trans, diag,
+                   alpha, kernel)
     return _dispatch(routine_name(base, dt), tri_n, opn, 0, ops, compute,
                      batch, key=_call_key(bkey, tri_n, opn, 0, batch),
-                     kernel_compute=kernel_compute,
+                     shard=shard, kernel_compute=kernel_compute,
                      split_compute=split_compute, split_check=split_check)

@@ -173,8 +173,9 @@ def _parse_debug(raw: str):
 
 
 def _parse_faults(raw: str):
+    from repro_torch.core.faults import parse_spec
     try:
-        check_fault_spec(raw)
+        parse_spec(raw)
     except ValueError:
         return _INVALID
     return raw
@@ -210,52 +211,6 @@ def _parse_kernel_block(raw: str):
     except ValueError:
         return _INVALID
     return val if val >= 0 else _INVALID
-
-
-#: fault kinds of the ``SCILIB_FAULTS`` grammar (``repro/core/faults.py``)
-_FAULT_KINDS = ("transfer", "kernel", "oom", "latency")
-
-
-def check_fault_spec(spec: str) -> None:
-    """Validate a ``"transfer:p=0.05,device=1,seed=7;kernel:nth=13"``
-    spec exactly as the reference's ``core/faults.py:parse_spec`` does,
-    raising ``ValueError`` on any malformed fragment.  Only the grammar is
-    here: fault injection itself is not ported yet."""
-    for frag in spec.split(";"):
-        frag = frag.strip()
-        if not frag:
-            continue
-        kind, _, params = frag.partition(":")
-        kind = kind.strip().lower()
-        if kind not in _FAULT_KINDS:
-            raise ValueError(f"unknown fault kind {kind!r} in {frag!r}; "
-                             f"choose from {sorted(_FAULT_KINDS)}")
-        names = set()
-        for item in filter(None, (s.strip() for s in params.split(","))):
-            name, sep, raw = item.partition("=")
-            name = name.strip().lower()
-            if not sep:
-                raise ValueError(f"fault param {item!r} is not "
-                                 f"name=value (in {frag!r})")
-            if name not in ("p", "nth", "device", "seed", "ms"):
-                raise ValueError(f"unknown fault param {name!r} in "
-                                 f"{frag!r}; choose from p, nth, device, "
-                                 f"seed, ms")
-            try:
-                val = float(raw) if name in ("p", "ms") else int(raw)
-            except ValueError:
-                val = None
-            ok = val is not None and {
-                "p": lambda v: 0.0 <= v <= 1.0, "nth": lambda v: v >= 1,
-                "device": lambda v: v >= 0, "seed": lambda v: True,
-                "ms": lambda v: v >= 0}[name](val)
-            if not ok:
-                raise ValueError(f"bad value {raw!r} for fault param "
-                                 f"{name!r} in {frag!r}")
-            names.add(name)
-        if "p" not in names and "nth" not in names and kind != "latency":
-            raise ValueError(f"fault rule {frag!r} needs p= or nth= to "
-                             f"ever fire")
 
 
 #: valid SCILIB_PRECISION spellings; "native" normalizes to "" (off) so
@@ -337,12 +292,11 @@ class OffloadConfig:
     ``None`` means "resolve automatically": ``threshold`` falls back to
     the backend-detected default
     (:func:`repro_torch.core.threshold.default_threshold`), ``devices``
-    to ``torch.cuda.device_count()``, ``device_bytes`` to uncapped.
+    to ``torch.cuda.device_count()`` on the card and 1 on the CPU,
+    ``device_bytes`` to uncapped.
 
     Every field of the reference config is here, so one file or one set
-    of ``SCILIB_*`` variables drives both packages.  The fields this
-    slice of the port does not implement yet are refused by the runtime
-    (:func:`repro_torch.core.runtime.check_ported`) when they are set.
+    of ``SCILIB_*`` variables drives both packages.
     """
 
     policy: str = "dfu"                  # placement policy
@@ -418,7 +372,8 @@ class OffloadConfig:
         if self.debug < 0:
             raise ValueError(f"debug must be >= 0 (got {self.debug})")
         if self.faults:
-            check_fault_spec(self.faults)   # ValueError on a bad spec
+            from repro_torch.core.faults import parse_spec
+            parse_spec(self.faults)         # ValueError on a bad spec
         if self.retries < 0:
             raise ValueError(f"retries must be >= 0 (got {self.retries})")
         if self.backoff_ms < 0:
@@ -469,10 +424,15 @@ class OffloadConfig:
         from repro_torch.core import threshold as thr
         return thr.default_threshold()
 
-    def resolved_devices(self) -> int:
-        """The device-tier count this config actually runs at."""
+    def resolved_devices(self, device=None) -> int:
+        """The device-tier count this config actually runs at on
+        ``device`` (a ``torch.device``; None means the card): the
+        explicit value, else one tier per card, and one tier for a
+        session on the CPU."""
         if self.devices is not None:
             return self.devices
+        if device is not None and device.type == "cpu":
+            return 1
         import torch
         return max(1, torch.cuda.device_count())
 

@@ -1,8 +1,8 @@
 """Logical HOST/DEVICE memory tiers over PyTorch devices.
 
-The port's counterpart of ``repro/core/memspace.py`` (single device).  The
-paper's runtime moves buffers between host DRAM and device HBM.  Two
-*logical* tiers name those homes:
+The port's counterpart of ``repro/core/memspace.py``.  The paper's
+runtime moves buffers between host DRAM and device HBM.  Two *logical*
+tiers name those homes:
 
 * :data:`HOST`   — where CPU-first-touched data lives (the malloc side),
 * :data:`DEVICE` — where offloaded BLAS wants its operands (the HBM side).
@@ -26,6 +26,27 @@ placement also records the source's :func:`version_of` (its
 ``_version`` counter, shared with its views): a host tensor written in
 place after it migrated no longer matches its device copy, and the
 policies treat the copy as stale.
+
+The DEVICE tier also carries a **device index** for the multi-device
+tile scheduler (``OffloadConfig.devices``): :func:`put_block` places a
+block onto one device tier and tags it with the index, and
+:func:`device_of` reads the tag back.  With several cards the block is
+copied onto ``cuda:<index>``; with one card (or on the CPU) every tier
+lives in the same memory, so the index is only the tag, and an untagged
+tensor has none — a block of a device-born operand is then still copied
+once per tier, as the reference's simulated layout does
+(``repro/core/memspace.py:330-387``).
+
+**Failure semantics.**  A real movement toward DEVICE is a transfer guard
+site: the active runtime installs its fault injector as this context's
+hook (:func:`set_fault_hook`), which runs before any copy is made, and a
+failed copy (``torch.cuda.OutOfMemoryError`` among others) is raised as
+the typed hierarchy of :mod:`repro_torch.core.faults`, so the runtime's
+retry and fallback guard can absorb it.  ``check=False`` opts a movement
+out of injection (the host path's streaming, ``pin``, the serving
+loop's cache placement).  The hook, the debug level and the installed
+mapping are context-local: one thread's injector never fires in another
+thread's transfers.
 """
 from __future__ import annotations
 
@@ -34,13 +55,47 @@ import dataclasses
 import threading
 import weakref
 from contextvars import ContextVar
-from typing import Dict, Hashable, Iterator, Optional, Tuple
+from typing import Callable, Dict, Hashable, Iterator, Optional, Tuple
 
 import torch
+
+from repro_torch.core import faults as flt
 
 #: logical tier names (stable across devices)
 HOST = "host"
 DEVICE = "device"
+
+#: (device_index_or_None, nbytes) -> None; raises to inject a fault
+_FAULT_HOOK: ContextVar[Optional[Callable[[Optional[int], int], None]]] = (
+    ContextVar("scilib_torch_fault_hook", default=None))
+
+#: the owning config's ``debug`` level (plumbed in by the runtime)
+_DEBUG: ContextVar[int] = ContextVar("scilib_torch_debug", default=0)
+
+#: exception types a data movement may legitimately raise
+#: (``torch.cuda.OutOfMemoryError`` is a RuntimeError); anything else is
+#: a bug and propagates as it is
+_MOVE_ERRORS = (RuntimeError, MemoryError, OSError)
+
+
+def set_fault_hook(hook: Optional[Callable[[Optional[int], int], None]],
+                   ) -> None:
+    """Install (or clear, with None) this context's transfer-fault hook.
+    The runtime points it at the active runtime's injector on activation
+    and reconfiguration; it runs before every real movement toward a
+    DEVICE tier, except those made with ``check=False``."""
+    _FAULT_HOOK.set(hook)
+
+
+def set_debug(level: int) -> None:
+    """Plumb the config's ``debug`` level in (this module reads no
+    environment)."""
+    _DEBUG.set(int(level))
+
+
+def _debug_log(msg: str, level: int = 1) -> None:
+    if _DEBUG.get() >= level:
+        print(f"[scilib] {msg}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +104,7 @@ class MemSpace:
 
     device: torch.device   # home of DEVICE-tier buffers
     simulated: bool        # True on the CPU: tiers are tags on CPU tensors
+    n_devices: int = 1     # logical DEVICE tiers (the tile scheduler's)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -88,10 +144,11 @@ _ACTIVE: ContextVar[Optional[MemSpace]] = (
 _PROBED: Optional[MemSpace] = None
 _PROBE_LOCK = threading.Lock()
 
-# id(tensor) -> (weakref(tensor), logical tier).  Consulted only by the
-# simulated tier, but host_array tags in both modes so that a tensor made
-# outside a session keeps its tier inside a CPU session.
-_TIERS: Dict[int, Tuple[weakref.ref, str]] = {}
+# id(tensor) -> (weakref(tensor), logical tier, device index).  The tier
+# is consulted only by the simulated tier, but host_array tags in both
+# modes so that a tensor made outside a session keeps its tier inside a
+# CPU session; the device index is read in both modes (device_of).
+_TIERS: Dict[int, Tuple[weakref.ref, str, int]] = {}
 
 
 def active() -> MemSpace:
@@ -128,10 +185,16 @@ def installed(space: MemSpace) -> Iterator[MemSpace]:
         _ACTIVE.reset(token)
 
 
-def for_device(device: torch.device) -> MemSpace:
+def for_device(device: torch.device, n_devices: int = 1) -> MemSpace:
     """The mapping of one resolved device: real tiers on a card,
-    simulated tiers on the CPU."""
-    return MemSpace(device=device, simulated=device.type == "cpu")
+    simulated tiers on the CPU; ``n_devices`` logical device tiers."""
+    return MemSpace(device=device, simulated=device.type == "cpu",
+                    n_devices=max(1, int(n_devices)))
+
+
+def n_devices() -> int:
+    """Number of logical device tiers of the active mapping."""
+    return active().n_devices
 
 
 def nbytes(x: torch.Tensor) -> int:
@@ -153,13 +216,13 @@ def buffer_key(x: torch.Tensor) -> Hashable:
             x.storage_offset(), tuple(x.shape), tuple(x.stride()), x.dtype)
 
 
-def _tag(x: torch.Tensor, tier: str) -> None:
+def _tag(x: torch.Tensor, tier: str, device: int = 0) -> None:
     key = id(x)
 
     def _drop(_ref, key=key):
         _TIERS.pop(key, None)
 
-    _TIERS[key] = (weakref.ref(x, _drop), tier)
+    _TIERS[key] = (weakref.ref(x, _drop), tier, device)
 
 
 def tier_of(x: torch.Tensor) -> str:
@@ -179,23 +242,82 @@ def tier_of(x: torch.Tensor) -> str:
     return DEVICE
 
 
-def put(x: torch.Tensor, tier: str) -> torch.Tensor:
+def device_of(x: torch.Tensor) -> Optional[int]:
+    """Device-tier index of a tensor, or None when it has no explicit
+    device placement (host-resident, or never routed by the tile
+    scheduler).  The index is a tag set by :func:`put_block`; with
+    several cards an untagged CUDA tensor reads its card's index, while
+    on one card (or on the CPU) an untagged tensor has none."""
+    ent = _TIERS.get(id(x))
+    if ent is not None and ent[0]() is not None:
+        return ent[2] if ent[1] == DEVICE else None
+    if (not active().simulated and x.device.type == "cuda"
+            and torch.cuda.device_count() > 1):
+        return x.device.index
+    return None
+
+
+def put(x: torch.Tensor, tier: str, *, check: bool = True) -> torch.Tensor:
     """Re-home a tensor to a logical tier (the ``move_pages()`` analogue).
 
     Real tiers copy across the link, to the session's device or to
     pinned host memory.  The simulated tier clones and tags the clone;
     the source keeps its own tag.  A tensor already on ``tier`` is
-    returned as it is."""
+    returned as it is.  A movement toward DEVICE runs the fault hook
+    first (unless ``check=False``), and a failed copy raises the typed
+    hierarchy of :mod:`repro_torch.core.faults`."""
     if tier_of(x) == tier:
         return x
+    size = nbytes(x)
+    hook = _FAULT_HOOK.get()
+    if check and tier == DEVICE and hook is not None:
+        hook(None, size)
     space = active()
-    if not space.simulated:
-        if tier == DEVICE:
-            return x.to(space.device)
-        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-        return host.copy_(x)
-    moved = x.clone()
+    try:
+        if not space.simulated:
+            if tier == DEVICE:
+                return x.to(space.device)
+            host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            return host.copy_(x)
+        moved = x.clone()
+    except _MOVE_ERRORS as exc:
+        flt.raise_typed("transfer", exc, device=None, nbytes=size)
     _tag(moved, tier)
+    return moved
+
+
+def put_block(x: torch.Tensor, device: int) -> torch.Tensor:
+    """Place a block onto one DEVICE tier (tile scheduling).
+
+    With several cards the block is copied onto ``cuda:<device>``;
+    otherwise every tier shares the session's memory and the block is
+    copied there (a copy across the link for a host block, a copy on the
+    device for a device-born one), so per-tier movement is counted the
+    same way on one card as on many.  The copy is tagged
+    ``(DEVICE, device)``; a block already tagged with this tier is
+    returned as it is.  Like :func:`put`, the fault hook runs first (with
+    the tier index, so ``device=`` rules target one tier) and a failed
+    copy raises the typed hierarchy."""
+    if tier_of(x) == DEVICE and device_of(x) == device:
+        return x
+    size = nbytes(x)
+    hook = _FAULT_HOOK.get()
+    if hook is not None:
+        hook(device, size)
+    space = active()
+    try:
+        if space.simulated:
+            moved = x.clone()
+        else:
+            cards = torch.cuda.device_count()
+            home = (torch.device("cuda", device % cards) if cards > 1
+                    else space.device)
+            moved = torch.empty(x.shape, dtype=x.dtype, device=home)
+            moved.copy_(x)
+    except _MOVE_ERRORS as exc:
+        flt.raise_typed("transfer", exc, device=device, nbytes=size)
+    _tag(moved, DEVICE, device)
+    _debug_log(f"put_block: {size} B -> dev{device}", level=2)
     return moved
 
 

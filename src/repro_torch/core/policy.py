@@ -12,7 +12,10 @@ First-Use stays device-resident for every later call that passes the
 same memory — that store *is* the page-table remap of the paper's
 Fig. 2.  Each entry's payload is a :class:`Resident`, which also records
 the source's version counter, so a host tensor written in place after it
-moved gets a fresh copy instead of the stale one.
+moved gets a fresh copy instead of the stale one.  Tile blocks of the
+multi-device scheduler live in ``runtime.block_stores[d]``, one store per
+device tier; :meth:`PolicyBase.select_device` reads them to keep a tile
+where its blocks already are.
 """
 from __future__ import annotations
 
@@ -108,6 +111,12 @@ class PolicyBase:
     #: whether this policy executes on the device tier at all — the
     #: dispatch pipeline's decide stage vetoes offload when False
     offloads = True
+    #: whether the multi-device tile scheduler may shard calls under this
+    #: policy.  Only policies that migrate every operand on (first) use
+    #: keep their semantics when the runtime moves blocks itself; the
+    #: access-counter model decides per operand and stays single-device
+    #: or it would silently become DFU.
+    shardable = True
 
     def place_operand(self, runtime, x: torch.Tensor) -> Placement:
         raise NotImplementedError
@@ -119,6 +128,34 @@ class PolicyBase:
             return Placement(_put(y, HOST_KIND),
                              moved_bytes=memspace.nbytes(y))
         return Placement(memspace.tag_device(y))
+
+    def select_device(self, runtime, blocks) -> int:
+        """Which device tier runs one tile of a sharded call (BLASX-style
+        round-robin with affinity).
+
+        ``blocks``: (key, nbytes, shared) per tile operand.  Persistent
+        policies prefer the tier already holding the most operand-block
+        bytes — first use moved the block there, every later tile on the
+        same tier is free.  Blocks shared by every tile (trsm's triangle)
+        replicate and never steer the choice.  With no residency
+        anywhere, tiles deal round-robin.  Score ties break toward the
+        tier with the fewest tiles scheduled in this call, so a block
+        replicated by an earlier grid cannot funnel a whole grid onto one
+        tier.  A quarantined tier (breaker open) is never selected, even
+        by affinity."""
+        if self.persistent:
+            scores: dict = {}
+            for key, nbytes, shared in blocks:
+                if shared:
+                    continue
+                for home, store in enumerate(runtime.block_stores):
+                    if key in store and runtime.device_usable(home):
+                        scores[home] = scores.get(home, 0) + nbytes
+            if scores:
+                return min(scores, key=lambda d: (-scores[d],
+                                                  runtime.scheduled_load(d),
+                                                  d))
+        return runtime.next_device()
 
 
 class MemCopyPolicy(PolicyBase):
@@ -174,6 +211,7 @@ class CounterPolicy(PolicyBase):
     """
 
     name = "counter"
+    shardable = False     # R1-R4 are per-operand host-vs-device rules
 
     reuse_min = 100.0
     byte_budget = 3.4e9

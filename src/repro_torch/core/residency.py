@@ -1,8 +1,8 @@
 """The residency engine: one block store behind runtime, scheduler, sim.
 
-The port's copy of ``repro/core/residency.py`` (entries, events,
-eviction policies and :class:`ResidencyStore`); the shared multi-tenant
-pool waits for a later slice.
+The port's copy of ``repro/core/residency.py``: entries, events,
+eviction policies, :class:`ResidencyStore` and the shared multi-tenant
+:class:`SharedDevicePool`.
 
 The paper's core claim is that residency — not dispatch — dominates
 offload cost (Fig. 2, Tables 3/5): Device First-Use wins because a
@@ -53,10 +53,11 @@ import collections
 import dataclasses
 import threading
 import weakref
-from typing import Callable, Dict, Hashable, Iterator, Optional
+from typing import Callable, Dict, Hashable, Iterator, List, Optional, Tuple
 
-__all__ = ["Entry", "ResidencyEvent", "ResidencyStore",
-           "EVICTION_POLICIES", "make_eviction_policy"]
+__all__ = ["Entry", "ResidencyEvent", "ResidencyStore", "SharedDevicePool",
+           "EVICTION_POLICIES", "make_eviction_policy", "default_pool",
+           "reset_default_pool"]
 
 
 # --------------------------------------------------------------------- #
@@ -201,9 +202,10 @@ class ResidencyStore:
 
     Every mutating method holds the store's reentrant lock — reentrant
     because weakref lifecycle callbacks and ``on_evict``/``emit`` hooks
-    can re-enter the store from inside an eviction sweep.  (The
-    reference's shared multi-tenant pool, ``SharedDevicePool``, is not
-    ported yet; a store here belongs to one runtime.)
+    can re-enter the store from inside an eviction sweep.  Lock order
+    is store → pool: the store notifies its :class:`SharedDevicePool`
+    (if bound) while holding its own lock, and the pool never calls
+    back into a store while holding the pool lock.
     """
 
     def __init__(self, name: str = "store", *,
@@ -229,6 +231,9 @@ class ResidencyStore:
         self.evicted_bytes = 0
         self.refetches = 0
         self.refetched_bytes = 0
+        # multi-tenant binding: set by SharedDevicePool.attach()
+        self.pool: Optional["SharedDevicePool"] = None
+        self.owner: str = ""
         # keys evicted under pressure whose next placement is a refetch;
         # anchored keys clean themselves up when the anchor dies so id()
         # reuse cannot masquerade as a refetch.
@@ -301,6 +306,12 @@ class ResidencyStore:
             if self.emit is not None:
                 self.emit(kind, self.name, ent.nbytes)
             self.evict_over_cap(protect=key)
+        # Charge the shared pool *after* releasing the store lock: the
+        # pool may rebalance into other tenants' stores, and holding a
+        # store lock while taking another store's lock would deadlock.
+        if self.pool is not None:
+            self.pool.charge(self.owner, ent.nbytes,
+                             refetch=(kind == "refetch"))
         return ent
 
     def drop(self, key: Hashable) -> None:
@@ -310,6 +321,8 @@ class ResidencyStore:
             ent = self._entries.pop(key, None)
             if ent is not None:
                 self.resident_bytes -= ent.nbytes
+                if self.pool is not None:
+                    self.pool.credit(self.owner, ent.nbytes)
 
     # ------------------------------------------------------------------ #
     # pinning                                                             #
@@ -359,12 +372,15 @@ class ResidencyStore:
                 self.emit("evict", self.name, ent.nbytes)
             if self.on_evict is not None:
                 self.on_evict(key, ent.payload, ent.nbytes)
+            if self.pool is not None:
+                self.pool.evicted(self.owner, ent.nbytes)
             return ent
 
     def evict_one(self) -> int:
         """Evict a single policy-chosen victim regardless of the local
-        cap.  Returns the bytes freed, 0 when nothing is evictable —
-        pinned entries survive this exactly as they survive cap
+        cap (shared-pool pressure from another tenant's placement).
+        Returns the bytes freed, 0 when nothing is evictable — pinned
+        entries survive pool pressure exactly as they survive cap
         pressure."""
         with self._lock:
             victim = self.policy.victim(self._entries, None)
@@ -427,6 +443,274 @@ class ResidencyStore:
     # ------------------------------------------------------------------ #
     def clear(self) -> None:
         with self._lock:
+            freed = self.resident_bytes
             self._entries.clear()
             self._evicted.clear()
             self.resident_bytes = 0
+            if self.pool is not None and freed:
+                self.pool.credit(self.owner, freed)
+
+
+# --------------------------------------------------------------------- #
+# the shared multi-tenant pool                                           #
+# --------------------------------------------------------------------- #
+@dataclasses.dataclass
+class _Tenant:
+    """One pool member: its quota, live usage, and lifetime counters."""
+
+    quota: Optional[int] = None
+    usage: int = 0
+    places: int = 0
+    placed_bytes: int = 0
+    evictions: int = 0
+    evicted_bytes: int = 0
+    refetches: int = 0
+    stores: List[ResidencyStore] = dataclasses.field(default_factory=list)
+
+    def row(self) -> dict:
+        return {"quota": self.quota, "usage": self.usage,
+                "places": self.places, "placed_bytes": self.placed_bytes,
+                "evictions": self.evictions,
+                "evicted_bytes": self.evicted_bytes,
+                "refetches": self.refetches}
+
+
+class SharedDevicePool:
+    """One device-byte budget shared by many concurrent sessions.
+
+    Each tenant (a :class:`~repro_torch.core.session.Session`'s runtime)
+    registers with an optional per-tenant byte quota and attaches its
+    residency stores.  Stores notify the pool on every placement,
+    eviction and drop, so the pool's usage ledger mirrors the sum of
+    tenant ``resident_bytes`` exactly — the concurrency test suite
+    asserts that equality under a 32-thread storm.
+
+    Pressure is resolved by :meth:`rebalance`, which runs after every
+    charge:
+
+    1. any tenant over its *own* quota is evicted down first, then
+    2. while the *pool total* exceeds ``total_bytes``, the tenant with
+       the highest ``usage / quota`` ratio loses one entry — fair,
+       quota-proportional eviction (a tenant with 3x the quota settles
+       at 3x the residency under uniform load).
+
+    The victim plan is computed under the pool lock but the eviction
+    itself runs outside it via the victim store's :meth:`evict_one`,
+    preserving the store → pool lock order (never pool → store).
+    Pinned entries are skipped by the policies, so a tenant whose
+    residency is fully pinned is simply exempted from that sweep.
+    """
+
+    def __init__(self, total_bytes: Optional[int] = None, *,
+                 name: str = "pool",
+                 default_quota: Optional[int] = None):
+        self.name = name
+        self.total_bytes = total_bytes
+        self.default_quota = default_quota
+        self._lock = threading.RLock()
+        self._members: Dict[str, _Tenant] = {}
+        self._next_id = 0
+        # pool-wide totals, maintained independently of the per-tenant
+        # rows (the stress tests assert sum(tenants) == totals).
+        self.places = 0
+        self.placed_bytes = 0
+        self.evictions = 0
+        self.evicted_bytes = 0
+        self.refetches = 0
+
+    # ------------------------------------------------------------------ #
+    # membership                                                          #
+    # ------------------------------------------------------------------ #
+    def register(self, session_id: str = "", *,
+                 quota: Optional[int] = None) -> str:
+        """Add a tenant; returns its (possibly auto-assigned) id."""
+        with self._lock:
+            sid = session_id
+            if not sid:
+                while True:
+                    sid = f"tenant-{self._next_id}"
+                    self._next_id += 1
+                    if sid not in self._members:
+                        break
+            elif sid in self._members:
+                raise ValueError(
+                    f"session id {sid!r} already registered with "
+                    f"pool {self.name!r}")
+            self._members[sid] = _Tenant(
+                quota=self.default_quota if quota is None else quota)
+            return sid
+
+    def attach(self, session_id: str, *stores: ResidencyStore) -> None:
+        """Bind stores to a tenant: their placements charge the pool."""
+        with self._lock:
+            m = self._members[session_id]
+            for s in stores:
+                s.pool = self
+                s.owner = session_id
+                m.stores.append(s)
+                m.usage += s.resident_bytes
+
+    def unregister(self, session_id: str) -> None:
+        """Detach a tenant's stores and forget its usage (session
+        close); lifetime counters stay in the pool totals."""
+        with self._lock:
+            m = self._members.pop(session_id, None)
+            if m is None:
+                return
+            for s in m.stores:
+                s.pool = None
+                s.owner = ""
+
+    def members(self) -> Tuple[str, ...]:
+        with self._lock:
+            return tuple(self._members)
+
+    def quota_of(self, session_id: str) -> Optional[int]:
+        with self._lock:
+            m = self._members.get(session_id)
+            return None if m is None else m.quota
+
+    def usage(self, session_id: Optional[str] = None) -> int:
+        with self._lock:
+            if session_id is not None:
+                m = self._members.get(session_id)
+                return 0 if m is None else m.usage
+            return sum(m.usage for m in self._members.values())
+
+    # ------------------------------------------------------------------ #
+    # store notifications (store lock may be held; pool lock is inner)    #
+    # ------------------------------------------------------------------ #
+    def charge(self, owner: str, nbytes: int, *,
+               refetch: bool = False) -> None:
+        with self._lock:
+            m = self._members.get(owner)
+            if m is None:
+                return
+            m.usage += nbytes
+            m.places += 1
+            m.placed_bytes += nbytes
+            self.places += 1
+            self.placed_bytes += nbytes
+            if refetch:
+                m.refetches += 1
+                self.refetches += 1
+        self.rebalance()
+
+    def credit(self, owner: str, nbytes: int) -> None:
+        with self._lock:
+            m = self._members.get(owner)
+            if m is not None:
+                m.usage -= nbytes
+
+    def evicted(self, owner: str, nbytes: int) -> None:
+        with self._lock:
+            m = self._members.get(owner)
+            if m is None:
+                return
+            m.usage -= nbytes
+            m.evictions += 1
+            m.evicted_bytes += nbytes
+            self.evictions += 1
+            self.evicted_bytes += nbytes
+
+    # ------------------------------------------------------------------ #
+    # pressure                                                            #
+    # ------------------------------------------------------------------ #
+    def _pick_victim(self, exclude) -> Optional[str]:
+        # caller holds the pool lock
+        for sid, m in self._members.items():
+            if sid in exclude or not m.stores:
+                continue
+            if m.quota is not None and m.usage > m.quota:
+                return sid
+        if self.total_bytes is None:
+            return None
+        total = sum(m.usage for m in self._members.values())
+        if total <= self.total_bytes:
+            return None
+        best, best_ratio = None, -1.0
+        share = self.total_bytes / max(1, len(self._members))
+        for sid, m in self._members.items():
+            if sid in exclude or not m.stores or m.usage <= 0:
+                continue
+            denom = m.quota if m.quota else share
+            ratio = m.usage / max(1.0, denom)
+            if ratio > best_ratio:
+                best, best_ratio = sid, ratio
+        return best
+
+    def rebalance(self) -> int:
+        """Evict until every tenant fits its quota and the pool fits
+        ``total_bytes`` (or nothing evictable remains).  Returns the
+        number of entries evicted."""
+        n = 0
+        exhausted = set()
+        while True:
+            with self._lock:
+                sid = self._pick_victim(exhausted)
+                if sid is None:
+                    return n
+                stores = tuple(self._members[sid].stores)
+            freed = 0
+            for s in stores:       # outside the pool lock (store order)
+                freed = s.evict_one()
+                if freed:
+                    n += 1
+                    break
+            if not freed:          # fully pinned / empty: exempt it
+                exhausted.add(sid)
+
+    # ------------------------------------------------------------------ #
+    # reporting                                                           #
+    # ------------------------------------------------------------------ #
+    def tenant_stats(self) -> Dict[str, dict]:
+        with self._lock:
+            return {sid: m.row() for sid, m in self._members.items()}
+
+    def report(self) -> str:
+        with self._lock:
+            cap = ("uncapped" if self.total_bytes is None
+                   else f"{self.total_bytes}B")
+            lines = [f"shared pool {self.name!r}: {len(self._members)} "
+                     f"tenant(s), {self.usage_locked()}B / {cap}",
+                     f"  totals: places={self.places} "
+                     f"evictions={self.evictions} "
+                     f"evicted_bytes={self.evicted_bytes} "
+                     f"refetches={self.refetches}"]
+            for sid, m in sorted(self._members.items()):
+                quota = "none" if m.quota is None else f"{m.quota}B"
+                lines.append(
+                    f"  {sid:<16} usage={m.usage}B quota={quota} "
+                    f"places={m.places} evictions={m.evictions} "
+                    f"refetches={m.refetches}")
+            return "\n".join(lines)
+
+    def usage_locked(self) -> int:
+        # caller holds the pool lock (RLock: safe either way)
+        return sum(m.usage for m in self._members.values())
+
+
+# --------------------------------------------------------------------- #
+# the process-default pool (config-driven: SCILIB_POOL_BYTES/_QUOTA)     #
+# --------------------------------------------------------------------- #
+_DEFAULT_POOL: Optional[SharedDevicePool] = None
+_DEFAULT_POOL_LOCK = threading.Lock()
+
+
+def default_pool(total_bytes: Optional[int] = None) -> SharedDevicePool:
+    """The lazily-created process-wide pool that config-driven sessions
+    (``pool_bytes``/``pool_quota`` set, no explicit ``pool=``) join.
+    The first caller's ``total_bytes`` wins; later values are ignored
+    so concurrent openers agree on one budget."""
+    global _DEFAULT_POOL
+    with _DEFAULT_POOL_LOCK:
+        if _DEFAULT_POOL is None:
+            _DEFAULT_POOL = SharedDevicePool(total_bytes, name="default")
+        return _DEFAULT_POOL
+
+
+def reset_default_pool() -> None:
+    """Drop the process-default pool (test isolation)."""
+    global _DEFAULT_POOL
+    with _DEFAULT_POOL_LOCK:
+        _DEFAULT_POOL = None

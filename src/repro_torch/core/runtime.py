@@ -1,6 +1,6 @@
 """The offload runtime: placement, dispatch and statistics (paper §3).
 
-The port's counterpart of ``repro/core/runtime.py`` for one device.  An
+The port's counterpart of ``repro/core/runtime.py``.  An
 :class:`OffloadRuntime` is configured by one
 :class:`~repro_torch.core.config.OffloadConfig`, runs on one
 ``torch.device`` (the card, or the CPU in simulated-tier mode), normally
@@ -15,25 +15,46 @@ lives inside a :class:`~repro_torch.core.session.Session`, and owns
   call shape in the **dispatch cache**,
 * the **statistics** the paper's ``.fini_array`` hook prints,
 * a **BLAS trace** in the reference schema, so a run replays through the
-  reference memtier simulator.
+  reference memtier simulator,
+* the **multi-device tile scheduler**: with more than one device tier
+  (``OffloadConfig.devices``), super-threshold calls split into 2-D
+  tiles dealt round-robin with affinity across the tiers, BLASX-style —
+  a tile runs on the tier where its operand blocks already are, tracked
+  in one block store per tier with its own byte cap and eviction
+  counters.  With one card the tiers share its memory and differ only in
+  their accounting (:func:`repro_torch.core.memspace.put_block`); with
+  one tier the scheduler is inert,
+* the **fault guard**: every operand movement and every kernel (or tile)
+  is a guarded unit (:meth:`OffloadRuntime._guarded`) — injected faults
+  fire at its entry, transient faults retry with backoff, exhaustion or
+  a permanent fault falls back to the host path with the same operands,
+  and a per-tier circuit breaker quarantines a tier that keeps failing
+  (:mod:`repro_torch.core.faults`, which also lists the errors the guard
+  never absorbs on the card),
+* its tenancy in a :class:`~repro_torch.core.residency.SharedDevicePool`
+  when its session joins one: the placement and block stores charge the
+  pool's per-tenant ledger, and other tenants' pressure evicts from them.
 
 **The dispatch pipeline.**  :meth:`OffloadRuntime.blas_call` runs
 
-    canonicalize -> decide -> execute -> record
+    canonicalize -> decide -> plan -> execute -> record
 
 * *canonicalize* bundles the call into a :class:`CallContext` and
   fingerprints the call site (:mod:`repro_torch.core.callsite`);
 * *decide* runs the ordered ``decision_stages`` — adaptive per-site
   lock-in (``adaptive``), the memoized dispatch cache, then the
-  threshold rule — and the policy may veto offload; then the precision
-  stage picks a split scheme (``precision``) and the venue stage the
-  execution venue (``kernel_path``);
-* *execute* runs the host path or the whole-call offload path: the
-  policy places every operand, and the arithmetic runs through
-  ``kernels/ops.py`` on the placed tensors (the generic ``xla`` closure,
-  the ``pallas`` venue's kernel closure, or the split formulation); a
-  split result is checked by a sampled residual and escalates to native
-  fp64 when it misses ``precision_rtol``;
+  threshold rule — and the policy may veto offload; with every tier
+  quarantined the call is served from the host (degraded mode); then the
+  precision stage picks a split scheme (``precision``) and the venue
+  stage the execution venue (``kernel_path``);
+* *plan* asks the call's tile builder for a :class:`TilePlan` when the
+  call offloads and more than one usable tier exists;
+* *execute* runs the host path, the sharded tiles, or the whole-call
+  offload path: the policy places every operand, and the arithmetic runs
+  through ``kernels/ops.py`` on the placed tensors (the generic ``xla``
+  closure, the ``pallas`` venue's kernel closure, or the split
+  formulation); a split result is checked by a sampled residual and
+  escalates to native fp64 when it misses ``precision_rtol``;
 * *record* updates the per-routine and per-site statistics and appends a
   :class:`~repro_torch.core.trace.BlasCall` to the trace.
 
@@ -41,7 +62,9 @@ On the card every call of the gemm family computes on CUDA tensors,
 whichever path it took: an operand a policy left on the host is streamed
 to the card for the call and counted in ``transient_bytes`` (the
 coherent remote read of the GH200, made explicit), as the reference's
-``_harmonize`` does on a backend with real memory tiers.
+``_harmonize`` does on a backend with real memory tiers.  The host path
+therefore needs room on the card too: when the card cannot hold even the
+streamed operands, its ``torch.cuda.OutOfMemoryError`` propagates.
 
 **Asynchronous by default.**  A call returns once its work is queued on
 the card; the runtime records a CUDA event per call and
@@ -49,7 +72,9 @@ the card; the runtime records a CUDA event per call and
 after every call instead, so per-call times are device times.  Adaptive
 warmup probes are always timed that way: the card is drained before the
 probe starts and synchronized before its clock stops, so a probe bills
-its device work and not its launch latency.
+its device work and not its launch latency.  A kernel's own device fault
+therefore surfaces at a later synchronization, not inside its guarded
+unit; the guard sees what the launch and the allocations raise.
 
 **Adaptive per-site mode** (``adaptive``): the first ``adaptive_warmup``
 calls at each site rotate over the venues (host, xla and, with
@@ -65,11 +90,14 @@ recorded while it is the innermost span is stamped with its
 and :meth:`OffloadRuntime.solver_end` folds the span's time and movement
 into :class:`SolverStats`.
 
-Not ported yet, and refused when configured (:func:`check_ported`): the
-multi-device tile scheduler, fault injection and the breaker, and the
-shared device pool.  The kernel block-edge override
-(``kernel_block``) picks a tile edge the gemm kernel compiles
-(``kernels/gemm.py:EDGES``); another value is refused.
+**Threads.**  The whole pipeline runs under the runtime lock, so several
+threads adopting one session (``Session.scope``) issue calls atomically.
+Lock order: runtime -> health -> store -> pool, with the stats lock a
+leaf.  Every worker launches on the current (default) stream.
+
+The kernel block-edge override (``kernel_block``) picks a tile edge the
+gemm kernel compiles (``kernels/gemm.py:EDGES``); another value is
+refused (:func:`check_config`).
 """
 from __future__ import annotations
 
@@ -83,6 +111,7 @@ from typing import Callable, Dict, Hashable, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core import callsite as cs
+from repro_torch.core import faults as flt
 from repro_torch.core import memspace
 from repro_torch.core import policy as pol
 from repro_torch.core import precision as prec
@@ -100,37 +129,15 @@ _PENDING_WINDOW = 32
 #: (long-lived servers over ragged shapes must not leak decisions).
 _DECISION_CACHE_LIMIT = 65536
 
-#: config fields this slice does not implement -> the ROADMAP.md item
-#: that brings them.  Setting one to a non-default value raises.
-UNPORTED_FIELDS = {
-    "faults": "Queue 1 item 7 (the _guarded fault units and the breaker)",
-    "pool_bytes": "Queue 1 item 7 (SharedDevicePool tenancy)",
-    "pool_quota": "Queue 1 item 7 (SharedDevicePool tenancy)",
-}
 
-
-def check_ported(config: OffloadConfig) -> None:
-    """Raise ``NotImplementedError`` for a config that sets a field this
-    slice has not ported, naming the ROADMAP.md item that brings it, and
-    ``ValueError`` for a ``kernel_block`` the gemm kernel does not
-    compile."""
+def check_config(config: OffloadConfig) -> None:
+    """Raise ``ValueError`` for a ``kernel_block`` the gemm kernel does
+    not compile."""
     from repro_torch.kernels import gemm
     if config.kernel_block and config.kernel_block not in gemm.EDGES:
         raise ValueError(f"OffloadConfig.kernel_block={config.kernel_block}"
                          f" is not a tile edge the gemm kernel compiles: "
                          f"0 (each path's default) or one of {gemm.EDGES}")
-    if config.devices is not None and config.devices > 1:
-        raise NotImplementedError(
-            f"OffloadConfig.devices={config.devices} is not ported yet: "
-            f"see ROADMAP.md Queue 1 item 7 (the multi-device tile "
-            f"scheduler)")
-    default = OffloadConfig()
-    for name, item in UNPORTED_FIELDS.items():
-        value = getattr(config, name)
-        if value != getattr(default, name):
-            raise NotImplementedError(
-                f"OffloadConfig.{name}={value!r} is not ported yet: see "
-                f"ROADMAP.md {item}")
 
 
 # --------------------------------------------------------------------- #
@@ -143,6 +150,60 @@ def dispatching() -> bool:
     """True while this thread is inside :meth:`OffloadRuntime.blas_call`;
     the interceptors pass such calls straight to the originals."""
     return getattr(_TLS, "depth", 0) > 0
+
+
+# --------------------------------------------------------------------- #
+# tile plans (built by core.blas, executed by the scheduler below)       #
+# --------------------------------------------------------------------- #
+@dataclasses.dataclass
+class TileOp:
+    """One operand block of one tile.
+
+    ``coords`` is the (r0, r1, c0, c1) window on the *parent* tensor —
+    the stable block identity the affinity registry keys on, so the same
+    window of the same tensor lands on the same tier call after call.
+    ``shared`` marks blocks identical across every tile of the plan
+    (e.g. the triangle of trsm): they replicate per tier and must not
+    steer affinity, or every tile would chase one tier.
+    """
+
+    role: str
+    parent: torch.Tensor
+    coords: Tuple[int, int, int, int]
+    shared: bool = False
+    written: bool = False
+
+    def key(self) -> Tuple:
+        return (id(self.parent),) + self.coords
+
+    @property
+    def nbytes(self) -> int:
+        r0, r1, c0, c1 = self.coords
+        return (r1 - r0) * (c1 - c0) * self.parent.element_size()
+
+    def materialize(self) -> torch.Tensor:
+        r0, r1, c0, c1 = self.coords
+        if (r0, c0) == (0, 0) and (r1, c1) == tuple(self.parent.shape[-2:]):
+            return self.parent
+        return self.parent[r0:r1, c0:c1]
+
+
+@dataclasses.dataclass
+class Tile:
+    """One unit of scheduled work: placed operand blocks -> output block."""
+
+    ops: Tuple[TileOp, ...]
+    compute: Callable[..., torch.Tensor]
+    out_coords: Tuple[int, int, int, int]
+
+
+@dataclasses.dataclass
+class TilePlan:
+    """A 2-D decomposition of one level-3 call plus its gather."""
+
+    grid: Tuple[int, int]
+    tiles: Tuple[Tile, ...]
+    gather: Callable[[Sequence[torch.Tensor]], torch.Tensor]
 
 
 # --------------------------------------------------------------------- #
@@ -161,6 +222,9 @@ class CallContext:
     arrays: list
     compute: Callable[..., torch.Tensor]
     key: Optional[Hashable]
+    # tile-plan builder ``(n_devices, venue=, precision=) -> TilePlan``;
+    # None when the call cannot shard (one tier, a batched call)
+    shard: Optional[Callable[..., Optional[TilePlan]]] = None
     # the pallas-venue arithmetic (same operand order as ``compute``);
     # None when the routine has no kernel or kernel_path is off
     kernel_compute: Optional[Callable[..., torch.Tensor]] = None
@@ -186,8 +250,10 @@ class DispatchDecision:
     n_avg: float = 0.0
     why: str = "threshold"      # "cache" | "threshold" | "adaptive:probe"
     #                           # | "adaptive:locked" | "policy:host-only"
+    #                           # | "fallback:<kind>" after a device fault
     #                           # (+ "+kernel" on the pallas venue,
     #                           # + "+<scheme>" / "+esc" for split calls)
+    plan: Optional[TilePlan] = None
     timed: bool = False         # adaptive probe: drain, time, synchronize
     # execution venue ("host"/"xla"/"pallas"); "" with kernel_path off,
     # so the default pipeline is byte-identical to the two-venue one
@@ -213,6 +279,13 @@ class RoutineStats:
     dispatch_misses: int = 0
     # bytes streamed from the host tier for one call without persisting
     transient_bytes: int = 0
+    # multi-device tile scheduler: calls split across tiers / tiles run
+    sharded: int = 0
+    tiles: int = 0
+    # failure paths: transient-fault retries and host fallbacks after
+    # retry exhaustion or a permanent fault (the call still completed)
+    retries: int = 0
+    fallbacks: int = 0
     # kernel_path: offloaded calls executed on the pallas venue (a
     # subset of ``offloaded``) and their wall time
     kernel_calls: int = 0
@@ -223,6 +296,17 @@ class RoutineStats:
     split_calls: int = 0
     split_seconds: float = 0.0
     escalations: int = 0
+
+
+@dataclasses.dataclass
+class DeviceStats:
+    """Per-device-tier accounting of the multi-device tile scheduler."""
+
+    tiles: int = 0               # tile kernels scheduled on this tier
+    moved_bytes: int = 0         # block movement onto this tier
+    affinity_hits: int = 0       # blocks already resident here (free)
+    evictions: int = 0           # per-tier byte-cap pressure
+    evicted_bytes: int = 0
 
 
 @dataclasses.dataclass
@@ -241,6 +325,8 @@ class SolverStats:
 class RuntimeStats:
     per_routine: Dict[str, RoutineStats] = dataclasses.field(
         default_factory=dict)
+    per_device: Dict[int, DeviceStats] = dataclasses.field(
+        default_factory=dict)
     # LAPACK-tier solver spans keyed by solver name: empty (and absent
     # from the report) unless repro_torch.solvers ran
     solvers: Dict[str, SolverStats] = dataclasses.field(
@@ -252,14 +338,26 @@ class RuntimeStats:
     # evicted entries placed again later: the cap's real cost in traffic
     refetches: int = 0
     refetched_bytes: int = 0
+    # failure-path counters (each increments exactly when the matching
+    # trace event is emitted, so a live run and its replay agree)
+    faults: int = 0            # fault errors observed (injected + real)
+    retries: int = 0           # transient-fault retries performed
+    fallbacks: int = 0         # calls completed on host after a failure
+    quarantines: int = 0       # breaker trips (incl. half-open re-trips)
+    recoveries: int = 0        # quarantined tiers re-admitted
     # per-call-site profiles (shared with the owning runtime's registry)
     callsites: Optional[cs.CallSiteRegistry] = None
+    # the owning runtime's per-tier circuit breaker (health section)
+    breaker: Optional[flt.HealthTracker] = None
 
     def routine(self, name: str) -> RoutineStats:
         return self.per_routine.setdefault(name, RoutineStats())
 
     def solver(self, name: str) -> SolverStats:
         return self.solvers.setdefault(name, SolverStats())
+
+    def device(self, index: int) -> DeviceStats:
+        return self.per_device.setdefault(index, DeviceStats())
 
     @property
     def total_moved_bytes(self) -> int:
@@ -286,6 +384,13 @@ class RuntimeStats:
         if self.refetches:
             lines.append(f"refetches: {self.refetches} "
                          f"({self.refetched_bytes / 1e9:.3f} GB)")
+        if self.per_device:
+            lines.append(f"{'device':<10}{'tiles':>8}{'GB moved':>10}"
+                         f"{'affinity':>10}{'evict':>7}")
+            for dev, d in sorted(self.per_device.items()):
+                lines.append(f"{'dev' + str(dev):<10}{d.tiles:>8}"
+                             f"{d.moved_bytes / 1e9:>10.3f}"
+                             f"{d.affinity_hits:>10}{d.evictions:>7}")
         routines = self.per_routine.values()
         kernel_calls = sum(r.kernel_calls for r in routines)
         if kernel_calls:
@@ -311,6 +416,21 @@ class RuntimeStats:
                 lines.append(f"{name:<10}{sv.spans:>7}{sv.calls:>8}"
                              f"{pct:>8.0f}{sv.moved_bytes / 1e9:>10.3f}"
                              f"{sv.seconds:>9.3f}")
+        fault_activity = (self.faults + self.retries + self.fallbacks
+                          + self.quarantines + self.recoveries)
+        if fault_activity:
+            # only once failure paths ran (same rule)
+            lines.append(f"health: faults={self.faults} "
+                         f"retries={self.retries} "
+                         f"fallbacks={self.fallbacks} "
+                         f"quarantines={self.quarantines} "
+                         f"recoveries={self.recoveries}")
+            if self.breaker is not None:
+                for d, h in enumerate(self.breaker.devices()):
+                    lines.append(f"  dev{d}: {h.state} "
+                                 f"consecutive={h.consecutive} "
+                                 f"failures={h.failures} "
+                                 f"quarantines={h.quarantines}")
         if self.callsites is not None and len(self.callsites):
             lines.append("call sites (top by flops; * = adaptive lock)")
             lines.append(f"{'site':<44}{'calls':>7}{'GFLOP':>9}"
@@ -381,16 +501,21 @@ class OffloadRuntime:
 
     def __init__(self, config: Optional[OffloadConfig] = None, *,
                  device=None, record_trace: bool = True,
-                 session_id: str = ""):
+                 session_id: str = "",
+                 pool: Optional[res.SharedDevicePool] = None):
         config = OffloadConfig.from_env() if config is None else config
-        check_ported(config)
+        check_config(config)
         self.config = config
         # the dispatch lock serializes whole calls; the stats lock is a
-        # leaf guarding counters that eviction hooks also update
+        # leaf guarding counters that eviction hooks also update (shared-
+        # pool pressure reaches this runtime's stores from whichever
+        # thread overflowed the pool)
         self._lock = threading.RLock()
         self._stats_lock = threading.Lock()
         self.device = memspace.resolve_device(device)
-        self.memspace = memspace.for_device(self.device)
+        # the device-tier count is topology, fixed for the runtime's life
+        self.n_devices = config.resolved_devices(self.device)
+        self.memspace = memspace.for_device(self.device, self.n_devices)
         self.policy: pol.PolicyBase = pol.make_policy(config.policy)
         self.threshold = config.resolved_threshold()
         self.stats = RuntimeStats()
@@ -426,6 +551,34 @@ class OffloadRuntime:
             "placements", cap=self.device_bytes_cap,
             policy=self.evict_policy, pin_new=self.pin_all,
             on_evict=self._on_placement_evict, emit=self._emit_event)
+        # multi-device tile scheduler: one block store per device tier,
+        # block key -> (placed block, parent version), plus the round-
+        # robin cursor for blocks with no residency anywhere
+        self.block_stores = [
+            res.ResidencyStore(
+                f"dev{d}", cap=self.device_bytes_cap,
+                policy=self.evict_policy, pin_new=self.pin_all,
+                on_evict=self._block_evict_hook(d), emit=self._emit_event)
+            for d in range(self.n_devices)]
+        self._rr_cursor = 0
+        # tiles assigned to each tier within the call being scheduled
+        # (tie-breaker: replicated blocks score several tiers equally)
+        self._sched_load: list = [0] * self.n_devices
+        # fault tolerance: the deterministic injector, the transient-
+        # fault retry policy, and the per-tier breaker whose trips
+        # invalidate residency and steer the tile scheduler.  Transfer
+        # faults inject inside memspace (the real movement sites); the
+        # hook is installed by activate(), never here, so a merely
+        # constructed runtime cannot clobber the active one's.
+        self.faults = flt.FaultInjector.from_spec(config.faults)
+        self.retry = flt.RetryPolicy(attempts=config.retries,
+                                     backoff_ms=config.backoff_ms)
+        self.health = flt.HealthTracker(
+            self.n_devices, threshold=config.breaker,
+            cooldown_ms=config.breaker_cooldown_ms,
+            on_quarantine=self._on_quarantine,
+            on_recover=self._on_recover)
+        self.stats.breaker = self.health
         # async mode: CUDA events of recent calls, drained by sync()
         self._pending: "collections.deque[torch.cuda.Event]" = (
             collections.deque(maxlen=_PENDING_WINDOW))
@@ -433,11 +586,37 @@ class OffloadRuntime:
         # as long as the tensor (the reference's identity rule)
         self._trace_ids = res.ResidencyStore("traceids")
         self._reuse_by_buffer: Dict[int, int] = {}
-        self.session_id = session_id
         # LAPACK-tier solver spans: innermost-last stack of open spans;
         # the top span stamps every recorded BLAS call
         self._solver_stack: list = []
         self._solver_seq = 0
+        # multi-tenancy: join the shared pool (quota from the config),
+        # binding the placement and block stores to the tenant's ledger.
+        # An unnamed pooled runtime gets an assigned tenant id; unpooled
+        # unnamed runtimes keep "" (their trace events stay unstamped).
+        self.pool = pool
+        if pool is not None:
+            self.session_id = pool.register(session_id,
+                                            quota=config.pool_quota)
+            pool.attach(self.session_id, self.placements,
+                        *self.block_stores)
+        else:
+            self.session_id = session_id
+
+    def detach_pool(self) -> None:
+        """Leave the shared pool (session close): the tenant's usage is
+        forgotten, its lifetime counters stay in the pool totals."""
+        if self.pool is not None:
+            self.pool.unregister(self.session_id)
+            self.pool = None
+
+    def release(self) -> None:
+        """Drop every placement and tile block (session close).  The
+        stores' hooks tie them to this runtime in reference cycles, so
+        without this the card's copies would live until the cyclic
+        garbage collector ran, not until the session closed."""
+        for store in (self.placements, *self.block_stores):
+            store.clear()
 
     # ------------------------------------------------------------------ #
     # safe mid-run reconfiguration (Session.reconfigure lands here)       #
@@ -445,14 +624,22 @@ class OffloadRuntime:
     def apply_config(self, new: OffloadConfig) -> None:
         """Apply a new (already validated) config to the live runtime:
         the dispatch cache is cleared, the policy, threshold and sync
-        mode switch, and caps, eviction policy and pinning update on the
-        placement store with an immediate sweep under a tightened cap.
+        mode switch, and caps, eviction policy and pinning update on every
+        residency store with an immediate sweep under a tightened cap.
         A policy / threshold / adaptive / kernel_path / precision change
         resets the adaptive per-site locks, and drops the probe samples
         that timed a path the change killed (``runtime.py:631-716`` of
-        the reference)."""
-        check_ported(new)
+        the reference).  A new fault spec gets a fresh injector; the
+        breaker keeps its per-tier state.  The device-tier count is
+        topology: changing it raises ``ValueError``."""
+        check_config(new)
         with self._lock:
+            if new.resolved_devices(self.device) != self.n_devices:
+                raise ValueError(
+                    f"devices cannot change on a live runtime "
+                    f"({self.n_devices} -> "
+                    f"{new.resolved_devices(self.device)}); open a new "
+                    f"session")
             old, old_threshold = self.config, self.threshold
             self.config = new
             self.threshold = new.resolved_threshold()
@@ -486,23 +673,34 @@ class OffloadRuntime:
             self.evict_policy = new.evict
             pin_changed = new.pin != self.pin_all
             self.pin_all = new.pin
-            store = self.placements
-            store.cap = new.device_bytes
-            store.policy = res.make_eviction_policy(new.evict)
-            store.pin_new = new.pin
-            if pin_changed:
-                # pin=True pins existing residents too; pin=False makes
-                # them evictable again, or a new cap could not be kept
-                for key in list(store.keys()):
-                    (store.pin if new.pin else store.unpin)(key)
-            store.evict_over_cap()
+            for store in (self.placements, *self.block_stores):
+                store.cap = new.device_bytes
+                store.policy = res.make_eviction_policy(new.evict)
+                store.pin_new = new.pin
+                if pin_changed:
+                    # pin=True pins existing residents too; pin=False
+                    # makes them evictable again, or a new cap could not
+                    # be kept
+                    for key in list(store.keys()):
+                        (store.pin if new.pin else store.unpin)(key)
+                store.evict_over_cap()
+            self.faults = flt.FaultInjector.from_spec(new.faults)
+            self.retry = flt.RetryPolicy(attempts=new.retries,
+                                         backoff_ms=new.backoff_ms)
+            self.health.reconfigure(threshold=new.breaker,
+                                    cooldown_ms=new.breaker_cooldown_ms)
+            if active() is self:
+                memspace.set_fault_hook(self._transfer_fault_hook())
+                memspace.set_debug(new.debug)
 
     # ------------------------------------------------------------------ #
     # the residency engine: event + eviction hooks, pinning               #
     # ------------------------------------------------------------------ #
     def _emit_event(self, kind: str, store: str, nbytes: int) -> None:
-        """Mirror one residency transition into the trace and the
-        refetch statistics."""
+        """Mirror one residency transition (place/hit/evict/refetch), and
+        through the same channel each fault-tolerance transition
+        (fault/retry/fallback/quarantine/recover), into the trace and
+        the refetch statistics."""
         if kind == "refetch":
             with self._stats_lock:
                 self.stats.refetches += 1
@@ -515,7 +713,8 @@ class OffloadRuntime:
                             nbytes: int) -> None:
         """Cap pressure pushed a placement out: re-tag the buffer
         host-side so the next use re-migrates (and is counted again).
-        On the card the device copy is released with the entry."""
+        On the card the device copy is released with the entry, once
+        nothing else holds it."""
         arr = placed.array()
         if arr is not None:
             memspace.tag_host(arr)
@@ -526,10 +725,155 @@ class OffloadRuntime:
             print(f"[scilib] evict {nbytes} B "
                   f"(resident {self.placements.resident_bytes} B)")
 
+    def _block_evict_hook(self, device: int):
+        """Per-tier eviction callback for the tile-block stores."""
+        def _on_evict(key, placed, nbytes, device=device, self=self):
+            memspace.tag_host(placed[0])
+            with self._stats_lock:
+                dst = self.stats.device(device)
+                dst.evictions += 1
+                dst.evicted_bytes += nbytes
+            if self.debug >= 1:
+                print(f"[scilib] dev{device} evict block {nbytes} B "
+                      f"(resident "
+                      f"{self.block_stores[device].resident_bytes} B)")
+        return _on_evict
+
+    # ------------------------------------------------------------------ #
+    # fault tolerance: guard, retry, fallback, per-tier breaker           #
+    # ------------------------------------------------------------------ #
+    def _transfer_fault_hook(self):
+        """The injector's transfer check, as memspace's hook (None when
+        injection is off)."""
+        if self.faults is None:
+            return None
+        inj = self.faults
+
+        def _hook(device, nbytes):
+            inj.check("transfer", device=device, nbytes=nbytes)
+        return _hook
+
+    def _guarded(self, site: str, fn, *, device: int, nbytes: int,
+                 st: RoutineStats):
+        """Run one transfer or kernel *unit* under the fault guard.
+
+        The unit is the smallest retryable operation (one operand or
+        block movement, one kernel or tile): injection happens at its
+        entry, before any state mutates, so a fault absorbed by a retry
+        leaves every counter and residency structure as in an unfaulted
+        run.  Transient faults retry with exponential backoff
+        (``retries``, ``backoff_ms``); exhaustion or a permanent fault
+        records one breaker failure against ``device`` and raises —
+        :meth:`_execute` turns that into a host fallback.  Errors
+        :func:`repro_torch.core.faults.classify` does not absorb (bugs,
+        the port's build and launch errors, CUDA's sticky errors)
+        propagate unwrapped and count nothing."""
+        attempt = 0
+        while True:
+            try:
+                if site == "kernel" and self.faults is not None:
+                    self.faults.check("kernel", device=device,
+                                      nbytes=nbytes)
+                out = fn()
+            except Exception as raw:
+                retry = self._note_fault(site, raw, device=device,
+                                         nbytes=nbytes, attempt=attempt,
+                                         st=st)
+                if retry is None:     # not a device fault
+                    raise
+                if retry:
+                    self.retry.sleep(attempt)
+                    attempt += 1
+                    continue
+                self.health.failure(device)
+                flt.raise_typed(site, raw, device=device, nbytes=nbytes)
+            else:
+                self.health.ok(device)
+                return out
+
+    def _note_fault(self, site: str, raw: Exception, *, device: int,
+                    nbytes: int, attempt: int,
+                    st: RoutineStats) -> Optional[bool]:
+        """Count one failed attempt of a guarded unit: None when ``raw``
+        is not a device fault, else whether the unit retries (a transient
+        fault with attempts left; the retry is counted here)."""
+        err = flt.classify(site, raw, device=device, nbytes=nbytes)
+        if err is None:
+            return None
+        self.stats.faults += 1
+        self._emit_event("fault", f"{err.kind}@dev{device}", nbytes)
+        if self.debug >= 1:
+            print(f"[scilib] {site} fault on dev{device} "
+                  f"(attempt {attempt}): {err}")
+        if not (err.transient and attempt < self.retry.attempts):
+            return False
+        self.stats.retries += 1
+        st.retries += 1
+        self._emit_event("retry", f"{site}@dev{device}", nbytes)
+        return True
+
+    def _on_quarantine(self, device: int) -> None:
+        """Breaker trip: invalidate everything resident on the tier
+        (evict-style events — the next use re-places on a healthy tier)
+        and record the transition.  The tile scheduler and the plan
+        stage consult ``health.usable`` and re-shard around it."""
+        self.stats.quarantines += 1
+        invalidated = self.block_stores[device].evict_all()
+        if device == 0:
+            # the whole-call placement registry is homed on tier 0
+            invalidated += self.placements.evict_all()
+        self._emit_event("quarantine", f"dev{device}", 0)
+        if self.debug >= 1:
+            print(f"[scilib] dev{device} quarantined "
+                  f"({invalidated} residents invalidated)")
+
+    def _on_recover(self, device: int) -> None:
+        """Half-open probe succeeded: the tier is healthy again."""
+        self.stats.recoveries += 1
+        self._emit_event("recover", f"dev{device}", 0)
+        if self.debug >= 1:
+            print(f"[scilib] dev{device} recovered")
+
+    def device_usable(self, device: int) -> bool:
+        """May the scheduler route work to this device tier now?"""
+        return self.health.usable(device)
+
+    def _whole_device(self) -> int:
+        """Device-tier index the whole-call (unsharded) offload path is
+        attributed to: tier 0, or the first usable tier when 0 is
+        quarantined."""
+        if self.n_devices == 1 or self.health.usable(0):
+            return 0
+        for d in range(1, self.n_devices):
+            if self.health.usable(d):
+                return d
+        return 0
+
+    def _fallback_host(self, call: CallContext,
+                       decision: DispatchDecision, st: RoutineStats,
+                       exc: flt.OffloadError) -> torch.Tensor:
+        """Retry exhausted (or a permanent fault): run the call on the
+        host path — the same closure on the same operand values, so the
+        result equals an unoffloaded run bit for bit — and surface the
+        decision as ``fallback:<kind>``."""
+        decision.offload = False
+        decision.plan = None
+        decision.why = f"fallback:{exc.kind}"
+        decision.precision = ""        # the host rerun is native fp64
+        self.stats.fallbacks += 1
+        st.fallbacks += 1
+        st.on_host += 1
+        dev = exc.device if exc.device is not None else 0
+        self._emit_event("fallback", f"{exc.kind}@dev{dev}", exc.nbytes)
+        if self.debug >= 1:
+            print(f"[scilib] {call.routine} falling back to host: {exc}")
+        return self._host_compute(call, st)
+
     def pin(self, x: torch.Tensor) -> torch.Tensor:
         """Pin a buffer on the device tier: place it now if needed and
         mark it never-evictable until :meth:`unpin` or the buffer dies.
-        Returns the placed device-tier tensor."""
+        Returns the placed device-tier tensor.  Pinning is a user-level
+        movement with no fallback path, so it opts out of injection."""
         with self._lock:
             key, placed = pol.lookup(self, x)
             if placed is None:
@@ -537,7 +881,7 @@ class OffloadRuntime:
                     placed = x
                     pol.register(self, key, x)
                 else:
-                    placed = memspace.put(x, memspace.DEVICE)
+                    placed = memspace.put(x, memspace.DEVICE, check=False)
                     pol.register(self, key, x, placed)
                 self.alias_trace_id(x, placed)
             self.placements.pin(key)
@@ -628,6 +972,129 @@ class OffloadRuntime:
                     solver_id=span.span_id))
 
     # ------------------------------------------------------------------ #
+    # multi-device block stores + tile scheduler                          #
+    # ------------------------------------------------------------------ #
+    def next_device(self) -> int:
+        """Round-robin cursor for blocks with no residency anywhere.
+        Quarantined tiers are skipped; with every tier quarantined the
+        cursor value is returned anyway (callers only reach here when
+        the degraded-mode check has already allowed offload)."""
+        for _ in range(self.n_devices):
+            dev = self._rr_cursor % self.n_devices
+            self._rr_cursor += 1
+            if self.health.usable(dev):
+                return dev
+        return dev
+
+    def scheduled_load(self, device: int) -> int:
+        """Tiles already assigned to a tier in the call being scheduled
+        (the affinity tie-breaker)."""
+        return self._sched_load[device]
+
+    def device_resident_bytes(self, device: int) -> int:
+        return self.block_stores[device].resident_bytes
+
+    def _place_block(self, device: int, op: TileOp, st: RoutineStats
+                     ) -> Tuple[torch.Tensor, int, bool]:
+        """Materialize one operand block on one device tier.
+
+        Returns (placed block, bytes moved, affinity hit).  Persistent
+        policies (DFU/pinned) register the block so later calls find it
+        resident, with the parent's version counter: a parent written in
+        place since is placed afresh.  Mem-Copy stages fresh every call.
+        The movement runs under the fault guard — a retried block put is
+        a perfect no-op (cache hits return above and never see it)."""
+        key = op.key()
+        store = self.block_stores[device]
+        persistent = self.policy.persistent
+        version = memspace.version_of(op.parent)
+        if persistent:
+            ent = store.entry(key)
+            if ent is not None and ent.payload[1] != version:
+                store.drop(key)
+            cached = store.get(key)
+            if cached is not None:
+                return cached[0], 0, True
+        block = op.materialize()
+        placed = self._guarded(
+            "transfer", lambda: memspace.put_block(block, device),
+            device=device, nbytes=op.nbytes, st=st)
+        # a no-op put (the block already lives on this tier, e.g. a
+        # chained output reused whole) moved nothing
+        moved = 0 if placed is block else op.nbytes
+        if persistent:
+            store.put(key, (placed, version), memspace.nbytes(placed),
+                      anchor=op.parent)
+        return placed, moved, False
+
+    def _sharded_call(self, st: RoutineStats, plan: TilePlan,
+                      site: Optional[cs.CallSiteProfile] = None,
+                      ) -> Tuple[torch.Tensor, Tuple[int, ...]]:
+        """Execute one call as scheduled tiles and gather the output.
+
+        Tier choice is the policy's (:meth:`PolicyBase.select_device`):
+        affinity first — the tier already holding the most operand-block
+        bytes — then round-robin.  Output blocks are registered on their
+        tier so the next call slicing the gathered result at the same
+        coordinates reuses them (the BLASX chained-call path)."""
+        # phase 1: schedule every tile against the residency at call
+        # entry, so blocks placed by the first tiles cannot pull the
+        # rest onto one tier
+        self._sched_load = [0] * self.n_devices
+        devices = []
+        for tile in plan.tiles:
+            dev = self.policy.select_device(
+                self, [(op.key(), op.nbytes, op.shared) for op in tile.ops])
+            self._sched_load[dev] += 1
+            devices.append(dev)
+        # phase 2: place blocks and run the tile kernels
+        outs = []
+        for tile, dev in zip(plan.tiles, devices):
+            dst = self.stats.device(dev)
+            placed = []
+            for op in tile.ops:
+                arr, moved, hit = self._place_block(dev, op, st)
+                st.bytes_in += moved
+                dst.moved_bytes += moved
+                st.cache_hits += int(hit)
+                st.cache_misses += int(not hit)
+                dst.affinity_hits += int(hit)
+                if site is not None:
+                    site.observe_residency(hit)
+                placed.append(arr)
+            outs.append(self._guarded(
+                "kernel", lambda t=tile, p=placed: self._run_tile(t, p),
+                device=dev, nbytes=0, st=st))
+            dst.tiles += 1
+        out = plan.gather([o if o.device == self.device
+                           else o.to(self.device) for o in outs])
+        if self.policy.persistent:
+            version = memspace.version_of(out)
+            for tile, dev, block in zip(plan.tiles, devices, outs):
+                self.block_stores[dev].put(
+                    (id(out),) + tile.out_coords, (block, version),
+                    memspace.nbytes(block), anchor=out)
+        if self.policy.copy_back:
+            st.bytes_out += memspace.nbytes(out)
+            out = memspace.put(out, memspace.HOST)
+        else:
+            memspace.tag_device(out)
+        st.offloaded += 1
+        st.sharded += 1
+        st.tiles += len(plan.tiles)
+        return out, tuple(devices)
+
+    @staticmethod
+    def _run_tile(tile: Tile, placed: list) -> torch.Tensor:
+        """One tile's arithmetic, on the card its blocks live on (with
+        several cards the launch must be issued from that card)."""
+        home = placed[0].device
+        if home.type == "cuda" and torch.cuda.device_count() > 1:
+            with torch.cuda.device(home):
+                return tile.compute(*placed)
+        return tile.compute(*placed)
+
+    # ------------------------------------------------------------------ #
     # async mode                                                          #
     # ------------------------------------------------------------------ #
     def _drain(self) -> None:
@@ -707,6 +1174,7 @@ class OffloadRuntime:
                   compute: Callable[..., torch.Tensor],
                   batch: int = 1,
                   key: Optional[Hashable] = None,
+                  shard: Optional[Callable[..., Optional[TilePlan]]] = None,
                   kernel_compute: Optional[Callable] = None,
                   split_compute: Optional[Callable] = None,
                   split_check: Optional[Callable] = None) -> torch.Tensor:
@@ -717,6 +1185,8 @@ class OffloadRuntime:
         the arithmetic, taking the placed operand tensors in order.
         ``key``: hashable call-shape identity; when given, the offload
         decision is memoized in the dispatch cache.
+        ``shard``: tile-plan builder ``n_devices -> TilePlan``, consulted
+        only when the call offloads and more than one usable tier exists.
         ``kernel_compute``: the pallas-venue arithmetic (consulted only
         under ``kernel_path``; None means no kernel for this routine).
         ``split_compute``: split-precision factory ``(scheme, venue) ->
@@ -730,13 +1200,13 @@ class OffloadRuntime:
             _TLS.depth = getattr(_TLS, "depth", 0) + 1
             try:
                 return self._blas_call_locked(
-                    routine, m, n, k, operands, compute, batch, key,
+                    routine, m, n, k, operands, compute, batch, key, shard,
                     kernel_compute, split_compute, split_check)
             finally:
                 _TLS.depth -= 1
 
     def _blas_call_locked(self, routine, m, n, k, operands, compute, batch,
-                          key, kernel_compute, split_compute,
+                          key, shard, kernel_compute, split_compute,
                           split_check) -> torch.Tensor:
         st = self.stats.routine(routine)
         st.calls += 1
@@ -746,7 +1216,7 @@ class OffloadRuntime:
             return compute(*arrays)
         call = CallContext(routine=routine, m=m, n=n, k=k, batch=batch,
                            operands=operands, arrays=arrays,
-                           compute=compute, key=key,
+                           compute=compute, key=key, shard=shard,
                            kernel_compute=kernel_compute,
                            split_compute=split_compute,
                            split_check=split_check)
@@ -758,14 +1228,15 @@ class OffloadRuntime:
             # a probe bills its own device work: drain what is queued
             self._drain()
         t0 = time.perf_counter()
-        out = self._execute(call, decision, st)
+        self._stage_plan(call, decision)
+        out, devices = self._execute(call, decision, st)
         if decision.precision and decision.offload:
             # sampled-residual check + escalation; inside the timed
             # window so probe samples bill what the scheme really costs
             out = self._verify_split(call, decision, st, out)
         self._fence(timed=decision.timed)
         dt = time.perf_counter() - t0
-        self._record(call, decision, out, dt, st)
+        self._record(call, decision, out, devices, dt, st)
         return out
 
     # ------------------------------------------------------------------ #
@@ -781,6 +1252,14 @@ class OffloadRuntime:
         if decision.offload and not self.policy.offloads:
             decision.offload = False
             decision.why = "policy:host-only"
+        if decision.offload and not self.health.any_usable():
+            # degraded mode: every tier quarantined — keep serving on
+            # the host path until a half-open probe readmits one
+            decision.offload = False
+            decision.why = "fallback:quarantined"
+            self.stats.fallbacks += 1
+            st.fallbacks += 1
+            self._emit_event("fallback", "quarantined", 0)
         self._resolve_precision(call, decision)
         self._resolve_venue(call, decision)
         return decision
@@ -795,8 +1274,8 @@ class OffloadRuntime:
         if not self.precision:
             return
         if not decision.offload or call.split_compute is None:
-            # the host path (incl. policy vetoes of a split probe)
-            # always runs native fp64
+            # the host path (incl. policy/health vetoes of a split
+            # probe) always runs native fp64
             decision.precision = ""
             return
         if decision.precision or decision.why.startswith("adaptive"):
@@ -811,9 +1290,9 @@ class OffloadRuntime:
     def _resolve_venue(self, call: CallContext,
                        decision: DispatchDecision) -> None:
         """Venue: which execution engine runs the decided path.  A no-op
-        with ``kernel_path`` off.  Runs after the policy veto so a vetoed
-        call is always ``host``; an adaptive decision arrives with its
-        venue already chosen and is left alone."""
+        with ``kernel_path`` off.  Runs after the policy and health
+        vetoes so a vetoed call is always ``host``; an adaptive decision
+        arrives with its venue already chosen and is left alone."""
         if not self.kernel_path:
             return
         if not decision.offload:
@@ -914,33 +1393,74 @@ class OffloadRuntime:
         return DispatchDecision(offload, n_avg=nav, why="threshold")
 
     # ------------------------------------------------------------------ #
-    # execute: host path or whole-call offload                            #
+    # plan: consult the multi-device tile planner                         #
+    # ------------------------------------------------------------------ #
+    def _stage_plan(self, call: CallContext,
+                    decision: DispatchDecision) -> DispatchDecision:
+        n_avail = self.health.usable_count()
+        if (decision.offload and call.shard is not None
+                and n_avail > 1 and self.policy.shardable):
+            kw = {}
+            if self.kernel_path and decision.venue == "pallas":
+                # sharded tiles follow the venue: the tile arithmetic
+                # runs the kernel closures, under the same guarded units
+                kw["venue"] = "pallas"
+            if decision.precision and call.split_compute is not None:
+                # split tiles: the same geometry, the split passes
+                kw["precision"] = decision.precision
+            decision.plan = call.shard(n_avail, **kw)
+        return decision
+
+    # ------------------------------------------------------------------ #
+    # execute: host, sharded tiles, or whole-call offload                 #
     # ------------------------------------------------------------------ #
     def _execute(self, call: CallContext, decision: DispatchDecision,
-                 st: RoutineStats) -> torch.Tensor:
+                 st: RoutineStats) -> Tuple[torch.Tensor, Tuple[int, ...]]:
         if not decision.offload:
-            out = call.compute(*self._harmonize(call.arrays, st))
+            out = self._host_compute(call, st)
             st.on_host += 1
-            return out
-        return self._offload_whole(call, decision, st)
+            return out, ()
+        try:
+            if decision.plan is not None:
+                return self._sharded_call(st, decision.plan,
+                                          site=call.site)
+            return self._offload_whole(call, decision, st), ()
+        except flt.OffloadError as exc:
+            return self._fallback_host(call, decision, st, exc), ()
+
+    def _host_compute(self, call: CallContext,
+                      st: RoutineStats) -> torch.Tensor:
+        """The host path: the call's closure on its operands, streamed to
+        the session's device (:meth:`_harmonize`)."""
+        return call.compute(*self._harmonize(call.arrays, st))
 
     def _offload_whole(self, call: CallContext, decision: DispatchDecision,
                        st: RoutineStats) -> torch.Tensor:
         """Single-device offload: the policy places every operand, the
         decided formulation runs on the placed tensors (the split one,
         the pallas venue's kernel closure, or the generic closure), the
-        policy places the output."""
+        policy places the output.  Each operand movement, the kernel and
+        the output placement are separate guarded units, attributed to
+        the whole-call device tier."""
         site = call.site
+        dev = self._whole_device()
         placed, budget_used = [], 0
         ai = self._arith_intensity(call.routine, call.m, call.n, call.k,
                                    call.arrays, call.batch)
         for (role, x, reads, written) in call.operands:
             if isinstance(self.policy, pol.CounterPolicy):
-                p = self.policy.place_operand(
-                    self, x, reads_per_elem=reads, written=written, ai=ai,
-                    budget_used=budget_used)
+                p = self._guarded(
+                    "transfer",
+                    lambda x=x, r=reads, w=written, b=budget_used:
+                        self.policy.place_operand(
+                            self, x, reads_per_elem=r, written=w, ai=ai,
+                            budget_used=b),
+                    device=dev, nbytes=memspace.nbytes(x), st=st)
             else:
-                p = self.policy.place_operand(self, x)
+                p = self._guarded(
+                    "transfer",
+                    lambda x=x: self.policy.place_operand(self, x),
+                    device=dev, nbytes=memspace.nbytes(x), st=st)
             budget_used += p.moved_bytes
             st.bytes_in += p.moved_bytes
             st.cache_hits += int(p.cache_hit)
@@ -952,6 +1472,8 @@ class OffloadRuntime:
             if p.moved_bytes or p.cache_hit:
                 self.alias_trace_id(x, p.array)
             placed.append(p.array)
+        # harmonize outside the kernel guard: a retried kernel must not
+        # re-bill transient streaming bytes
         call.placed = self._harmonize(placed, st)
         if decision.precision and call.split_compute is not None:
             compute = call.split_compute(decision.precision, decision.venue)
@@ -960,8 +1482,12 @@ class OffloadRuntime:
             compute = call.kernel_compute
         else:
             compute = call.compute
-        out = compute(*call.placed)
-        out_p = self.policy.place_output(self, out)
+        args = call.placed
+        out = self._guarded("kernel", lambda: compute(*args),
+                            device=dev, nbytes=0, st=st)
+        out_p = self._guarded(
+            "transfer", lambda: self.policy.place_output(self, out),
+            device=dev, nbytes=memspace.nbytes(out), st=st)
         st.bytes_out += out_p.moved_bytes
         st.offloaded += 1
         return out_p.array
@@ -975,12 +1501,17 @@ class OffloadRuntime:
         ``precision_rtol`` is discarded and the call reruns native fp64,
         so accuracy degradation is bounded, never silent.  The check
         reads the operands the split ran on (``call.placed``, on the
-        device tier), where the reference reads the caller's arrays; the
-        native rerun streams the caller's arrays as the reference's
-        does.  Reading the residual waits for the result."""
+        device tier), where the reference reads the caller's arrays; a
+        sharded call placed blocks, not whole operands, so its check
+        reads the caller's arrays on the result's device.  The native
+        rerun streams the caller's arrays as the reference's does.
+        Reading the residual waits for the result."""
         if call.split_check is None:
             return out
-        rel = float(call.split_check(out, *call.placed))
+        placed = call.placed
+        if placed is None:
+            placed = [a.to(out.device) for a in call.arrays]
+        rel = float(call.split_check(out, *placed))
         if rel <= self.precision_rtol:
             return out
         st.escalations += 1
@@ -999,7 +1530,9 @@ class OffloadRuntime:
     def _harmonize(self, arrays, st: RoutineStats) -> list:
         """Operands a policy left on the host are streamed to the device
         for this call only (the placement registry is untouched), so the
-        arithmetic always runs where the session's device is."""
+        arithmetic always runs where the session's device is.  This is
+        not a placement decision (and the host fallback itself runs
+        through here), so it is never a fault-injection site."""
         out = []
         for a in arrays:
             if memspace.tier_of(a) != memspace.DEVICE:
@@ -1013,7 +1546,8 @@ class OffloadRuntime:
     # record: statistics, site profile, trace                             #
     # ------------------------------------------------------------------ #
     def _record(self, call: CallContext, decision: DispatchDecision,
-                out: torch.Tensor, dt: float, st: RoutineStats) -> None:
+                out: torch.Tensor, devices: Tuple[int, ...], dt: float,
+                st: RoutineStats) -> None:
         st.seconds += dt
         if decision.offload and decision.venue == "pallas":
             st.kernel_calls += 1
@@ -1037,10 +1571,11 @@ class OffloadRuntime:
             span = self._solver_stack[-1]
             solver_id = span.span_id
             self.stats.solver(span.name).calls += 1
-        self._record_trace(call, decision, out, dt, solver_id)
+        self._record_trace(call, decision, out, devices, dt, solver_id)
         if self.debug >= 2:
-            where = ((decision.venue or "offload") if decision.offload
-                     else "host")
+            where = "host" if not decision.offload else (
+                f"shard[{len(devices)} tiles]" if devices else
+                (decision.venue or "offload"))
             print(f"[scilib] {call.routine} m={call.m} n={call.n} "
                   f"k={call.k} navg={decision.n_avg:.0f} {where} "
                   f"({decision.why})")
@@ -1061,8 +1596,8 @@ class OffloadRuntime:
         return _flops_of(routine, m, n, k, batch) / max(1, size)
 
     def _record_trace(self, call: CallContext, decision: DispatchDecision,
-                      out: torch.Tensor, seconds: float,
-                      solver_id: str = "") -> None:
+                      out: torch.Tensor, devices: Tuple[int, ...],
+                      seconds: float, solver_id: str = "") -> None:
         if self.trace is None:
             return
         ops = []
@@ -1082,7 +1617,7 @@ class OffloadRuntime:
             out_nbytes = memspace.nbytes(out)
         self.trace.calls.append(BlasCall(
             routine=call.routine, m=call.m, n=call.n, k=call.k,
-            batch=call.batch, operands=tuple(ops),
+            batch=call.batch, operands=tuple(ops), devices=tuple(devices),
             callsite_id=call.site_id, seconds=seconds,
             out_buf=out_buf, out_nbytes=out_nbytes, venue=decision.venue,
             precision=decision.precision, solver_id=solver_id))
@@ -1097,12 +1632,17 @@ _ACTIVE: ContextVar[Optional[OffloadRuntime]] = (
 
 def activate(runtime: Optional[OffloadRuntime]) -> None:
     """Make ``runtime`` the dispatch target of the current context, with
-    its tier mapping (None deactivates both).  Sessions drive this."""
+    its tier mapping, fault hook and debug level (None deactivates all
+    of them).  Sessions drive this."""
     _ACTIVE.set(runtime)
     if runtime is None:
         memspace.uninstall()
+        memspace.set_fault_hook(None)
+        memspace.set_debug(0)
     else:
         memspace.install(runtime.memspace)
+        memspace.set_fault_hook(runtime._transfer_fault_hook())
+        memspace.set_debug(runtime.debug)
 
 
 def active() -> Optional[OffloadRuntime]:

@@ -31,11 +31,20 @@ interpreter shutdown to its ``config.trace_path``.  The legacy
 ``install()``/``uninstall()`` shims (:mod:`repro_torch.core.intercept`,
 :mod:`repro_torch.core.runtime`) open and close implicit sessions on one
 shared stack (:func:`open_legacy`, :func:`close_legacy`).
-``Session.scope()`` and the shared device pool are not ported yet.
+
+Sessions are context-local: a worker thread does not inherit the
+sessions its parent opened.  ``with s.scope():`` adopts an open session
+in the current thread, and several threads may scope one session at once
+(its runtime serializes their calls).  Concurrent sessions may share one
+device budget through a
+:class:`~repro_torch.core.residency.SharedDevicePool` (``pool=``, or
+``pool_bytes``/``pool_quota`` in the config).  Every worker launches on
+the current (default) stream.
 """
 from __future__ import annotations
 
 import atexit
+import contextlib
 import threading
 from contextvars import ContextVar
 from typing import List, Optional, Tuple
@@ -77,23 +86,26 @@ class Session:
     (raising without CUDA), ``"cpu"`` the simulated tiers.
     ``intercept=False`` activates the runtime without patching the public
     symbols (the dlsym-mode analogue: callers use
-    :mod:`repro_torch.core.blas` directly).  ``name`` stamps trace events.
-    ``pool`` (the reference's shared device pool) is not ported yet.
+    :mod:`repro_torch.core.blas` directly).
+
+    ``name`` is the session's tenant id for multi-tenant runs: trace
+    events are stamped with it and per-tenant pool statistics report
+    under it; unnamed sessions stamp nothing.  ``pool`` joins the session
+    to a :class:`~repro_torch.core.residency.SharedDevicePool` (quota
+    from ``config.pool_quota``); with no explicit pool, setting
+    ``config.pool_bytes``/``pool_quota`` joins the process-default pool.
     """
 
     def __init__(self, config: Optional[OffloadConfig] = None, *,
                  device=None, record_trace: bool = True,
                  intercept: bool = True, name: str = "", pool=None):
-        if pool is not None:
-            raise NotImplementedError(
-                "Session(pool=...) is not ported yet: see ROADMAP.md "
-                "Queue 1 item 7 (SharedDevicePool tenancy)")
         self.config = (OffloadConfig.from_env() if config is None
                        else config)
         self.device = memspace.resolve_device(device)
         self.record_trace = record_trace
         self.intercept = intercept
         self.name = name
+        self.pool = pool
         self.runtime = None
         self._trace_dumped = False
         # whether this session holds a reference on the solver patch
@@ -109,12 +121,18 @@ class Session:
         if self.runtime is not None:
             raise RuntimeError("session is already open")
         from repro_torch.core import intercept as icp
+        from repro_torch.core import residency as res
         from repro_torch.core import runtime as rt
         self._trace_dumped = False
+        pool = self.pool
+        if pool is None and (self.config.pool_bytes is not None
+                             or self.config.pool_quota is not None):
+            pool = res.default_pool(self.config.pool_bytes)
         self.runtime = rt.OffloadRuntime(config=self.config,
                                          device=self.device,
                                          record_trace=self.record_trace,
-                                         session_id=self.name)
+                                         session_id=self.name, pool=pool)
+        self.name = self.runtime.session_id     # a pool may assign one
         _STACK.set(_STACK.get() + (self,))
         with _OPEN_LOCK:
             _OPEN.append(self)
@@ -140,6 +158,8 @@ class Session:
             runtime.sync()
         finally:
             self._dump_trace(runtime=runtime)
+            runtime.detach_pool()
+            runtime.release()
             stack = _STACK.get()
             if self in stack:
                 _STACK.set(tuple(s for s in stack if s is not self))
@@ -167,6 +187,32 @@ class Session:
     @property
     def closed(self) -> bool:
         return self.runtime is None
+
+    @contextlib.contextmanager
+    def scope(self):
+        """Adopt this open session in the current thread (context).
+
+        Sessions are context-local: a worker thread does not inherit the
+        thread that opened them.  ``with s.scope():`` makes ``s`` the
+        active dispatch target here without reopening it — several
+        workers may scope one session concurrently (its runtime
+        serializes their calls).  The previous state of this context is
+        restored on exit."""
+        self._require_open()
+        from repro_torch.core import blas
+        from repro_torch.core import runtime as rt
+        token = _STACK.set(_STACK.get() + (self,))
+        rt.activate(self.runtime)
+        blas.refresh_cache_flag(self.config.dispatch_cache)
+        try:
+            yield self
+        finally:
+            _STACK.reset(token)
+            stack = _STACK.get()
+            prev = stack[-1] if stack else None
+            rt.activate(prev.runtime if prev is not None else None)
+            if prev is not None and prev.runtime is not None:
+                blas.refresh_cache_flag(prev.config.dispatch_cache)
 
     # ------------------------------------------------------------------ #
     # what a workload reads off its session                               #
@@ -204,10 +250,11 @@ class Session:
 
     def reconfigure(self, **kw) -> OffloadConfig:
         """Apply config changes to the live runtime: the new config is
-        validated as a whole, fields this slice has not ported raise
-        ``NotImplementedError``, the dispatch cache is flushed and the
-        residency cap, eviction policy and pinning update in place.
-        Returns the new config."""
+        validated as a whole, the dispatch cache is flushed and the
+        residency caps, eviction policy, pinning and fault knobs update
+        in place.  ``devices`` cannot change on a live session (the
+        block-store topology is fixed at open): that raises
+        ``ValueError``.  Returns the new config."""
         self._require_open()
         new = self.config.replace(**kw)
         self.runtime.apply_config(new)

@@ -153,10 +153,11 @@ class Trace:
     the same cap and eviction policy can therefore be checked
     count-for-count against what the live run actually did.  Fault
     tolerance reuses the same channel: ``fault``/``retry``/``fallback``/
-    ``quarantine``/``recover`` events (``repro/core/faults.py``, not yet
-    ported) record
-    what actually went wrong and where the run degraded, so a faulted
-    trace replays to the exact live fallback/retry counters.
+    ``quarantine``/``recover`` events (:mod:`repro_torch.core.faults`)
+    record what actually went wrong and where the run degraded, so a
+    faulted trace replays to the exact live fallback/retry counters.
+    Each event carries the session id of a named (multi-tenant) session,
+    and each call the tiers its tiles ran on (``BlasCall.devices``).
     """
 
     def __init__(self) -> None:

@@ -242,9 +242,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     pl = plan(q, k, v)
     q, k, v = (x.contiguous() if c else x for x, c in zip((q, k, v), pl.copy))
     global launches, copies
-    copies += sum(pl.copy)
-    launches += 1
-    launches_by_path[pl.path] += 1
+    with compat.COUNT_LOCK:
+        copies += sum(pl.copy)
+        launches += 1
+        launches_by_path[pl.path] += 1
     rc = _entry(pl.path)(
         CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), b, hq, hkv, tq, tk, d, strides(q, (0, 1, 2)),

@@ -41,6 +41,21 @@ BUILD_SECONDS = 0.0
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
+#: guards the wrappers' launch counters (``gemm.launches`` and the
+#: rest), which worker threads of one process update concurrently
+COUNT_LOCK = threading.Lock()
+
+
+class KernelBuildError(RuntimeError):
+    """A kernel source did not build (``nvcc`` failed or is missing).
+    An error of the port, not of the device: the runtime's fault guards
+    never absorb it (``repro_torch.core.faults.classify``)."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A launch entry point returned a CUDA error, or could not make its
+    TMA descriptors.  Never absorbed by the fault guards either."""
+
 
 def nvcc() -> str:
     """Path of the CUDA compiler, or raise."""
@@ -51,8 +66,9 @@ def nvcc() -> str:
             return str(cand)
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME): the port's "
-                           "CUDA kernels cannot be built on this machine")
+        raise KernelBuildError("nvcc not found (set CUDA_HOME): the port's "
+                               "CUDA kernels cannot be built on this "
+                               "machine")
     return found
 
 
@@ -74,7 +90,8 @@ def library_path(name: str) -> Path:
 
 def build_all() -> Dict[str, Path]:
     """Compile every source whose library is missing, all in parallel.
-    Raises ``RuntimeError`` with the compiler's output when one fails."""
+    Raises :class:`KernelBuildError` with the compiler's output when one
+    fails."""
     global BUILD_SECONDS
     targets = {name: library_path(name) for name in sources()}
     todo = {n: p for n, p in targets.items() if not p.is_file()}
@@ -100,7 +117,7 @@ def build_all() -> Dict[str, Path]:
             failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{out}")
     BUILD_SECONDS = time.perf_counter() - t0
     if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+        raise KernelBuildError("kernel build failed:\n" + "\n".join(failed))
     return targets
 
 
@@ -156,7 +173,9 @@ def ptxas_variants(log: str) -> list:
 
 
 def check(rc: int, kernel: str) -> None:
-    """Raise on a non-zero status returned by a launch entry point."""
+    """Raise on a non-zero status returned by a launch entry point: a
+    refused dtype or shape as ``TypeError``/``ValueError`` (a bug of the
+    caller), a failed descriptor or launch as :class:`KernelLaunchError`."""
     if rc == 0:
         return
     if rc == -1:
@@ -164,5 +183,6 @@ def check(rc: int, kernel: str) -> None:
     if rc == -2:
         raise ValueError(f"{kernel}: shape cannot be launched")
     if rc == -3:
-        raise RuntimeError(f"{kernel}: TMA descriptors could not be made")
-    raise RuntimeError(f"{kernel}: launch failed with cudaError {rc}")
+        raise KernelLaunchError(f"{kernel}: TMA descriptors could not be "
+                                f"made")
+    raise KernelLaunchError(f"{kernel}: launch failed with cudaError {rc}")

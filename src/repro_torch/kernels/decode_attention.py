@@ -123,7 +123,8 @@ def _copy_ready(x: torch.Tensor) -> torch.Tensor:
     if (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
             and all(x.stride(i) * es % 16 == 0 for i in range(3))):
         return x
-    copies += 1
+    with compat.COUNT_LOCK:
+        copies += 1
     return x.contiguous()
 
 
@@ -215,8 +216,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        device=q.device)
     out = torch.empty((b, hq, 1, d), dtype=q.dtype, device=q.device)
     tickets = torch.zeros(b * hkv, dtype=torch.int32, device=q.device)
-    memsets += 1
-    launches += 1
+    with compat.COUNT_LOCK:
+        memsets += 1
+        launches += 1
     rc = _entry()(
         CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), part.data_ptr(), tickets.data_ptr(),

@@ -217,8 +217,9 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *,
         work = torch.empty(p.splits * batch * m * n, dtype=torch.float32,
                            device=a.device)
     global launches, reduce_launches
-    launches += 1
-    reduce_launches += p.splits > 1
+    with compat.COUNT_LOCK:
+        launches += 1
+        reduce_launches += p.splits > 1
     sa = a.stride(0) if batched else 0
     sb = b.stride(0) if batched else 0
     sc = out.stride(0) if batched else 0

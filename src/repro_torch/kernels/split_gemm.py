@@ -107,7 +107,8 @@ def fused(a: torch.Tensor, b: torch.Tensor, scheme: str, *,
     work = torch.empty(2 * splits * m * n, dtype=torch.float64,
                        device=a.device)
     global launches
-    launches += 2
+    with compat.COUNT_LOCK:
+        launches += 2
     rc = _fn("repro_split_gemm", _GEMM_ARGS)(
         _SCHEMES[scheme], a.data_ptr(), b.data_ptr(), out.data_ptr(),
         work.data_ptr(), m, n, k, a.stride(0), a.stride(1), b.stride(0),

@@ -181,7 +181,8 @@ def syrk(a: torch.Tensor, *, uplo: str = "L",
                         dtype=torch.float64, device=a.device)
             if p.splits > 1 else None)
     global launches
-    launches += 1
+    with compat.COUNT_LOCK:
+        launches += 1
     rc = _entry()(CODES[a.dtype], a.data_ptr(), out.data_ptr(), n, k,
                   a3.stride(1), c3.stride(1), batch, a3.stride(0),
                   c3.stride(0), int(trans == "T"), int(uplo == "L"),

@@ -136,8 +136,9 @@ def solve_lower(l: torch.Tensor, b: torch.Tensor, *,
     flags = torch.zeros(batch * -(-n // PANEL) + 1, dtype=torch.int32,
                         device=b.device)
     global launches, memsets
-    memsets += 1
-    launches += 1
+    with compat.COUNT_LOCK:
+        memsets += 1
+        launches += 1
     rc = _entry()(CODES[l.dtype], l.data_ptr(), b.data_ptr(),
                   out.data_ptr(), m, n, l3.stride(1), b3.stride(1),
                   x3.stride(1), batch, l3.stride(0), b3.stride(0),

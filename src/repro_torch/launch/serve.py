@@ -10,15 +10,65 @@ The counterpart of ``repro/launch/serve.py``, with the same flags plus
 Without ``--device`` it serves on the card (``cuda:0``) and raises when
 there is none.  ``--offload-config tuned.json`` serves inside a port
 session running those settings (``OffloadConfig.load``); the session
-report prints at exit.  ``--streams N > 1`` (N concurrent streams over a
-shared device pool) needs the reference's ``SharedDevicePool``, which is
-not ported yet (ROADMAP Queue 1 item 7): it raises.  Weights come from a
-seeded ``torch.Generator`` (seed 0), the prompt from seed 1; both differ
-from the reference's JAX draws.
+report prints at exit.  ``--streams N`` serves N concurrent request
+streams over shared weights: one worker thread per stream, each with its
+own ``Server`` and its own offload session (``stream-<i>``), all drawing
+on one :class:`~repro_torch.core.residency.SharedDevicePool` of
+``--pool-mb`` MB (:func:`serve_streams`); the pool's per-tenant report
+prints at exit.  Every worker launches on the default stream.  Weights
+come from a seeded ``torch.Generator`` (seed 0), the prompt from seed 1;
+both differ from the reference's JAX draws.
 """
 from __future__ import annotations
 
 import argparse
+import threading
+
+
+def serve_streams(model, params, scfg, prompt, n_tokens: int, streams: int,
+                  pool, ocfg=None, device=None) -> list:
+    """Serve ``streams`` copies of ``prompt`` concurrently, one worker
+    thread each, each with its own ``Server`` over the shared ``params``
+    inside its own session (``name=f"stream-{i}"``, ``pool=pool``,
+    ``intercept=False``, ``record_trace=False``).  Returns one
+    ``(tokens, ServeStats, tenant row, (start, end))`` per stream: the
+    tenant row is ``pool.tenant_stats()`` just before the session closed,
+    and ``start``/``end`` are ``time.perf_counter()`` stamps around the
+    stream's ``generate``.  The first worker error is re-raised."""
+    import time
+
+    from repro_torch.core import session as ses
+    from repro_torch.core.config import OffloadConfig
+    from repro_torch.train import Server
+
+    ocfg = OffloadConfig(policy="dfu") if ocfg is None else ocfg
+    results = [None] * streams
+    errors = []
+
+    def worker(idx: int) -> None:
+        try:
+            with ses.session(ocfg, device=device, record_trace=False,
+                             intercept=False, name=f"stream-{idx}",
+                             pool=pool) as s:
+                srv = Server(model, params, scfg, device=device)
+                t0 = time.perf_counter()
+                out = srv.generate(prompt, n_tokens)
+                t1 = time.perf_counter()
+                results[idx] = (out, srv.stats,
+                                pool.tenant_stats().get(s.name), (t0, t1))
+        except BaseException as exc:   # noqa: BLE001 - re-raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=worker, args=(i,),
+                                name=f"serve-stream-{i}")
+               for i in range(streams)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    return results
 
 
 def main(argv=None) -> int:
@@ -35,21 +85,19 @@ def main(argv=None) -> int:
                     help="OffloadConfig JSON: serve inside a session "
                          "running these settings")
     ap.add_argument("--streams", type=int, default=1,
-                    help="concurrent request streams (not ported yet)")
+                    help="concurrent request streams, one session per "
+                         "stream over a shared device pool")
     ap.add_argument("--pool-mb", type=int, default=256,
                     help="shared pool capacity for --streams > 1")
     ap.add_argument("--device", default=None,
                     help="cuda:N (default cuda:0) or cpu")
     args = ap.parse_args(argv)
-    if args.streams > 1:
-        raise NotImplementedError(
-            "--streams > 1 needs the shared device pool "
-            "(SharedDevicePool), not ported yet: ROADMAP Queue 1 item 7")
 
     import torch
 
     from repro_torch.configs.base import torch_dtype
     from repro_torch.core import memspace
+    from repro_torch.core.config import OffloadConfig
     from repro_torch.models import get_config
     from repro_torch.models.registry import Model
     from repro_torch.train import Server, ServeConfig
@@ -65,12 +113,31 @@ def main(argv=None) -> int:
                        temperature=args.temperature,
                        offload_policy=args.policy,
                        cache_dtype=torch_dtype(cfg.dtype))
-    srv = Server(model, params, scfg, device=device)
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=torch.Generator().manual_seed(1))
+    if args.streams > 1:
+        from repro_torch.core.residency import SharedDevicePool
+        pool = SharedDevicePool(args.pool_mb << 20, name="serve")
+        ocfg = (OffloadConfig.load(args.offload_config)
+                if args.offload_config else None)
+        results = serve_streams(model, params, scfg, prompt, args.gen,
+                                args.streams, pool, ocfg, device)
+        print(f"arch={cfg.name} policy={args.policy} "
+              f"streams={args.streams} pool={args.pool_mb}MB "
+              f"device={device}")
+        print(pool.report())
+        for idx, (out, st, row, (t0, t1)) in enumerate(results):
+            print(f"  stream-{idx}: generated {tuple(out.shape)} "
+                  f"migrations={st.migrations} "
+                  f"cache reuses={st.cache_reuses} "
+                  f"({st.tokens / max(1e-9, t1 - t0):.1f} tok/s)")
+            if row is not None:
+                print(f"  stream-{idx}: " + " ".join(
+                    f"{k}={v}" for k, v in sorted(row.items())))
+        return 0
+    srv = Server(model, params, scfg, device=device)
     session = None
     if args.offload_config:
-        from repro_torch.core.config import OffloadConfig
         from repro_torch.core.session import Session
         session = Session(OffloadConfig.load(args.offload_config),
                           device=device).open()

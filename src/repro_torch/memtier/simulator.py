@@ -94,9 +94,8 @@ class PolicyReport:
     refetches: int = 0                   # evicted entries placed again
     refetched_bytes: int = 0
     # fault-tolerance counters replayed off the trace's fault events
-    # (``repro/core/faults.py``, not yet ported): a faulted live run and
-    # its replay agree on
-    # these exactly — the trace records where the run degraded
+    # (repro_torch.core.faults): a faulted live run and its replay agree
+    # on these exactly — the trace records where the run degraded
     faults: int = 0
     retries: int = 0
     fallbacks: int = 0

@@ -78,7 +78,9 @@ def _tree_put(tree, tier: str) -> Tuple[Any, int]:
         return tuple(out), moved
     if memspace.tier_of(tree) == tier:
         return tree, 0
-    return memspace.put(tree, tier), memspace.nbytes(tree)
+    # the cache's placement is the serving loop's own, with no fallback
+    # path: a session's injected transfer faults never fire here
+    return memspace.put(tree, tier, check=False), memspace.nbytes(tree)
 
 
 class Server:

@@ -1,6 +1,6 @@
 """The port's backend-free core against the JAX reference: config and its
 env names, threshold rule, trace schema, residency engine, call sites,
-and the refusal of fields this slice has not ported."""
+and every config field reaching a live session."""
 import dataclasses
 import json
 import os
@@ -250,31 +250,42 @@ def test_callsite_fingerprint_skips_port_frames():
     ("lapack_nb", 64), ("faults", "transfer:p=0.1"),
     ("pool_bytes", 1 << 20), ("pool_quota", 1 << 20)])
 def test_unported_fields_raise_naming_the_roadmap_item(field, value):
-    """A field the port does not implement raises, naming the ROADMAP.md
-    item that brings it; the fields ported since (the adaptive mode, the
-    kernel venue, split precision, the gemm tile edge, the solver tier)
-    open a session and reconfigure."""
+    """Every field the port once refused now opens a session and reaches
+    the live runtime; all but ``devices`` also reconfigure live, while a
+    live ``devices`` change raises the reference's ``ValueError`` (the
+    tier topology is fixed at open)."""
+    tres.reset_default_pool()
     cfg = OffloadConfig(**{field: value})
-    if field in ("adaptive", "kernel_path", "precision", "kernel_block",
-                 "lapack", "lapack_nb"):
-        def live(s):
-            holder = s.runtime.config if field.startswith("lapack") \
-                else s.runtime
-            return getattr(holder, field)
+    live = {
+        "devices": lambda s: s.runtime.n_devices,
+        "faults": lambda s: s.runtime.faults.rules,
+        "pool_bytes": lambda s: s.runtime.pool.total_bytes,
+        "pool_quota": lambda s: s.runtime.pool.quota_of(s.name),
+        "lapack": lambda s: s.runtime.config.lapack,
+        "lapack_nb": lambda s: s.runtime.config.lapack_nb,
+    }.get(field, lambda s: getattr(s.runtime, field))
+    want = (repro_torch.faults.parse_spec(value) if field == "faults"
+            else value)
+    try:
         with repro_torch.session(cfg, device="cpu") as s:
-            assert live(s) == value
+            assert live(s) == want
         with repro_torch.session(device="cpu") as s:
+            if field == "devices":
+                with pytest.raises(ValueError, match="devices cannot "
+                                   "change on a live runtime"):
+                    s.reconfigure(devices=value)
+                assert s.config.devices is None and s.runtime.n_devices == 1
+                return
+            if field.startswith("pool"):
+                # the pool is joined at open: a live change is kept in
+                # the config and takes effect in the next session
+                s.reconfigure(**{field: value})
+                assert getattr(s.config, field) == value
+                return
             s.reconfigure(**{field: value})
-            assert live(s) == value
-        return
-    item = trt.UNPORTED_FIELDS.get(field, "Queue 1 item 7")
-    with pytest.raises(NotImplementedError,
-                       match=re.escape(f"ROADMAP.md {item}")):
-        repro_torch.session(cfg, device="cpu")
-    with repro_torch.session(device="cpu") as s:
-        with pytest.raises(NotImplementedError, match=field):
-            s.reconfigure(**{field: value})
-        assert getattr(s.config, field) == getattr(OffloadConfig(), field)
+            assert live(s) == want
+    finally:
+        tres.reset_default_pool()
 
 
 def test_fault_knobs_without_faults_are_accepted():
@@ -282,6 +293,11 @@ def test_fault_knobs_without_faults_are_accepted():
                         breaker_cooldown_ms=10.0, devices=1)
     with repro_torch.session(cfg, device="cpu") as s:
         assert s.config.retries == 5
-    with pytest.raises(NotImplementedError, match="pool"):
-        repro_torch.session(device="cpu", pool=object())
-    assert set(trt.UNPORTED_FIELDS) < set(MATRIX)
+        assert s.runtime.retry.attempts == 5
+        assert s.runtime.health.threshold == 0
+        assert s.runtime.faults is None
+    pool = tres.SharedDevicePool(1 << 20)
+    with repro_torch.session(device="cpu", pool=pool, name="t") as s:
+        assert s.runtime.pool is pool and pool.members() == ("t",)
+    assert pool.members() == ()
+    assert not hasattr(trt, "UNPORTED_FIELDS")

@@ -8,7 +8,8 @@ prefill attending over its fresh keys (the flash kernel's path) and over
 the cache.  Greedy tokens must be equal, against the reference run both
 on XLA and on its interpreted Pallas kernels (``SCILIB_PALLAS=1``), and
 every byte, migration and reuse count of ``ServeStats`` must equal the
-reference's.
+reference's.  Two concurrent streams over one shared pool give each
+stream the single-stream tokens and counts.
 """
 import dataclasses
 
@@ -139,7 +140,54 @@ def test_launch_serve_runs_on_the_cpu(capsys):
     assert "migrations=1, cache reuses=4" in out
 
 
-def test_launch_serve_refuses_streams():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        launch_serve.main(["--arch", "gemma2_9b", "--reduced", "--device",
-                           "cpu", "--streams", "2"])
+def test_launch_serve_refuses_streams(capsys):
+    """``--streams 2`` serves two concurrent streams over one shared
+    pool: each stream migrates its cache once and reuses it on every
+    decode step, and the pool's per-tenant report prints."""
+    rc = launch_serve.main(["--arch", "gemma2_9b", "--reduced", "--device",
+                            "cpu", "--batch", "2", "--prompt-len", "20",
+                            "--gen", "5", "--streams", "2"])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert "streams=2 pool=256MB" in out
+    assert "shared pool 'serve'" in out
+    for idx in (0, 1):
+        assert (f"stream-{idx}: generated (2, 5) migrations=1 "
+                f"cache reuses=4") in out
+
+
+def test_streams_match_one_stream_and_reference_tenants(reference, prompt,
+                                                        capsys):
+    """Two streams over shared weights each give the single-stream
+    tokens (the reference's), the single-stream ServeStats, and the
+    per-tenant pool rows the reference's ``_serve_streams`` reports."""
+    import argparse
+
+    from repro.launch import serve as jlaunch
+    from repro_torch.core.residency import SharedDevicePool
+    tokens, stats, params_np = reference
+    cfg = registry.get_config("gemma2_9b").reduced()
+    model = registry.Model.from_config(cfg)
+    params = params_from_jax(params_np, cfg)
+    scfg = ServeConfig(max_len=MAX_LEN, cache_dtype=torch.float32)
+    pool = SharedDevicePool(256 << 20, name="serve")
+    got = launch_serve.serve_streams(model, params, scfg,
+                                     torch.from_numpy(prompt), GEN, 2,
+                                     pool, device="cpu")
+    for out, st, row, _ in got:
+        np.testing.assert_array_equal(out.numpy(), tokens[True, False])
+        assert _stats(st) == stats["dfu"]
+    jcfg = jreg.get_config("gemma2_9b").reduced()
+    jmodel = jreg.Model.from_config(jcfg)
+    jparams = jax.tree.map(jnp.asarray, params_np)
+    args = argparse.Namespace(offload_config="", pool_mb=256, streams=2,
+                              gen=GEN, policy="dfu")
+    capsys.readouterr()
+    jlaunch._serve_streams(args, jcfg, jmodel, jparams, jserve.ServeConfig(
+        max_len=MAX_LEN, cache_dtype=jnp.float32),
+        jnp.asarray(prompt, jnp.int32), None)
+    printed = capsys.readouterr().out
+    for idx, (_, _, row, _) in enumerate(got):
+        line = f"  stream-{idx}: " + " ".join(
+            f"{k}={v}" for k, v in sorted(row.items()))
+        assert line in printed.splitlines(), (line, printed)
