@@ -16,7 +16,9 @@ patched ``torch.linalg`` symbols), then the kernel venue, adaptive
 per-site racing and split-precision fp64 at PARSEC's production shapes
 (ngrid 93536, nstates 2400, nblock 32), then the serving loop
 (``repro_torch.train.Server``) on gemma2-9b at full width with a Device
-First-Use decode cache.  Phases, in order:
+First-Use decode cache, then on the MoE and SSD models
+(granite-moe-1b-a400m, mamba2-1.3b, moonshot-v1-16b-a3b cut in depth,
+jamba reduced).  Phases, in order:
 
 1. build   — build and load the kernels; the card's name and power limit.
 2. kernels — each kernel against its plain version, with the tolerance
@@ -89,11 +91,35 @@ First-Use decode cache.  Phases, in order:
              a forward without a cache over the prompt and 15 generated
              tokens against the cached steps' logits; a device profile
              of one prefill and one decode step.
+9. serve_moe_ssm — the MoE and Mamba2 SSD blocks through the same loop,
+             with seeded random weights made on the card: (a)
+             granite-moe-1b-a400m and (b) mamba2-1.3b at full width and
+             depth, batch 2 x 4096, dfu (16 tokens) and memcopy (4):
+             DFU moves granite's 404,226,048 B KV cache and mamba2's
+             203,833,344 B state (float32 ssm_h and bf16 conv_state, the
+             same at any max_len) once, with 15 reuses; memcopy 4x each
+             way; tokens equal across policies; gemm, flash and decode
+             launches per forward and step (granite: 193 gemm, 24 flash
+             all on wgmma at D 64, 24 decode; mamba2: 97 gemm, no
+             attention); every attention call of granite's memcopy run
+             against its plain version; the tokens each MoE layer drops
+             to capacity at prefill logged; (c) moonshot-v1-16b-a3b at
+             full width over 12 of its 48 layers (D 128, MHA), batch 2 x
+             2048, dfu; (d) jamba-1.5-large-398b reduced, one period of
+             its mixed (k, v) / (ssm_h, conv) cache, dfu.  Then gemm.cu
+             on the batched expert products (paths 1 and 2, against
+             torch.bmm), the router, the ragged vocab head and mamba2's
+             projections, decode at D 64 and 128, flash at granite's and
+             moonshot's prefill shapes; cached-vs-uncached cross-checks
+             at full width over 2 layers for (a) (capacity raised to the
+             token count, so nothing drops) and (b); one profiled prefill
+             and decode step of (a) and (b).
 
 The kernels line's launches are those of the main path's runs: the
 BLAS, LSMS and solvers phases, the venue phase's (a)-(c), every run of
-the runtime phase, and the serve phase's dfu, streams and memcopy runs,
-each with the counts set to 0 just before it.  The cross-check's and the profile's launches are not among them.
+the runtime phase, the serve phase's dfu, streams and memcopy runs, and
+the serve_moe_ssm phase's dfu and memcopy runs, each with the counts set
+to 0 just before it.  The cross-check's and the profile's launches are not among them.
 Every mismatch or missing launch raises, so the script exits non-zero.
 The lines before the last are a JSON object of per-kernel numbers and
 the card's name and power limit; the last line is
@@ -390,23 +416,26 @@ def phase_build():
                  f"{torch.__version__}, CUDA {torch.version.cuda}")
 
 
-def gemm_times(a, b, label: str) -> dict:
-    """Kernel, plain-version and torch.matmul times of one product, with
-    its bound: 2*M*N*K operations, and each operand read once and the
-    result written once."""
+def gemm_times(a, b, label: str, phase: str = "kernels") -> dict:
+    """Kernel, plain-version and torch.matmul times of one product (a
+    batch of them for 3-D operands, where torch.matmul is torch.bmm), with
+    its bound: 2*M*N*K operations per matrix, and each operand read once
+    and the result written once."""
     import torch
     from repro_torch.kernels import gemm
-    (m, k), n = a.shape, b.shape[1]
+    batch = a.shape[0] if a.dim() == 3 else 1
+    (m, k), n = a.shape[-2:], b.shape[-1]
     dt = str(a.dtype)[6:]
     ms = time_ms(lambda: gemm.gemm(a, b), reps=5)
     plain_ms = time_ms(lambda: gemm.gemm_plain(a, b), reps=5)
     lib_ms = time_ms(lambda: torch.matmul(a, b), reps=5)
-    bms, by = bound(2.0 * m * n * k,
-                    a.element_size() * (m * k + k * n + m * n), dt)
-    log("kernels", f"gemm {dt} {label}: kernel {ms:.3f} ms "
-                   f"({2 * m * n * k / ms / 1e9:.1f} TFLOP/s), plain "
-                   f"{plain_ms:.3f} ms, torch.matmul {lib_ms:.3f} ms, "
-                   f"bound {bms:.4f} ms ({by})")
+    flops = 2.0 * batch * m * n * k
+    bms, by = bound(flops, a.element_size() * batch
+                    * (m * k + k * n + m * n), dt)
+    log(phase, f"gemm {dt} {label}: kernel {ms:.3f} ms "
+               f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
+               f"torch.{'bmm' if batch > 1 else 'matmul'} {lib_ms:.3f} ms, "
+               f"bound {bms:.4f} ms ({by})")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=lib_ms)
 
@@ -1707,10 +1736,12 @@ def phase_venue(dev) -> dict:
 CROSS_LAYERS = 2
 
 
-def generate_keeping(model, params, policy: str, n: int, prompt, dev):
+def generate_keeping(model, params, policy: str, n: int, prompt, dev,
+                     max_len: int = SERVE_LEN):
     """Server.generate under ``policy``, keeping the last-position logits
     of every forward it runs (the prefill, then each decode step)."""
     import torch
+    from repro_torch.configs.base import torch_dtype
     from repro_torch.train import Server, ServeConfig
     forward, kept = model.forward, []
 
@@ -1722,14 +1753,16 @@ def generate_keeping(model, params, policy: str, n: int, prompt, dev):
     model.forward = keeping
     try:
         srv = Server(model, params, ServeConfig(
-            max_len=SERVE_LEN, offload_policy=policy), device=dev)
+            max_len=max_len, offload_policy=policy,
+            cache_dtype=torch_dtype(model.cfg.dtype)), device=dev)
         out = srv.generate(prompt, n)
     finally:
         model.forward = forward
     return srv, out, torch.stack(kept, dim=1)
 
 
-def cross_check(model, params, prompt, out, cached, dev) -> dict:
+def cross_check(model, params, prompt, out, cached, dev,
+                where: str = "serve cross-check") -> dict:
     """A forward without a cache (the flash kernel on every layer) over
     the prompt and all but the last generated token, against the cached
     steps' logits (the decode kernel on global layers, plain attention on
@@ -1743,14 +1776,14 @@ def cross_check(model, params, prompt, out, cached, dev) -> dict:
     nocache = logits[:, prompt.shape[1] - 1:]
     del logits
     if not bool(torch.isfinite(nocache).all() & torch.isfinite(cached).all()):
-        raise AssertionError("serve cross-check: non-finite logits")
+        raise AssertionError(f"{where}: non-finite logits")
     delta = (nocache - cached).abs().max().item()
     top2 = cached.topk(2, dim=-1).values
     sure = (top2[..., 0] - top2[..., 1]) > 2 * delta
     agree = nocache.argmax(-1) == out
     if not bool(agree[sure].all()):
-        raise AssertionError(f"serve cross-check: tokens differ at steps "
-                             f"with margin > 2 x {delta:.4f}")
+        raise AssertionError(f"{where}: tokens differ at steps with margin "
+                             f"> 2 x {delta:.4f}")
     return dict(delta=delta, top=cached.abs().max().item(),
                 sure=int(sure.sum()), agree=int(agree.sum()),
                 steps=agree.numel(), tokens=seq.shape[1])
@@ -1787,35 +1820,45 @@ def checked_attention(worst: dict):
     return restore
 
 
-def device_profile(fn, label: str, top: int = 6) -> None:
+def device_profile(fn, label: str, top: int = 6, phase: str = "serve",
+                   host: bool = False) -> None:
     """Run ``fn`` once under torch.profiler: wall time, device time summed
     over kernels and copies, the device's idle share, and the kernels that
-    take the most device time."""
+    take the most device time; with ``host``, also the operators that
+    take the most host time (self CPU time, the profiler's own cost
+    included)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # the wall of the call alone: the profiler's start and its trace
+        # processing at exit stay outside it
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
     for name, us in device_events(prof):
         count, total = by_name.get(name, (0, 0.0))
         by_name[name] = (count + 1, total + us)
     if not by_name:
         ms = time_ms(fn, reps=1)
-        log("serve", f"profile {label}: the profiler recorded no device "
-                     f"time; {ms:.1f} ms by CUDA events")
+        log(phase, f"profile {label}: the profiler recorded no device "
+                   f"time; {ms:.1f} ms by CUDA events")
         return
     total_ms = sum(t for _, t in by_name.values()) / 1e3
-    log("serve", f"profile {label}: wall {wall_ms:.1f} ms (under the "
-                 f"profiler), device {total_ms:.1f} ms, idle share "
-                 f"{max(0.0, 1 - total_ms / wall_ms):.3f}")
+    log(phase, f"profile {label}: wall {wall_ms:.1f} ms (under the "
+               f"profiler), device {total_ms:.1f} ms, idle share "
+               f"{max(0.0, 1 - total_ms / wall_ms):.3f}")
     for name, (count, us) in sorted(by_name.items(),
                                     key=lambda kv: -kv[1][1])[:top]:
-        log("serve", f"  {us / 1e3:9.2f} ms  {count:5d} x  {name[:90]}")
+        log(phase, f"  {us / 1e3:9.2f} ms  {count:5d} x  {name[:90]}")
+    if host:
+        ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+        for e in ops[:top]:
+            log(phase, f"  host {e.self_cpu_time_total / 1e3:9.2f} ms  "
+                       f"{e.count:5d} x  {e.key[:80]}")
 
 
 def serve_streams_check(model, params, prompt, out, alone, n_layers: int,
@@ -1905,172 +1948,515 @@ def serve_streams_check(model, params, prompt, out, alone, n_layers: int,
 def phase_serve(dev) -> dict:
     """gemma2-9b at full width through the serving loop: dfu, then
     memcopy with every attention kernel call held to its plain version
-    (these two runs are the main path, and their launches are returned),
-    then the cross-check between the cached steps and a forward without a
-    cache over two layers, then a device profile of one prefill and one
-    decode step."""
+    (serve_policies), then launch/serve.py's streams path (these runs are
+    the main path, and their launches are returned), then the
+    cross-check between the cached steps and a forward without a cache
+    over two layers, then a device profile of one prefill and one decode
+    step."""
     import dataclasses
     import torch
-    from repro_torch.kernels import attention, decode_attention, gemm
-    from repro_torch.models import Model, get_config
+    from repro_torch.models import get_config
     cfg = dataclasses.replace(get_config("gemma2_9b"), prefill_fresh_kv=True)
-    model = Model.from_config(cfg)
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
-    torch.cuda.synchronize()
-    log("serve", f"{cfg.name}: {cfg.n_layers} layers, d_model "
-                 f"{cfg.d_model}, vocab {cfg.vocab}, "
-                 f"{sum(p.numel() for p in params.parameters())} parameters "
-                 f"({sum(p.nbytes for p in params.parameters()) / 1e9:.2f} "
-                 f"GB) made on the card in {time.perf_counter() - t0:.1f} s")
+    model, params = serve_model(cfg, dev, "serve")
     prompt = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT),
                            generator=torch.Generator().manual_seed(1))
-    n_global = cfg.n_layers // 2
     # q, k, v, o, gate, up, down per layer, and the tied vocab head
-    gemms_per_forward = 7 * cfg.n_layers + 1
+    assert gemms_per_forward(cfg) == 7 * cfg.n_layers + 1 == 295
+    launched, out, st = serve_policies(
+        model, params, prompt, n_dfu=SERVE_GEN, n_memcopy=4,
+        max_len=SERVE_LEN, want_bytes=SERVE_CACHE_BYTES, dev=dev,
+        where="gemma2-9b", phase="serve")
+    for name, n in serve_streams_check(model, params, prompt, out, st,
+                                       cfg.n_layers, dev).items():
+        launched[name] = launched.get(name, 0) + n
+    serve_cross_check(cfg, prompt, SERVE_GEN, dev, "serve cross-check",
+                      "serve")
+    serve_profile(model, params, prompt, SERVE_LEN, dev, "gemma2-9b",
+                  "serve")
+    del params
+    torch.cuda.empty_cache()
+    return launched
+
+
+#: the serve_moe_ssm phase: batch, prompt, tokens generated under dfu and
+#: under memcopy, for granite-moe-1b-a400m and mamba2-1.3b at full width
+#: and depth (the prompt is 64 SSD chunks of 64)
+MS_BATCH, MS_PROMPT, MS_GEN, MS_MEMCOPY_GEN = 2, 4096, 16, 4
+MS_LEN = MS_PROMPT + MS_GEN
+#: granite's decode cache: 24 layers x (k, v), each (batch, 8 KV heads,
+#: MS_LEN slots, head size 64) in bf16
+GRANITE_CACHE_BYTES = 24 * 2 * MS_BATCH * 8 * MS_LEN * 64 * 2
+assert GRANITE_CACHE_BYTES == 404_226_048
+#: mamba2's decode state: 48 layers x (ssm_h float32 (batch, 64 heads,
+#: state 128, head size 64), conv_state bf16 (batch, 3, 4096 + 2 x 128));
+#: no term in MS_LEN: the state is O(1) in context
+MAMBA_STATE_BYTES = 48 * (MS_BATCH * 64 * 128 * 64 * 4
+                          + MS_BATCH * 3 * (4096 + 2 * 128) * 2)
+assert MAMBA_STATE_BYTES == 201_326_592 + 2_506_752 == 203_833_344
+#: moonshot-v1-16b-a3b at full width, depth cut 48 -> 12 (15.0 GB of bf16
+#: weights; all 48 would hold ~56 GB): batch 2 x 2048, dfu only
+MOONSHOT_LAYERS, MOONSHOT_PROMPT, MOONSHOT_GEN = 12, 2048, 8
+#: jamba-1.5-large-398b reduced (one 8-layer period: 7 SSD + 1 attention
+#: layer, MoE at odd positions, float32): batch 2 x 64, dfu only
+JAMBA_PROMPT, JAMBA_GEN = 64, 8
+#: mamba2's cross-check generates 65 tokens: a forward without a cache
+#: over the prompt and all but the last generated token must be a whole
+#: number of SSD chunks, 4096 + 64 = 65 chunks
+MAMBA_CROSS_GEN = 65
+
+
+def state_bytes(cfg, batch: int, max_len: int, itemsize: int) -> int:
+    """The decode state's bytes, from the config alone: (k, v) of
+    ``max_len`` slots per attention layer, float32 ssm_h and conv_state
+    per SSD layer; ``itemsize`` is the cache dtype's."""
+    total = 0
+    for i in range(cfg.n_layers):
+        if cfg.is_attn_layer(i):
+            total += 2 * batch * cfg.n_kv_heads * max_len * cfg.head_dim \
+                * itemsize
+        else:
+            total += batch * cfg.ssm_heads * cfg.ssm_state \
+                * cfg.ssm_head_dim * 4 + batch * (cfg.ssm_conv - 1) \
+                * (cfg.d_inner + 2 * cfg.ssm_state) * itemsize
+    return total
+
+
+def gemms_per_forward(cfg) -> int:
+    """gemm.cu launches of one forward: q, k, v, o per attention layer;
+    in_proj, out_proj per SSD layer; the router and the three batched
+    expert products per MoE layer; gate, up, down per MLP of nonzero
+    width; the vocab head."""
+    n = 1
+    for i in range(cfg.n_layers):
+        n += 4 if cfg.is_attn_layer(i) else 2
+        if cfg.is_moe_layer(i):
+            n += 4
+        elif cfg.d_ff:          # mamba2's MLP has width 0: no product
+            n += 3
+    return n
+
+
+def moe_ssm_kernel_checks(dev) -> None:
+    """The kernels at the shapes this phase gives them, each against its
+    plain version, with kernel, plain, library and bound times: gemm.cu on
+    granite's batched expert products (32 x (2560 x 1024 -> 512) at
+    prefill on path 1, 32 x (8 x 1024 -> 512) at decode on path 2, against
+    torch.bmm), its router, its vocab head at the ragged N 49155 over the
+    table's transposed view, and mamba2's in_proj and out_proj;
+    decode_attention.cu at granite's [2,16,1,64] / [2,8,S,64] and
+    moonshot's [2,16,1,128] / [2,16,S,128]; flash_attention.cu at their
+    prefill shapes, on the wgmma path."""
+    import torch
+    from repro_torch.kernels import attention, decode_attention, gemm
+    gen = torch.Generator(device=dev).manual_seed(19)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+    n_pre, cap = MS_BATCH * MS_PROMPT, 2560    # granite's prefill capacity
+    table = rnd(49155, 1024)
+    cases = [
+        (f"granite experts 32x({cap}x1024->512) prefill",
+         rnd(32, cap, 1024), rnd(32, 1024, 512), gemm.TC),
+        ("granite experts 32x(8x1024->512) decode", rnd(32, 8, 1024),
+         rnd(32, 1024, 512), gemm.SKINNY),
+        (f"granite expert down 32x({cap}x512->1024) prefill",
+         rnd(32, cap, 512), rnd(32, 512, 1024), gemm.TC),
+        (f"granite router {n_pre}x32x1024", rnd(n_pre, 1024),
+         rnd(1024, 32), gemm.TC),
+        (f"granite vocab head {n_pre}x49155x1024 (table.mT)",
+         rnd(n_pre, 1024), table.mT, gemm.TC),
+        (f"granite vocab head {MS_BATCH}x49155x1024 (table.mT)",
+         rnd(MS_BATCH, 1024), table.mT, gemm.SKINNY),
+        (f"mamba2 in_proj {n_pre}x8512x2048", rnd(n_pre, 2048),
+         rnd(2048, 8512), gemm.TC),
+        (f"mamba2 in_proj {MS_BATCH}x8512x2048", rnd(MS_BATCH, 2048),
+         rnd(2048, 8512), gemm.SKINNY),
+        (f"mamba2 out_proj {n_pre}x2048x4096", rnd(n_pre, 4096),
+         rnd(4096, 2048), gemm.TC),
+    ]
+    for label, a, b, path in cases:
+        p = gemm.plan(a, b)
+        if p.path != path:
+            raise AssertionError(f"gemm {label}: path {p.path}, want {path}")
+        label = f"{label}, path {p.path}, splits {p.splits}"
+        check(f"gemm bfloat16 {label}", gemm.gemm(a, b),
+              gemm.gemm_plain(a, b), TOL["bfloat16"])
+        gemm_times(a, b, label, phase="serve_moe_ssm")
+    del cases, table
+    # attention at granite's (D 64, 2 query heads per KV head) and
+    # moonshot's (D 128, MHA) shapes; no softcap in either model
+    for name, hq, hkv, t, d in (("granite", 16, 8, MS_PROMPT, 64),
+                                ("moonshot", 16, 16, MOONSHOT_PROMPT, 128)):
+        b = MS_BATCH
+        q, k, v = rnd(b, hq, t, d) * ATTN_Q_SCALE, rnd(b, hkv, t, d), \
+            rnd(b, hkv, t, d)
+        before = attention.launches_by_path[attention.WGMMA]
+        got = attention.flash_attention(q, k, v, causal=True)
+        if attention.launches_by_path[attention.WGMMA] != before + 1:
+            raise AssertionError(f"flash_attention {name}: not on the "
+                                 f"wgmma path")
+        label = f"flash_attention bf16 {name} [{b},{hq},{t},{d}] / " \
+                f"[{b},{hkv},{t},{d}] causal (wgmma path)"
+        check_rows(label, got, attention.flash_attention_plain(
+            q, k, v, causal=True), ATTN_TOL)
+        ms = time_ms(lambda: attention.flash_attention(q, k, v, causal=True),
+                     reps=5)
+        plain_ms = time_ms(lambda: attention.flash_attention_plain(
+            q, k, v, causal=True), reps=2)
+        lib_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True), reps=5)
+        pairs = causal_pairs(t, 0)
+        bms, _, term = flash_bound(b * hq * pairs, d, 2 * (
+            2 * b * hq * t * d + 2 * b * hkv * t * d), softcap=False)
+        log("serve_moe_ssm", f"{label}: kernel {ms:.3f} ms, plain "
+                             f"{plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms, "
+                             f"bound {bms:.4f} ms ({term})")
+        del q, k, v, got
+        s_len = t + (MS_GEN if name == "granite" else MOONSHOT_GEN)
+        kv_len = t + 1
+        q, k, v = rnd(b, hq, 1, d) * ATTN_Q_SCALE, rnd(b, hkv, s_len, d), \
+            rnd(b, hkv, s_len, d)
+        k[:, :, kv_len:] *= 4
+        label = f"decode_attention bf16 {name} q [{b},{hq},1,{d}] cache " \
+                f"[{b},{hkv},{s_len},{d}] kv_len {kv_len}"
+        want = decode_attention.decode_attention_plain(q, k, v, kv_len)
+        before = decode_attention.launches
+        check_rows(label, decode_attention.decode_attention(q, k, v, kv_len),
+                   want, ATTN_TOL)
+        if decode_attention.launches != before + 1:
+            raise AssertionError(f"{label}: not one launch")
+        control(f"{label} at kv_len {s_len} vs plain at {kv_len}",
+                decode_attention.decode_attention(q, k, v, s_len), want,
+                ATTN_TOL)
+        live = (torch.arange(s_len, device=dev) < kv_len)[None, None, None]
+        ms = time_ms(lambda: decode_attention.decode_attention(q, k, v,
+                                                               kv_len),
+                     reps=50)
+        dms = device_ms(lambda: decode_attention.decode_attention(
+            q, k, v, kv_len), 50)
+        plain_ms = time_ms(lambda: decode_attention.decode_attention_plain(
+            q, k, v, kv_len), reps=10)
+        lib_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=live), reps=50)
+        bms, by = bound(4.0 * b * hq * d * kv_len, 2 * (
+            2 * b * hkv * kv_len * d + 2 * b * hq * d), "bfloat16")
+        log("serve_moe_ssm", f"{label}: kernel {ms:.4f} ms (device "
+                             f"{dms:.4f} ms), plain {plain_ms:.4f} ms, sdpa "
+                             f"(kv_len mask) {lib_ms:.4f} ms, bound "
+                             f"{bms:.4f} ms ({by})")
+        del q, k, v, want
+    torch.cuda.empty_cache()
+
+
+def decode_layers(cfg) -> int:
+    """Layers whose decode steps run decode_attention.cu: attention
+    without a window (a windowed layer's step is plain attention)."""
+    return sum(cfg.is_attn_layer(i) and cfg.layer_window(i) == 0
+               for i in range(cfg.n_layers))
+
+
+def serve_policies(model, params, prompt, *, n_dfu: int, n_memcopy: int,
+                   max_len: int, want_bytes: int, dev, where: str,
+                   phase: str = "serve_moe_ssm") -> tuple:
+    """One model through the serving loop: dfu generating ``n_dfu`` tokens,
+    then, if ``n_memcopy``, memcopy generating that many with every
+    attention kernel call held to its plain version.  Asserts the bytes,
+    migrations and reuses of each policy, tokens equal across them, the
+    gemm, flash and decode launches per forward and step, every bf16 flash
+    launch on the wgmma path, and no decode cache copy; logs the times and
+    the (token, choice) pairs each MoE layer drops to its capacity at
+    prefill.  Returns (launches of both runs, dfu's tokens, its
+    ServeStats)."""
+    import torch
+    from repro_torch.kernels import attention, decode_attention, gemm
+    from repro_torch.models import moe
+    cfg = model.cfg
+    attn_layers = sum(cfg.is_attn_layer(i) for i in range(cfg.n_layers))
+    steps_layers = decode_layers(cfg)
+    gemms = gemms_per_forward(cfg)
+    path = attention.WGMMA if cfg.dtype == "bfloat16" else attention.FMA
     launched = {}
 
     def add(got):
         for name, n in got.items():
             launched[name] = launched.get(name, 0) + n
 
-    # dfu: one migration of the cache, then reuse
+    def expect(run: str, got: dict, n: int) -> None:
+        want = (attn_layers, steps_layers * (n - 1), gemms * n)
+        have = (got["flash_attention"], got["decode_attention"], got["gemm"])
+        if have != want:
+            raise AssertionError(f"{where} {run}: launches {got}, want "
+                                 f"(flash, decode, gemm) {want}")
+        if attention.launches_by_path[path] != got["flash_attention"]:
+            raise AssertionError(f"{where} {run}: flash launches by path "
+                                 f"{attention.launches_by_path}; all must "
+                                 f"take the {path} path")
+        if decode_attention.copies:
+            raise AssertionError(f"{where} {run}: decode_attention copied "
+                                 f"the cache {decode_attention.copies} "
+                                 f"times; its views must go in uncopied")
+
+    # the prefill's drops per MoE layer, kept on the card until the end
+    real_dispatch, drops = moe.dispatch, []
+
+    def counting(cfg_, idx, cap):
+        dest = real_dispatch(cfg_, idx, cap)
+        if idx.shape[0] > prompt.shape[0]:
+            drops.append((dest == cfg_.n_experts * cap).sum())
+        return dest
+
+    moe.dispatch = counting
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    srv, out, _ = generate_keeping(model, params, "dfu", SERVE_GEN, prompt,
-                                   dev)
+    try:
+        srv, out, _ = generate_keeping(model, params, "dfu", n_dfu, prompt,
+                                       dev, max_len)
+    finally:
+        moe.dispatch = real_dispatch
     got = counts()
-    reduces = gemm.reduce_launches
     flash_paths = dict(attention.launches_by_path)
-    flash_copies = attention.copies
-    decode_copies = decode_attention.copies
+    copies = (attention.copies, decode_attention.copies)
     peak = torch.cuda.max_memory_allocated()
     add(got)
     st = srv.stats
-    want = (SERVE_CACHE_BYTES, 0, 1, SERVE_GEN - 1)
     have = (st.bytes_host_to_dev, st.bytes_dev_to_host, st.migrations,
             st.cache_reuses)
-    if have != want:
-        raise AssertionError(f"serve dfu: (h->d, d->h, migrations, reuses) "
-                             f"{have} != {want}")
-    if (got["flash_attention"], got["decode_attention"], got["gemm"]) != \
-            (cfg.n_layers, n_global * (SERVE_GEN - 1),
-             gemms_per_forward * SERVE_GEN):
-        raise AssertionError(f"serve dfu: launches {got}, want flash "
-                             f"{cfg.n_layers} (prefill), decode "
-                             f"{n_global} x {SERVE_GEN - 1} and gemm "
-                             f"{gemms_per_forward} x {SERVE_GEN}")
-    if flash_paths[attention.WGMMA] != got["flash_attention"]:
-        raise AssertionError(f"serve dfu: flash launches by path "
-                             f"{flash_paths}; all {got['flash_attention']} "
-                             f"must take the wgmma path")
-    if decode_copies:
-        raise AssertionError(f"serve dfu: decode_attention copied the "
-                             f"cache {decode_copies} times; the cache's "
-                             f"views must go in uncopied")
-    if tuple(out.shape) != (SERVE_BATCH, SERVE_GEN) or not bool(
+    if have != (want_bytes, 0, 1, n_dfu - 1):
+        raise AssertionError(f"{where} dfu: (h->d, d->h, migrations, "
+                             f"reuses) {have} != "
+                             f"{(want_bytes, 0, 1, n_dfu - 1)}")
+    expect("dfu", got, n_dfu)
+    if tuple(out.shape) != (prompt.shape[0], n_dfu) or not bool(
             ((out >= 0) & (out < cfg.vocab)).all()):
-        raise AssertionError(f"serve dfu: tokens {out}")
-    log("serve", f"dfu generate({SERVE_BATCH} x {SERVE_PROMPT}, "
-                 f"{SERVE_GEN}): prefill {st.prefill_s:.3f} s, decode "
-                 f"{st.decode_s:.3f} s for {SERVE_GEN - 1} steps "
-                 f"({st.decode_s / (SERVE_GEN - 1) * 1e3:.1f} ms per step, "
-                 f"{st.tokens / st.decode_s:.2f} tokens/s); h->d "
-                 f"{st.bytes_host_to_dev} B, d->h {st.bytes_dev_to_host} B, "
-                 f"migrations {st.migrations}, reuses {st.cache_reuses}; "
-                 f"launches {got} (gemm {gemms_per_forward} per forward, "
-                 f"plus {reduces} split-K reductions; flash by path "
-                 f"{flash_paths}, {flash_copies} operand copies; decode "
-                 f"{decode_copies} cache copies); peak "
-                 f"device memory "
-                 f"{peak / 1e9:.2f} GB")
+        raise AssertionError(f"{where} dfu: tokens {out}")
+    if cfg.n_experts:
+        dropped = [int(x) for x in drops]
+        log(phase, f"{where}: (token, choice) pairs dropped to capacity per "
+                   f"MoE layer at prefill ({prompt.numel() * cfg.top_k} per "
+                   f"layer): {dropped}")
+    steps = n_dfu - 1
+    log(phase, f"{where} dfu generate({tuple(prompt.shape)}, {n_dfu}): "
+               f"prefill {st.prefill_s:.3f} s, decode {st.decode_s:.3f} s "
+               f"for {steps} steps ({st.decode_s / steps * 1e3:.1f} ms per "
+               f"step, {st.tokens / st.decode_s:.2f} tokens/s); h->d "
+               f"{st.bytes_host_to_dev} B, d->h {st.bytes_dev_to_host} B, "
+               f"migrations {st.migrations}, reuses {st.cache_reuses}; "
+               f"launches {got} (gemm {gemms} per forward, "
+               f"{gemm.reduce_launches} split-K reductions; flash by path "
+               f"{flash_paths}, {copies[0]} operand copies; decode "
+               f"{copies[1]} cache copies); peak device memory "
+               f"{peak / 1e9:.2f} GB")
     del srv
-    add(serve_streams_check(model, params, prompt, out, st, cfg.n_layers,
-                            dev))
-
-    # memcopy: the cache round-trips around the prefill and every step;
+    if not n_memcopy:
+        return launched, out, st
+    # memcopy: the state round-trips around the prefill and every step;
     # each attention kernel call is also computed by its plain version
     worst = {}
     restore = checked_attention(worst)
     reset_counts()
     try:
-        mc, out_mc, _ = generate_keeping(model, params, "memcopy", 4,
-                                         prompt, dev)
+        mc, out_mc, _ = generate_keeping(model, params, "memcopy", n_memcopy,
+                                         prompt, dev, max_len)
     finally:
         restore()
     got = counts()
     add(got)
-    st = mc.stats
-    if attention.launches_by_path[attention.WGMMA] != got["flash_attention"]:
-        raise AssertionError(f"serve memcopy: flash launches by path "
-                             f"{attention.launches_by_path}; all must take "
-                             f"the wgmma path")
-    if decode_attention.copies:
-        raise AssertionError(f"serve memcopy: decode_attention copied the "
-                             f"cache {decode_attention.copies} times")
-    if got["gemm"] != gemms_per_forward * 4:
-        raise AssertionError(f"serve memcopy: {got['gemm']} gemm launches, "
-                             f"want {gemms_per_forward} x 4")
-    have = (st.bytes_host_to_dev, st.bytes_dev_to_host)
-    if have != (4 * SERVE_CACHE_BYTES, 4 * SERVE_CACHE_BYTES):
-        raise AssertionError(f"serve memcopy: (h->d, d->h) {have} != 4 x "
-                             f"{SERVE_CACHE_BYTES}")
-    if not torch.equal(out_mc, out[:, :4]):
-        raise AssertionError(f"serve memcopy tokens {out_mc.tolist()} != "
-                             f"dfu's {out[:, :4].tolist()}")
-    if set(worst) != {"flash_attention", "decode_attention"} or \
-            max(worst.values()) > ATTN_TOL:
-        raise AssertionError(f"serve memcopy: kernels vs plain in the "
-                             f"path {worst} (tol {ATTN_TOL})")
-    log("serve", f"memcopy generate(.., 4): prefill {st.prefill_s:.3f} s "
-                 f"and decode {st.decode_s:.3f} s for 3 steps (each with "
-                 f"the plain versions beside the kernels); h->d "
-                 f"{st.bytes_host_to_dev} B, d->h {st.bytes_dev_to_host} B "
-                 f"(4 x the cache); tokens equal dfu's first 4; every "
-                 f"kernel call vs its plain version on the same inputs: "
-                 + ", ".join(f"{k} {v:.3e}" for k, v in sorted(worst.items()))
-                 + f" (tol {ATTN_TOL:g}); launches {got}")
-    del mc
+    st_mc = mc.stats
+    have = (st_mc.bytes_host_to_dev, st_mc.bytes_dev_to_host)
+    if have != (n_memcopy * want_bytes, n_memcopy * want_bytes):
+        raise AssertionError(f"{where} memcopy: (h->d, d->h) {have} != "
+                             f"{n_memcopy} x {want_bytes}")
+    if not torch.equal(out_mc, out[:, :n_memcopy]):
+        raise AssertionError(f"{where} memcopy tokens {out_mc.tolist()} != "
+                             f"dfu's {out[:, :n_memcopy].tolist()}")
+    expect("memcopy", got, n_memcopy)
+    kernels = {"flash_attention", "decode_attention"} if attn_layers else set()
+    if set(worst) != kernels or max(worst.values(), default=0.0) > ATTN_TOL:
+        raise AssertionError(f"{where} memcopy: kernels vs plain in the path "
+                             f"{worst} (tol {ATTN_TOL})")
+    log(phase, f"{where} memcopy generate(.., {n_memcopy}): prefill "
+               f"{st_mc.prefill_s:.3f} s, decode {st_mc.decode_s:.3f} s for "
+               f"{n_memcopy - 1} steps (each with the plain versions beside "
+               f"the kernels); h->d {st_mc.bytes_host_to_dev} B, d->h "
+               f"{st_mc.bytes_dev_to_host} B ({n_memcopy} x the state); "
+               f"tokens equal dfu's first {n_memcopy}; every attention call "
+               f"vs its plain version on the same inputs: "
+               + (", ".join(f"{k} {v:.3e}" for k, v in sorted(worst.items()))
+                  or "none (attention-free)")
+               + f" (tol {ATTN_TOL:g}); launches {got}")
+    return launched, out, st
 
-    # cross-check at the same widths over two layers; its launches are
-    # asserted here and kept out of the main path's counts
+
+def serve_cross_check(cfg, prompt, n: int, dev, where: str,
+                      phase: str = "serve_moe_ssm") -> None:
+    """The cached steps against a forward without a cache, at full width
+    over CROSS_LAYERS layers (cross_check), with their flash and decode
+    launches asserted; they are not counted as the main path's."""
+    import dataclasses
+    import torch
     small = dataclasses.replace(cfg, n_layers=CROSS_LAYERS)
-    smodel = Model.from_config(small)
-    sparams = smodel.init(torch.Generator(device=dev).manual_seed(0), dev)
+    model, params = serve_model(small, dev, phase)
     reset_counts()
-    _, sout, scached = generate_keeping(smodel, sparams, "dfu", SERVE_GEN,
-                                        prompt, dev)
-    cut = cross_check(smodel, sparams, prompt, sout, scached, dev)
+    _, out, cached = generate_keeping(model, params, "dfu", n, prompt, dev,
+                                      prompt.shape[1] + n)
+    cut = cross_check(model, params, prompt, out, cached, dev, where)
     got = counts()
-    want = (2 * CROSS_LAYERS, CROSS_LAYERS // 2 * (SERVE_GEN - 1))
+    attn = sum(small.is_attn_layer(i) for i in range(small.n_layers))
+    want = (2 * attn, decode_layers(small) * (n - 1))
     if (got["flash_attention"], got["decode_attention"]) != want:
-        raise AssertionError(f"serve cross-check: launches {got}, want "
-                             f"(flash, decode) {want}")
+        raise AssertionError(f"{where}: launches {got}, want (flash, "
+                             f"decode) {want}")
     if cut["sure"] == 0:
-        raise AssertionError(f"serve cross-check at {CROSS_LAYERS} layers: "
-                             f"no step has a margin over 2 x "
-                             f"{cut['delta']:.4f}")
-    log("serve", f"cross-check, {CROSS_LAYERS} layers: forward without a "
-                 f"cache over {cut['tokens']} tokens vs the {SERVE_GEN} "
-                 f"cached steps: max|dlogit| {cut['delta']:.5f} (logits up "
-                 f"to {cut['top']:.2f}); tokens agree at all {cut['sure']} "
-                 f"of {cut['steps']} steps whose top-2 margin exceeds 2 x "
-                 f"max|dlogit| ({cut['agree']} of {cut['steps']} agree in "
-                 f"all); launches {got} (not counted as the main path's)")
-    del sparams, smodel, scached
+        raise AssertionError(f"{where} at {CROSS_LAYERS} layers: no step "
+                             f"has a margin over 2 x {cut['delta']:.4f}")
+    log(phase, f"{where}, {CROSS_LAYERS} layers: forward without a cache "
+               f"over {cut['tokens']} tokens vs the {n} cached steps: "
+               f"max|dlogit| {cut['delta']:.5f} (logits up to "
+               f"{cut['top']:.2f}); tokens agree at all {cut['sure']} of "
+               f"{cut['steps']} steps whose top-2 margin exceeds 2 x "
+               f"max|dlogit| ({cut['agree']} of {cut['steps']} agree in "
+               f"all); launches {got} (not counted as the main path's)")
+    del params, model
+    torch.cuda.empty_cache()
 
-    # where a step's device time goes (launches here are not counted)
-    cache = model.init_cache(SERVE_BATCH, SERVE_LEN, device=dev)
-    tok = out[:, :1]
+
+def serve_model(cfg, dev, phase: str = "serve_moe_ssm"):
+    """The model of ``cfg`` with seeded random weights made on the card,
+    their size logged."""
+    import torch
+    from repro_torch.models import Model
+    model = Model.from_config(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    log(phase, f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+               f"vocab {cfg.vocab}, {cfg.dtype}, "
+               f"{sum(p.numel() for p in params.parameters())} parameters "
+               f"({sum(p.nbytes for p in params.parameters()) / 1e9:.2f} GB)"
+               f" made on the card in {time.perf_counter() - t0:.1f} s")
+    return model, params
+
+
+def serve_profile(model, params, prompt, max_len: int, dev, label: str,
+                  phase: str = "serve_moe_ssm") -> None:
+    """Where one prefill and one decode step spend their time: each once
+    under torch.profiler (device_profile; its launches are not
+    counted)."""
+    import torch
+    cache = model.init_cache(prompt.shape[0], max_len, device=dev)
+    tok = prompt[:, :1].to(dev)
     with torch.no_grad():
         device_profile(lambda: model.forward(
             params, prompt.to(dev), cache=cache, cache_pos=0),
-            f"one prefill forward ({SERVE_BATCH} x {SERVE_PROMPT})")
+            f"{label}: one prefill forward {tuple(prompt.shape)}",
+            phase=phase, host=True)
         device_profile(lambda: model.forward(
-            params, tok, cache=cache, cache_pos=SERVE_PROMPT),
-            f"one decode step (kv_len {SERVE_PROMPT + 1})")
-    del params, cache
+            params, tok, cache=cache, cache_pos=prompt.shape[1]),
+            f"{label}: one decode step (kv_len {prompt.shape[1] + 1})",
+            phase=phase, host=True)
+    del cache
+
+
+def phase_serve_moe_ssm(dev) -> dict:
+    """The MoE and SSD blocks through the serving loop: (a)
+    granite-moe-1b-a400m and (b) mamba2-1.3b at full width and depth,
+    dfu and memcopy; (c) moonshot-v1-16b-a3b at full width over 12 of its
+    48 layers, dfu; (d) jamba-1.5-large-398b reduced, one period of its
+    mixed (k, v) / (ssm_h, conv) cache, dfu.  These runs are the main
+    path; their launches are returned.  Then the kernels at this phase's
+    shapes, a cached-vs-uncached cross-check at full width over 2 layers
+    for (a) (capacity_factor raised so that no token drops) and (b), and
+    a device profile of one prefill and one decode step of (a) and
+    (b)."""
+    import dataclasses
+    import torch
+    from repro_torch.models import get_config
+    launched: dict = {}
+    fresh = dict(prefill_fresh_kv=True)
+
+    def add(got):
+        for name, n in got.items():
+            launched[name] = launched.get(name, 0) + n
+
+    gen = torch.Generator().manual_seed(1)
+    # (a) granite-moe-1b-a400m
+    granite = dataclasses.replace(get_config("granite_moe_1b_a400m"),
+                                  **fresh)
+    model, params = serve_model(granite, dev)
+    prompt = torch.randint(0, model.cfg.vocab, (MS_BATCH, MS_PROMPT),
+                           generator=gen)
+    got, _, _ = serve_policies(model, params, prompt, n_dfu=MS_GEN,
+                               n_memcopy=MS_MEMCOPY_GEN, max_len=MS_LEN,
+                               want_bytes=GRANITE_CACHE_BYTES, dev=dev,
+                               where="(a) granite-moe-1b-a400m")
+    add(got)
+    serve_profile(model, params, prompt, MS_LEN, dev, "(a) granite")
+    granite_prompt = prompt
+    del model, params
+    torch.cuda.empty_cache()
+    # (b) mamba2-1.3b
+    model, params = serve_model(get_config("mamba2_1_3b"), dev)
+    prompt = torch.randint(0, model.cfg.vocab, (MS_BATCH, MS_PROMPT),
+                           generator=gen)
+    if state_bytes(model.cfg, MS_BATCH, MS_LEN, 2) != MAMBA_STATE_BYTES or \
+            state_bytes(model.cfg, MS_BATCH, 10 * MS_LEN, 2) \
+            != MAMBA_STATE_BYTES:
+        raise AssertionError("(b) mamba2: the state's bytes depend on "
+                             "max_len")
+    got, _, _ = serve_policies(model, params, prompt, n_dfu=MS_GEN,
+                               n_memcopy=MS_MEMCOPY_GEN, max_len=MS_LEN,
+                               want_bytes=MAMBA_STATE_BYTES, dev=dev,
+                               where="(b) mamba2-1.3b")
+    add(got)
+    serve_profile(model, params, prompt, MS_LEN, dev, "(b) mamba2")
+    mamba_prompt = prompt
+    del model, params
+    torch.cuda.empty_cache()
+    # (c) moonshot-v1-16b-a3b, depth cut
+    model, params = serve_model(dataclasses.replace(
+        get_config("moonshot_v1_16b_a3b"), n_layers=MOONSHOT_LAYERS,
+        **fresh), dev)
+    prompt = torch.randint(0, model.cfg.vocab, (MS_BATCH, MOONSHOT_PROMPT),
+                           generator=gen)
+    max_len = MOONSHOT_PROMPT + MOONSHOT_GEN
+    got, _, _ = serve_policies(
+        model, params, prompt, n_dfu=MOONSHOT_GEN, n_memcopy=0,
+        max_len=max_len, dev=dev, where="(c) moonshot-v1-16b-a3b x 12",
+        want_bytes=state_bytes(model.cfg, MS_BATCH, max_len, 2))
+    add(got)
+    del model, params
+    torch.cuda.empty_cache()
+    # (d) jamba-1.5-large-398b reduced
+    cfg = dataclasses.replace(
+        get_config("jamba_1_5_large_398b").reduced(), **fresh)
+    model, params = serve_model(cfg, dev)
+    prompt = torch.randint(0, cfg.vocab, (MS_BATCH, JAMBA_PROMPT),
+                           generator=gen)
+    max_len = JAMBA_PROMPT + JAMBA_GEN
+    got, _, _ = serve_policies(
+        model, params, prompt, n_dfu=JAMBA_GEN, n_memcopy=0, max_len=max_len,
+        dev=dev, where="(d) jamba-1.5-large-398b reduced",
+        want_bytes=state_bytes(model.cfg, MS_BATCH, max_len, 4))
+    add(got)
+    kinds = [("attention (k, v) " if cfg.is_attn_layer(pos) else
+              "SSD (ssm_h, conv_state) ")
+             + " ".join(f"{list(x.shape)} {str(x.dtype)[6:]}" for x in pair)
+             for pos, pair in enumerate(model.init_cache(
+                 MS_BATCH, max_len, torch.bfloat16))]
+    log("serve_moe_ssm", f"(d) the cache per period position, in a bf16 "
+                         f"cache: {kinds}")
+    del model, params
+    torch.cuda.empty_cache()
+
+    # kernels at this phase's shapes, and the cross-checks (not counted)
+    moe_ssm_kernel_checks(dev)
+    reset_counts()
+    serve_cross_check(dataclasses.replace(
+        granite, capacity_factor=granite.n_experts / granite.top_k),
+        granite_prompt, MS_GEN, dev,
+        "(a) granite cross-check (no drops: capacity = tokens)")
+    serve_cross_check(get_config("mamba2_1_3b"), mamba_prompt,
+                        MAMBA_CROSS_GEN, dev, "(b) mamba2 cross-check")
     torch.cuda.empty_cache()
     return launched
 
@@ -2690,16 +3076,19 @@ def main() -> int:
     venue_launches = phase_venue(dev)
     runtime_launches = phase_runtime(dev)
     serve_launches = phase_serve(dev)
+    moe_ssm_launches = phase_serve_moe_ssm(dev)
     for name, row in rows.items():
         row["launches"] = (blas_launches[name] + lsms_launches[name]
                            + solver_launches[name] + venue_launches[name]
                            + runtime_launches.get(name, 0)
-                           + serve_launches[name])
+                           + serve_launches[name]
+                           + moe_ssm_launches.get(name, 0))
         log("done", f"{name} launches: blas {blas_launches[name]}, lsms "
                     f"{lsms_launches[name]}, solvers "
                     f"{solver_launches[name]}, venue {venue_launches[name]}, "
                     f"runtime {runtime_launches.get(name, 0)}, serve "
-                    f"{serve_launches[name]}")
+                    f"{serve_launches[name]}, serve_moe_ssm "
+                    f"{moe_ssm_launches.get(name, 0)}")
         if row["launches"] == 0:
             raise AssertionError(f"{name} kernel never launched on the "
                                  f"main path")

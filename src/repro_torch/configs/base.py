@@ -3,8 +3,8 @@
 The port's copy of ``repro/configs/base.py``, field for field, so that a
 config means the same model in both packages and the tests compare like
 with like.  One frozen dataclass describes every assigned architecture
-family (dense / MoE / SSM / hybrid / enc-dec / VLM); the port runs the
-dense family so far.  ``reduced()`` derives the CPU-sized smoke-test
+family (dense / MoE / SSM / hybrid / enc-dec / VLM); the port runs all
+but enc-dec and VLM.  ``reduced()`` derives the CPU-sized smoke-test
 variant of any config (same family and wiring, tiny widths).
 ``dtype`` stays a string (``"bfloat16"``, ``"float32"``);
 :func:`torch_dtype` maps it to a ``torch.dtype``.

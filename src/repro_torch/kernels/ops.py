@@ -55,7 +55,13 @@ def _batched(f: Callable, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Run the 2-D product ``f`` over broadcast leading batch dims as one
     launch.  A stack of activations times one matrix (``x @ W``, every
     projection of the model stack) folds the leading dims into M: one 2-D
-    product, and the matrix is never expanded or copied per batch."""
+    product, and the matrix is never expanded or copied per batch.  A
+    product with an empty dim (mamba2's MLP of width 0) launches nothing:
+    its result is empty, or zeros where only K is 0."""
+    if a.numel() == 0 or b.numel() == 0:
+        lead = (a.shape[:-1] if b.dim() == 2 else torch.broadcast_shapes(
+            a.shape[:-2], b.shape[:-2]) + a.shape[-2:-1])
+        return a.new_zeros(lead + b.shape[-1:])
     if a.dim() == 2 and b.dim() == 2:
         return f(_operand(a), _operand(b))
     if b.dim() == 2:

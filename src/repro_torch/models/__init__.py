@@ -1,5 +1,5 @@
-"""Model substrate of the port: the dense architectures behind the
-reference's model API (``repro/models``)."""
+"""Model substrate of the port: the dense, MoE, SSM and hybrid
+architectures behind the reference's model API (``repro/models``)."""
 from repro_torch.models.registry import (ARCHS, Model, build, canon,
                                          get_config)
 

@@ -3,11 +3,14 @@
 ``params_from_jax`` takes the reference's parameter pytree as numpy
 arrays (``jax.tree.map(np.asarray, params)``, done by the caller: the
 port imports no JAX) and returns the port's :class:`Params` with the same
-names and shapes, matrices in ``cfg.dtype`` and norm weights in float32.
+names and shapes, matrices in ``cfg.dtype``, norm weights and the SSD's
+float32 parameters in float32 (``transformer.FLOAT32``).
 ``cache_from_jax`` and ``cache_to_numpy`` do the same for the decode
-cache, a tuple over period positions of ``(k, v)``; numpy has no
-bfloat16, so bf16 caches travel as float32 values (exact: every bf16 is
-a float32).
+cache, a tuple over period positions of ``(k, v)`` or ``(ssm_h,
+conv_state)``.  Each leaf keeps its role's dtype: ``ssm_h`` is float32
+whatever the cache dtype, as the reference keeps it (``ssm.py:198-203``),
+and the rest take the cache dtype.  numpy has no bfloat16, so bf16 caches
+travel as float32 values (exact: every bf16 is a float32).
 """
 from __future__ import annotations
 
@@ -41,15 +44,27 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig, device="cpu"
     return to_params(conv(tree), cfg, device)
 
 
+def leaf_dtypes(pair: Tuple, dtype: torch.dtype) -> Tuple[torch.dtype, ...]:
+    """The dtypes of one period position's cache leaves: an SSD position,
+    ``(ssm_h (G, B, H, S, P), conv_state (G, B, K-1, C))``, keeps ``ssm_h``
+    in float32; attention's ``(k, v)`` and ``conv_state`` take ``dtype``."""
+    if len(pair) == 2 and np.ndim(pair[1]) == 4:
+        return torch.float32, dtype
+    return (dtype,) * len(pair)
+
+
 def cache_from_jax(cache: Any, dtype: torch.dtype = torch.bfloat16,
                    device="cpu") -> Tuple[Tuple[torch.Tensor, ...], ...]:
-    """The port's decode cache from the reference's (numpy) cache."""
-    return tuple(tuple(_tensor(x, dtype, device) for x in kv)
-                 for kv in cache)
+    """The port's decode cache from the reference's (numpy) cache, each
+    leaf in its role's dtype (:func:`leaf_dtypes`)."""
+    return tuple(tuple(_tensor(x, dt, device)
+                       for x, dt in zip(pair, leaf_dtypes(pair, dtype)))
+                 for pair in cache)
 
 
 def cache_to_numpy(cache: Any) -> Tuple[Tuple[np.ndarray, ...], ...]:
-    """A decode cache as float32 numpy arrays (either package's)."""
+    """A decode cache as float32 numpy arrays (either package's): exact
+    for every leaf, float32 ``ssm_h`` and bf16 ``conv_state`` alike."""
     def arr(x):
         if isinstance(x, torch.Tensor):
             return x.detach().float().cpu().numpy()

@@ -1,20 +1,26 @@
-"""Decoder-only LM assembly, dense family.
+"""Decoder-only LM assembly: the dense, MoE, SSM and hybrid families.
 
 The counterpart of ``repro/models/transformer.py``: ``period_of``,
-``_init_block``/``_block_fwd`` (attention plus MLP), ``init_model``,
-``forward`` and ``init_cache``, in the reference's stacked layout.  Layers
-are grouped by the repeat period (2 for gemma2's local/global
-alternation, else 1); every parameter of period position ``pos`` is
-stacked over the ``n_groups = n_layers // period`` groups, and the decode
-cache is a tuple over period positions of ``(k, v)``, each
-``(n_groups, B, Hkv, S, D)``.  Layer ``g * period + pos`` reads group ``g``
-at position ``pos``.
+``_init_block``/``_block_fwd``, ``init_model``, ``forward`` and
+``init_cache``, in the reference's stacked layout.  Layers are grouped by
+the repeat period (2 for gemma2's local/global alternation and
+every-other-layer MoE, 8 for jamba's 7:1 mamba:attention interleave, else
+1); every parameter of period position ``pos`` is stacked over the
+``n_groups = n_layers // period`` groups.  Layer ``g * period + pos`` reads
+group ``g`` at position ``pos``: an attention (``layers.attention_fwd``)
+or SSD (``ssm``) mixer, then an MLP or MoE (``moe``) feed-forward.
+
+The decode cache is a tuple over period positions of ``(k, v)``, each
+``(n_groups, B, Hkv, S, D)``, at attention positions and of ``(ssm_h,
+conv_state)`` at SSD positions: ``ssm_h`` float32 ``(n_groups, B, H, S,
+P)``, ``conv_state`` ``(n_groups, B, K-1, C)`` in the cache dtype.
 
 The reference drives the stack with ``jax.lax.scan``; here it is a
 Python loop over the layers, reading views of the stacked tensors.  The
-cache is written in place (``layers.attention_fwd``) and the same tuple
-comes back as the new cache.  The MoE and SSM branches, and the other
-families, are not ported yet (ROADMAP Queue 1 item 11): they raise.
+cache is written in place (attention's slice write, the SSD's ``copy_``
+of its new state) and the same tuple comes back as the new cache.  The
+enc-dec and VLM families are not ported yet (ROADMAP Queue 1 item 11):
+they raise.
 """
 from __future__ import annotations
 
@@ -24,21 +30,26 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
 from repro_torch.models.layers import Params
 
-#: parameter names that stay float32 (norm weights)
+#: parameter names that stay float32: norm weights, and the SSD's
+#: parameters that the reference reads in float32 (``ssm.py:108-110,
+#: 152-155``)
 NORMS = frozenset({"ln1", "ln2", "ln1_post", "ln2_post", "final_norm"})
+FLOAT32 = NORMS | {"a_log", "dt_bias", "d_skip", "norm_w", "conv_b"}
 
-_NOT_PORTED = ("not ported yet: the port runs the dense family only "
-               "(ROADMAP Queue 1 item 11)")
+#: the families the port runs
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
-def check_dense(cfg: ModelConfig) -> None:
-    """Raise for what the port cannot run yet: MoE and SSM blocks and the
-    non-dense families."""
-    if cfg.family != "dense" or cfg.n_experts or cfg.ssm_state:
-        raise NotImplementedError(f"{cfg.name} ({cfg.family}): "
-                                  f"{_NOT_PORTED}")
+def check_family(cfg: ModelConfig) -> None:
+    """Raise for the families the port cannot run yet: enc-dec, VLM."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}): not ported yet: the port runs the "
+            f"{', '.join(FAMILIES)} families (ROADMAP Queue 1 item 11)")
 
 
 def period_of(cfg: ModelConfig) -> int:
@@ -54,38 +65,64 @@ def period_of(cfg: ModelConfig) -> int:
 
 def _init_block(gen: torch.Generator, cfg: ModelConfig, pos: int,
                 n_groups: int, device) -> dict:
-    """Period position ``pos``, stacked over ``n_groups``: attention, MLP
-    and norms."""
-    if not cfg.is_attn_layer(pos) or cfg.is_moe_layer(pos):
-        raise NotImplementedError(f"{cfg.name}: SSM and MoE blocks are "
-                                  f"{_NOT_PORTED}")
+    """Period position ``pos``, stacked over ``n_groups``: the mixer
+    (attention or SSD), the feed-forward (MLP or MoE) and the norms."""
     ones = torch.ones((n_groups, cfg.d_model), dtype=torch.float32,
                       device=device)
     p = {"ln1": ones, "ln2": ones.clone()}
     if cfg.post_norms:
         p["ln1_post"] = ones.clone()
         p["ln2_post"] = ones.clone()
-    p["attn"] = L.init_attention(gen, cfg, device, lead=(n_groups,))
-    p["mlp"] = L.init_mlp(gen, cfg, device, lead=(n_groups,))
+    lead = (n_groups,)
+    if cfg.is_attn_layer(pos):
+        p["attn"] = L.init_attention(gen, cfg, device, lead=lead)
+    else:
+        p["ssm"] = S.init_ssm(gen, cfg, device, lead=lead)
+    if cfg.is_moe_layer(pos):
+        p["moe"] = M.init_moe(gen, cfg, device, lead=lead)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg, device, lead=lead)
     return p
+
+
+def _ssd_fwd(p, cfg: ModelConfig, h: torch.Tensor, cache):
+    """The SSD mixer's three branches (``transformer.py:73-82``): a decode
+    step, a prefill into a cache, no cache.  The new state is copied into
+    the cache's tensors, which come back as the new cache."""
+    if cache is None:
+        return S.ssd_fwd(p, cfg, h), None
+    if h.shape[1] == 1:
+        out, state = S.ssd_step(p, cfg, h, cache)
+    else:
+        out, state = S.ssd_fwd(p, cfg, h, return_state=True)
+    for dst, src in zip(cache, state):
+        dst.copy_(src)
+    return out, cache
 
 
 def _block_fwd(p, cfg: ModelConfig, x: torch.Tensor,
                positions: torch.Tensor, pos: int, *, cache=None,
-               cache_pos: Optional[int] = None):
-    """One layer; returns (x, new_cache)."""
+               cache_pos: Optional[int] = None, moe_impl: str = "scatter"):
+    """One layer; returns (x, aux, new_cache)."""
     h = L.rms_norm(x, p["ln1"], cfg.rms_eps, cfg.norm_offset)
-    out, new_cache = L.attention_fwd(p["attn"], cfg, h, positions,
-                                     window=cfg.layer_window(pos),
-                                     cache=cache, cache_pos=cache_pos)
+    if cfg.is_attn_layer(pos):
+        out, new_cache = L.attention_fwd(p["attn"], cfg, h, positions,
+                                         window=cfg.layer_window(pos),
+                                         cache=cache, cache_pos=cache_pos)
+    else:
+        out, new_cache = _ssd_fwd(p["ssm"], cfg, h, cache)
     if cfg.post_norms:
         out = L.rms_norm(out, p["ln1_post"], cfg.rms_eps, cfg.norm_offset)
     x = x + out
     h = L.rms_norm(x, p["ln2"], cfg.rms_eps, cfg.norm_offset)
-    out = L.mlp_fwd(p["mlp"], h)
+    aux = None
+    if cfg.is_moe_layer(pos):
+        out, aux = M.moe_fwd(p["moe"], cfg, h, impl=moe_impl)
+    else:
+        out = L.mlp_fwd(p["mlp"], h)
     if cfg.post_norms:
         out = L.rms_norm(out, p["ln2_post"], cfg.rms_eps, cfg.norm_offset)
-    return x + out, new_cache
+    return x + out, aux, new_cache
 
 
 # ----------------------------------------------------------------------- #
@@ -93,7 +130,7 @@ def _block_fwd(p, cfg: ModelConfig, x: torch.Tensor,
 # ----------------------------------------------------------------------- #
 def to_params(tree: Mapping, cfg: ModelConfig, device=None) -> Params:
     """A :class:`Params` of the reference's parameter tree (tensors or
-    numpy arrays): norm weights in float32, the rest in ``cfg.dtype``."""
+    numpy arrays): :data:`FLOAT32` in float32, the rest in ``cfg.dtype``."""
     dt = torch_dtype(cfg.dtype)
 
     def conv(name, x):
@@ -102,7 +139,7 @@ def to_params(tree: Mapping, cfg: ModelConfig, device=None) -> Params:
         if isinstance(x, (tuple, list)):
             return tuple(conv(name, v) for v in x)
         return torch.as_tensor(x).to(
-            device=device, dtype=torch.float32 if name in NORMS else dt)
+            device=device, dtype=torch.float32 if name in FLOAT32 else dt)
 
     return Params(conv("", tree))
 
@@ -110,8 +147,9 @@ def to_params(tree: Mapping, cfg: ModelConfig, device=None) -> Params:
 def init_model(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     """Random weights from ``gen`` (a generator on ``device``), drawn as
     the reference draws them (N(0, 0.02^2), output projections scaled by
-    1/sqrt(2 n_layers), norms 1, biases 0); the draws differ from JAX's."""
-    check_dense(cfg)
+    1/sqrt(2 n_layers), norms 1, biases 0, the SSD's float32 parameters
+    as ``ssm.init_ssm``); the draws differ from JAX's."""
+    check_family(cfg)
     period = period_of(cfg)
     n_groups = cfg.n_layers // period
     return Params({
@@ -130,11 +168,13 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
             cache: Optional[Tuple] = None,
             cache_pos: Optional[int] = None,
+            moe_impl: str = "scatter",
             last_only: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Tuple]]:
     """tokens: (B, T) -> (logits (B, T, V) float32, aux_loss, new_cache).
-    ``cache_pos`` is a host integer: where this call's tokens start."""
-    check_dense(cfg)
+    ``cache_pos`` is a host integer: where this call's tokens start.
+    ``aux_loss`` is the MoE layers' router loss, summed over layers."""
+    check_family(cfg)
     dtype = torch_dtype(cfg.dtype)
     period = period_of(cfg)
     x = L.embed_fwd(params["embed"], cfg, tokens, dtype)
@@ -143,18 +183,21 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         start = int(cache_pos) if cache_pos is not None else 0
         positions = torch.arange(start, start + t, dtype=torch.int32,
                                  device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     n_groups = cfg.n_layers // period
     for g in range(n_groups):
         for pos in range(period):
-            c = ((cache[pos][0][g], cache[pos][1][g])
+            c = (tuple(leaf[g] for leaf in cache[pos])
                  if cache is not None else None)
-            x, _ = _block_fwd(params["blocks"][pos].group(g), cfg, x,
-                              positions, pos, cache=c, cache_pos=cache_pos)
+            x, a, _ = _block_fwd(params["blocks"][pos].group(g), cfg, x,
+                                 positions, pos, cache=c,
+                                 cache_pos=cache_pos, moe_impl=moe_impl)
+            if a is not None:
+                aux = aux + a
     x = L.rms_norm(x, params["final_norm"], cfg.rms_eps, cfg.norm_offset)
     if last_only:
         x = x[:, -1:]
     logits = L.unembed_fwd(params["embed"], cfg, x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits, aux, cache
 
 
@@ -164,11 +207,20 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16, device=None
                ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], ...]:
-    """Zeroed (k, v) per period position, stacked over groups."""
-    check_dense(cfg)
+    """Zeroed state per period position, stacked over groups: (k, v) in
+    ``dtype`` at attention positions, (ssm_h float32, conv_state in
+    ``dtype``) at SSD positions.  Every tensor is allocated whole, never
+    an expanded view: the forward writes the cache in place."""
+    check_family(cfg)
     period = period_of(cfg)
-    shape = (cfg.n_layers // period, batch, cfg.n_kv_heads, max_len,
-             cfg.head_dim)
-    return tuple((torch.zeros(shape, dtype=dtype, device=device),
-                  torch.zeros(shape, dtype=dtype, device=device))
-                 for _ in range(period))
+    n_groups = cfg.n_layers // period
+    cache = []
+    for pos in range(period):
+        if cfg.is_attn_layer(pos):
+            shape = (n_groups, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+            cache.append((torch.zeros(shape, dtype=dtype, device=device),
+                          torch.zeros(shape, dtype=dtype, device=device)))
+        else:
+            cache.append(S.init_ssm_state(cfg, batch, dtype, device,
+                                          lead=(n_groups,)))
+    return tuple(cache)

@@ -1,9 +1,10 @@
 """Serving loop with Device-First-Use placement of the decode cache.
 
 The counterpart of ``repro/train/serve.py``, where the paper's technique
-becomes a feature of the LM framework: the decode cache is a large,
-massively reused buffer, exactly the object SCILIB-Accel's Device
-First-Use policy was designed for.  The server allocates the cache, puts
+becomes a feature of the LM framework: the decode cache (K and V for
+attention layers, the float32 ``ssm_h`` and the conv state for SSD
+layers) is a large, massively reused buffer, exactly the object
+SCILIB-Accel's Device First-Use policy was designed for.  The server allocates the cache, puts
 it on the *host tier* (``memspace.HOST``), and the placement policy
 decides how it reaches the device:
 

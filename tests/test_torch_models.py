@@ -121,7 +121,9 @@ def test_decode_from_a_carried_cache():
 
 
 @pytest.mark.parametrize("arch", ["gemma2_9b", "qwen1_5_4b", "deepseek_7b",
-                                  "qwen2_5_32b"])
+                                  "qwen2_5_32b", "granite_moe_1b_a400m",
+                                  "moonshot_v1_16b_a3b", "mamba2_1_3b",
+                                  "jamba_1_5_large_398b"])
 def test_dense_configs_are_the_references(arch):
     assert dataclasses.asdict(registry.get_config(arch)) == \
         dataclasses.asdict(jreg.get_config(arch))
@@ -130,19 +132,26 @@ def test_dense_configs_are_the_references(arch):
 
 
 def test_registry_lists_every_arch_and_refuses_the_unported():
+    """Eight of the ten architectures are ported; the enc-dec whisper-tiny
+    and the VLM pixtral-12b raise, quoting the ROADMAP item."""
     assert registry.ARCHS == jreg.ARCHS
-    for arch in set(registry.ARCHS) - set(registry.PORTED):
+    assert set(registry.ARCHS) - set(registry.PORTED) == {"whisper_tiny",
+                                                          "pixtral_12b"}
+    for arch in ("whisper_tiny", "pixtral_12b", "whisper-tiny"):
         with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
             registry.get_config(arch)
 
 
-def test_init_layout_and_storage_types():
-    """Seeded init in the reference's tree and shapes; matrices stored in
-    cfg.dtype (bf16 here), norm weights in float32; the same seed gives
-    the same weights."""
-    cfg = dataclasses.replace(registry.get_config("gemma2_9b").reduced(),
+@pytest.mark.parametrize("arch", ["gemma2_9b", "granite_moe_1b_a400m",
+                                  "mamba2_1_3b", "jamba_1_5_large_398b"])
+def test_init_layout_and_storage_types(arch):
+    """Seeded init in the reference's tree and shapes (attention or SSD
+    mixers, MLP or MoE feed-forwards, per period position); matrices
+    stored in cfg.dtype (bf16 here), norm weights and the SSD's float32
+    vectors in float32; the same seed gives the same weights."""
+    cfg = dataclasses.replace(registry.get_config(arch).reduced(),
                               dtype="bfloat16")
-    jcfg = dataclasses.replace(jreg.get_config("gemma2_9b").reduced(),
+    jcfg = dataclasses.replace(jreg.get_config(arch).reduced(),
                                dtype="bfloat16")
     jp = jreg.Model.from_config(jcfg).init(jax.random.PRNGKey(0))
     model = registry.Model.from_config(cfg)
@@ -155,19 +164,32 @@ def test_init_layout_and_storage_types():
                         for k in path)
         t = got[name]
         assert tuple(t.shape) == leaf.shape, name
-        norm = name.split(".")[-1] in transformer.NORMS
-        assert t.dtype == (torch.float32 if norm else torch.bfloat16), name
+        f32 = name.split(".")[-1] in transformer.FLOAT32
+        assert t.dtype == (torch.float32 if f32 else torch.bfloat16), name
     again = model.init(torch.Generator().manual_seed(0), "cpu")
     assert all(torch.equal(a, b) for a, b in
                zip(p.parameters(), again.parameters()))
     assert torch_dtype(cfg.dtype) == torch.bfloat16
 
 
-def test_the_unported_blocks_raise():
+@pytest.mark.parametrize("family", ["encdec", "vlm"])
+def test_the_unported_blocks_raise(family):
+    """The enc-dec and VLM families (whisper-tiny's and pixtral-12b's)
+    raise in init, forward and init_cache; MoE, SSM and hybrid blocks no
+    longer do."""
     cfg = dataclasses.replace(registry.get_config("gemma2_9b").reduced(),
-                              n_experts=4, top_k=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        transformer.init_model(torch.Generator(), cfg, "cpu")
+                              family=family)
+    for call in (lambda: transformer.init_model(torch.Generator(), cfg,
+                                                "cpu"),
+                 lambda: transformer.forward(None, cfg,
+                                             torch.zeros(1, 1, dtype=int)),
+                 lambda: transformer.init_cache(cfg, 1, 8)):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+            call()
+    moe_cfg = dataclasses.replace(registry.get_config("gemma2_9b").reduced(),
+                                  n_experts=4, top_k=2, d_ff_expert=32)
+    p = transformer.init_model(torch.Generator(), moe_cfg, "cpu")
+    assert "moe" in p["blocks"][0] and "mlp" not in p["blocks"][0]
 
 
 def test_rms_norm_and_rope_match_reference():
@@ -211,3 +233,42 @@ def test_matmul_folds_activation_dims_into_one_launch(monkeypatch):
     calls.clear()
     ops.matmul(x, torch.randn(3, 16, 5, generator=gen))
     assert calls[0][:2] == ((3, 7, 16), (3, 16, 5))   # still batched
+
+
+def test_matmul_of_an_empty_width_launches_nothing(monkeypatch):
+    """A product with an empty dim (mamba2's MLP of width 0) returns its
+    empty or zero result without a gemm call, on either layout."""
+    calls = []
+    monkeypatch.setattr(ops, "gemm", lambda a, b: calls.append(1))
+    x = torch.randn(2, 3, 4)
+    assert tuple(ops.matmul(x, torch.randn(4, 0)).shape) == (2, 3, 0)
+    z = ops.matmul(torch.randn(2, 3, 0), torch.randn(0, 5))
+    assert tuple(z.shape) == (2, 3, 5) and not z.any()
+    z = ops.matmul(torch.randn(3, 2, 0), torch.randn(3, 0, 5))
+    assert tuple(z.shape) == (3, 2, 5) and not z.any()
+    assert calls == []
+
+
+def test_cache_leaves_keep_their_dtype_roles():
+    """cache_from_jax keeps an SSD position's ssm_h float32 under a bf16
+    cache (attention's k, v and the conv state take the cache dtype);
+    cache_to_numpy returns every leaf exactly, so the two round-trip."""
+    cfg = registry.get_config("jamba_1_5_large_398b").reduced()
+    cache = registry.Model.from_config(cfg).init_cache(2, 8, torch.bfloat16)
+    gen = torch.Generator().manual_seed(0)
+    for pair in cache:
+        for x in pair:
+            x.copy_(torch.randn(x.shape, generator=gen) / 3)
+    numpy_cache = cache_to_numpy(cache)
+    assert all(a.dtype == np.float32 for pair in numpy_cache for a in pair)
+    back = cache_from_jax(numpy_cache, dtype=torch.bfloat16)
+    for pos, (pair, again) in enumerate(zip(cache, back)):
+        kinds = tuple(x.dtype for x in pair)
+        want = ((torch.bfloat16, torch.bfloat16) if cfg.is_attn_layer(pos)
+                else (torch.float32, torch.bfloat16))
+        assert kinds == want == tuple(x.dtype for x in again), pos
+        assert all(torch.equal(a, b) for a, b in zip(pair, again))
+    # a float32 ssm_h value no bf16 holds survives the trip
+    ssd = next(p for p in range(len(cache)) if not cfg.is_attn_layer(p))
+    assert not torch.equal(back[ssd][0], back[ssd][0].bfloat16().float())
+
