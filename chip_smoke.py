@@ -18,7 +18,9 @@ per-site racing and split-precision fp64 at PARSEC's production shapes
 (``repro_torch.train.Server``) on gemma2-9b at full width with a Device
 First-Use decode cache, then on the MoE and SSD models
 (granite-moe-1b-a400m, mamba2-1.3b, moonshot-v1-16b-a3b cut in depth,
-jamba reduced).  Phases, in order:
+jamba reduced), then on the enc-dec whisper-tiny and the VLM pixtral-12b,
+then training (``repro_torch.train.Trainer``) on whisper-tiny and on
+qwen1.5-4b cut in depth.  Phases, in order:
 
 1. build   — build and load the kernels; the card's name and power limit.
 2. kernels — each kernel against its plain version, with the tolerance
@@ -114,13 +116,60 @@ jamba reduced).  Phases, in order:
              at full width over 2 layers for (a) (capacity raised to the
              token count, so nothing drops) and (b); one profiled prefill
              and decode step of (a) and (b).
+10. serve_encdec_vlm — (a) whisper-tiny at full width and depth (4 + 4
+             layers, vocab 51865 tied), batch 4 x 64 tokens with 1500
+             ones-valued frames, dfu (16 tokens) and memcopy (4): DFU
+             moves the 38,830,080 B cache (self K/V 1,966,080 B, the
+             cross K/V placeholder 36,864,000 B) once with 15 reuses,
+             memcopy 4x each way, tokens equal; 65 gemm launches at the
+             prefill and 33 per step, 12 flash (encoder, decoder self
+             and cross attention, all wgmma, non-causal at Tk 1500) and
+             4 decode per step; every attention call of the memcopy run
+             against its plain version; the encoder's and the cross
+             attention's flash calls on their real inputs per row,
+             beside a control that must fail (the plain version with the
+             TPU kernel's 36 padded keys live).  (b) pixtral-12b at full
+             width and depth, batch 2 x (256 patch embeddings + 3840
+             tokens), prefill then decode from P + T = 4096, dfu (16)
+             and memcopy (4): DFU moves the 1,347,420,160 B cache once,
+             281 gemm per forward, 40 flash at D 128 on wgmma, 40 decode
+             per step.  Then gemm at the whisper head's ragged N, the
+             largest backward products (whisper's head backward also on
+             dC padded to rows of 51872, the layout training gives it),
+             pixtral's MLP and head, flash and decode at pixtral's
+             shapes; pixtral's cross-check over 2 layers; a profiled
+             prefill and decode step.
+11. train  — before each fit, its first step's loss and every leaf's
+             gradient through the kernels against the same step with
+             every product and attention plain (per leaf relative L2
+             error <= 3e-2), beside a control that must fail (gemm's dB
+             transposed), and every kind of flash call of that step on
+             its own inputs per row against plain.  (a) whisper-tiny at
+             full width and depth, batch 8 x 448 tokens with 1500
+             frames, 24 AdamW steps on float32 masters (each use cast to
+             bf16), under deterministic algorithms: 3 gemm launches per
+             forward product per step (the forward, dA, dB), 12 flash
+             per step, the loss falling; a restart from the step-12
+             checkpoint bit for bit the uninterrupted run; one step
+             under remat dots (gemm 3 x, flash 2 x) and full (gemm 4 x,
+             flash 2 x); a profiled step; the host's cost per call of
+             the autograd operators.  (b) qwen1.5-4b at full width over
+             4 of its 40 layers, batch 4 x 1024, 5 steps at the
+             reference's TrainConfig (lr 3e-4, warmup 20): launches, a
+             finite falling loss, peak memory, each step's loss within
+             1e-2 of the same fit forced plain; the witness fits at
+             warmup 1, on the kernels and plain.  The main-path runs of
+             10 and 11 run inside a DFU session with interception on,
+             which must see no fault, retry, fallback or quarantine.
 
 The kernels line's launches are those of the main path's runs: the
 BLAS, LSMS and solvers phases, the venue phase's (a)-(c), every run of
-the runtime phase, the serve phase's dfu, streams and memcopy runs, and
-the serve_moe_ssm phase's dfu and memcopy runs, each with the counts set
-to 0 just before it.  The cross-check's and the profile's launches are not among them.
-Every mismatch or missing launch raises, so the script exits non-zero.
+the runtime phase, the serve phase's dfu, streams and memcopy runs, the
+serve_moe_ssm and serve_encdec_vlm phases' dfu and memcopy runs, and the
+train phase's two fits, each with the counts set to 0 just before it.
+The cross-checks', the profiles', the gradient checks', the restart's,
+the remat steps' and the plain and witness fits' launches are not among
+them.  Every mismatch or missing launch raises, so the script exits non-zero.
 The lines before the last are a JSON object of per-kernel numbers and
 the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the port
@@ -130,6 +179,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -416,11 +466,12 @@ def phase_build():
                  f"{torch.__version__}, CUDA {torch.version.cuda}")
 
 
-def gemm_times(a, b, label: str, phase: str = "kernels") -> dict:
+def gemm_times(a, b, label: str, phase: str = "kernels",
+               card: str = "") -> dict:
     """Kernel, plain-version and torch.matmul times of one product (a
     batch of them for 3-D operands, where torch.matmul is torch.bmm), with
     its bound: 2*M*N*K operations per matrix, and each operand read once
-    and the result written once."""
+    and the result written once.  ``card`` ends the logged line."""
     import torch
     from repro_torch.kernels import gemm
     batch = a.shape[0] if a.dim() == 3 else 1
@@ -435,7 +486,7 @@ def gemm_times(a, b, label: str, phase: str = "kernels") -> dict:
     log(phase, f"gemm {dt} {label}: kernel {ms:.3f} ms "
                f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
                f"torch.{'bmm' if batch > 1 else 'matmul'} {lib_ms:.3f} ms, "
-               f"bound {bms:.4f} ms ({by})")
+               f"bound {bms:.4f} ms ({by})" + (f"; {card}" if card else ""))
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                 library_ms=lib_ms)
 
@@ -1737,9 +1788,12 @@ CROSS_LAYERS = 2
 
 
 def generate_keeping(model, params, policy: str, n: int, prompt, dev,
-                     max_len: int = SERVE_LEN):
-    """Server.generate under ``policy``, keeping the last-position logits
-    of every forward it runs (the prefill, then each decode step)."""
+                     max_len: int = SERVE_LEN, extra=None, start=None):
+    """Server.generate under ``policy`` (with the family's ``extra``
+    inputs), keeping the last-position logits of every forward it runs
+    (the prefill, then each decode step).  With ``start``, the prefill
+    then ``decode(start_pos=start)`` instead of ``generate``'s decode
+    from the prompt's length."""
     import torch
     from repro_torch.configs.base import torch_dtype
     from repro_torch.train import Server, ServeConfig
@@ -1755,24 +1809,31 @@ def generate_keeping(model, params, policy: str, n: int, prompt, dev,
         srv = Server(model, params, ServeConfig(
             max_len=max_len, offload_policy=policy,
             cache_dtype=torch_dtype(model.cfg.dtype)), device=dev)
-        out = srv.generate(prompt, n)
+        if start is None:
+            out = srv.generate(prompt, n, extra)
+        else:
+            tok, cache = srv.prefill(prompt, extra)
+            gen, cache = srv.decode(tok, cache, start, n - 1)
+            out = torch.cat([tok, gen], dim=1)
+            del cache
     finally:
         model.forward = forward
     return srv, out, torch.stack(kept, dim=1)
 
 
 def cross_check(model, params, prompt, out, cached, dev,
-                where: str = "serve cross-check") -> dict:
+                where: str = "serve cross-check", extra=None) -> dict:
     """A forward without a cache (the flash kernel on every layer) over
     the prompt and all but the last generated token, against the cached
     steps' logits (the decode kernel on global layers, plain attention on
     local ones).  Greedy tokens must agree wherever the cached top-2
     margin exceeds 2 max|dlogit|: a flip needs the leader to drop and the
-    runner-up to rise, each by at most max|dlogit|."""
+    runner-up to rise, each by at most max|dlogit|.  ``extra`` (a VLM's
+    patches) goes to the forward too."""
     import torch
     seq = torch.cat([prompt.to(dev), out[:, :-1]], dim=1)
     with torch.no_grad():
-        logits, _, _ = model.forward(params, seq)
+        logits, _, _ = model.forward(params, seq, **(extra or {}))
     nocache = logits[:, prompt.shape[1] - 1:]
     del logits
     if not bool(torch.isfinite(nocache).all() & torch.isfinite(cached).all()):
@@ -2156,7 +2217,8 @@ def decode_layers(cfg) -> int:
 
 def serve_policies(model, params, prompt, *, n_dfu: int, n_memcopy: int,
                    max_len: int, want_bytes: int, dev, where: str,
-                   phase: str = "serve_moe_ssm") -> tuple:
+                   phase: str = "serve_moe_ssm", extra=None, start=None,
+                   want_launches=None) -> tuple:
     """One model through the serving loop: dfu generating ``n_dfu`` tokens,
     then, if ``n_memcopy``, memcopy generating that many with every
     attention kernel call held to its plain version.  Asserts the bytes,
@@ -2164,8 +2226,11 @@ def serve_policies(model, params, prompt, *, n_dfu: int, n_memcopy: int,
     gemm, flash and decode launches per forward and step, every bf16 flash
     launch on the wgmma path, and no decode cache copy; logs the times and
     the (token, choice) pairs each MoE layer drops to its capacity at
-    prefill.  Returns (launches of both runs, dfu's tokens, its
-    ServeStats)."""
+    prefill.  ``extra`` and ``start`` go to generate_keeping (the family's
+    stub inputs; a VLM's decode from P + T); ``want_launches(n)`` gives
+    the (flash, decode, gemm) launches of a run of n tokens where the
+    decoder-only count (one forward's, n times) does not apply.  Returns
+    (launches of both runs, dfu's tokens, its ServeStats)."""
     import torch
     from repro_torch.kernels import attention, decode_attention, gemm
     from repro_torch.models import moe
@@ -2180,8 +2245,12 @@ def serve_policies(model, params, prompt, *, n_dfu: int, n_memcopy: int,
         for name, n in got.items():
             launched[name] = launched.get(name, 0) + n
 
+    def wanted(n: int) -> tuple:
+        return (want_launches(n) if want_launches else
+                (attn_layers, steps_layers * (n - 1), gemms * n))
+
     def expect(run: str, got: dict, n: int) -> None:
-        want = (attn_layers, steps_layers * (n - 1), gemms * n)
+        want = wanted(n)
         have = (got["flash_attention"], got["decode_attention"], got["gemm"])
         if have != want:
             raise AssertionError(f"{where} {run}: launches {got}, want "
@@ -2210,7 +2279,7 @@ def serve_policies(model, params, prompt, *, n_dfu: int, n_memcopy: int,
     reset_counts()
     try:
         srv, out, _ = generate_keeping(model, params, "dfu", n_dfu, prompt,
-                                       dev, max_len)
+                                       dev, max_len, extra, start)
     finally:
         moe.dispatch = real_dispatch
     got = counts()
@@ -2241,7 +2310,7 @@ def serve_policies(model, params, prompt, *, n_dfu: int, n_memcopy: int,
                f"step, {st.tokens / st.decode_s:.2f} tokens/s); h->d "
                f"{st.bytes_host_to_dev} B, d->h {st.bytes_dev_to_host} B, "
                f"migrations {st.migrations}, reuses {st.cache_reuses}; "
-               f"launches {got} (gemm {gemms} per forward, "
+               f"launches {got} ((flash, decode, gemm) {wanted(n_dfu)}, "
                f"{gemm.reduce_launches} split-K reductions; flash by path "
                f"{flash_paths}, {copies[0]} operand copies; decode "
                f"{copies[1]} cache copies); peak device memory "
@@ -2256,7 +2325,7 @@ def serve_policies(model, params, prompt, *, n_dfu: int, n_memcopy: int,
     reset_counts()
     try:
         mc, out_mc, _ = generate_keeping(model, params, "memcopy", n_memcopy,
-                                         prompt, dev, max_len)
+                                         prompt, dev, max_len, extra, start)
     finally:
         restore()
     got = counts()
@@ -2288,18 +2357,22 @@ def serve_policies(model, params, prompt, *, n_dfu: int, n_memcopy: int,
 
 
 def serve_cross_check(cfg, prompt, n: int, dev, where: str,
-                      phase: str = "serve_moe_ssm") -> None:
+                      phase: str = "serve_moe_ssm", extra=None,
+                      start=None) -> None:
     """The cached steps against a forward without a cache, at full width
     over CROSS_LAYERS layers (cross_check), with their flash and decode
-    launches asserted; they are not counted as the main path's."""
+    launches asserted; they are not counted as the main path's.
+    ``extra`` and ``start`` as generate_keeping's (a VLM's patches, its
+    decode from P + T)."""
     import dataclasses
     import torch
     small = dataclasses.replace(cfg, n_layers=CROSS_LAYERS)
     model, params = serve_model(small, dev, phase)
     reset_counts()
-    _, out, cached = generate_keeping(model, params, "dfu", n, prompt, dev,
-                                      prompt.shape[1] + n)
-    cut = cross_check(model, params, prompt, out, cached, dev, where)
+    _, out, cached = generate_keeping(
+        model, params, "dfu", n, prompt, dev,
+        (start or prompt.shape[1]) + n, extra=extra, start=start)
+    cut = cross_check(model, params, prompt, out, cached, dev, where, extra)
     got = counts()
     attn = sum(small.is_attn_layer(i) for i in range(small.n_layers))
     want = (2 * attn, decode_layers(small) * (n - 1))
@@ -2338,21 +2411,24 @@ def serve_model(cfg, dev, phase: str = "serve_moe_ssm"):
 
 
 def serve_profile(model, params, prompt, max_len: int, dev, label: str,
-                  phase: str = "serve_moe_ssm") -> None:
+                  phase: str = "serve_moe_ssm", extra=None,
+                  start=None) -> None:
     """Where one prefill and one decode step spend their time: each once
-    under torch.profiler (device_profile; its launches are not
-    counted)."""
+    under torch.profiler (device_profile; its launches are not counted).
+    The decode step sits at ``start`` (default the prompt's length)."""
     import torch
     cache = model.init_cache(prompt.shape[0], max_len, device=dev)
     tok = prompt[:, :1].to(dev)
+    start = prompt.shape[1] if start is None else start
     with torch.no_grad():
         device_profile(lambda: model.forward(
-            params, prompt.to(dev), cache=cache, cache_pos=0),
+            params, prompt.to(dev), cache=cache, cache_pos=0,
+            **(extra or {})),
             f"{label}: one prefill forward {tuple(prompt.shape)}",
             phase=phase, host=True)
         device_profile(lambda: model.forward(
-            params, tok, cache=cache, cache_pos=prompt.shape[1]),
-            f"{label}: one decode step (kv_len {prompt.shape[1] + 1})",
+            params, tok, cache=cache, cache_pos=start),
+            f"{label}: one decode step (kv_len {start + 1})",
             phase=phase, host=True)
     del cache
 
@@ -2459,6 +2535,842 @@ def phase_serve_moe_ssm(dev) -> dict:
                         MAMBA_CROSS_GEN, dev, "(b) mamba2 cross-check")
     torch.cuda.empty_cache()
     return launched
+
+
+#: the serve_encdec_vlm phase.  (a) whisper-tiny at full width and depth:
+#: batch 4, 1500 ones-valued frames, a 64-token prompt standing for
+#: previous-text context (whisper's bare task prefix, 4 tokens, would keep
+#: the prefill's self and cross attention below flash's Tq >= 8), 16
+#: tokens under dfu and 4 under memcopy, max_len 80
+WH_BATCH, WH_PROMPT, WH_GEN, WH_MEMCOPY_GEN = 4, 64, 16, 4
+WH_LEN = WH_PROMPT + WH_GEN
+#: its cache: 4 decoder layers x (k, v), each (4, 6 heads, slots, 64) in
+#: bf16: self over the 80 slots, cross over the 1500 frames
+WH_SELF_BYTES = 4 * 2 * WH_BATCH * 6 * WH_LEN * 64 * 2
+WH_CROSS_BYTES = 4 * 2 * WH_BATCH * 6 * 1500 * 64 * 2
+assert (WH_SELF_BYTES, WH_CROSS_BYTES) == (1_966_080, 36_864_000)
+WH_CACHE_BYTES = WH_SELF_BYTES + WH_CROSS_BYTES
+assert WH_CACHE_BYTES == 38_830_080
+#: the reference's Pallas flash pads Tk to its key block (min(256, Tk))
+#: and masks the pads only through the causal test
+#: (repro/kernels/attention.py:96-102): at Tk 1500, 36 zero keys
+TPU_BK = 256
+#: (b) pixtral-12b at full width and depth: batch 2 x (256 patch
+#: embeddings + 3840 tokens), decoded from P + T = 4096 (not from T, as
+#: the reference's generate would), max_len 4112
+PX_BATCH, PX_PATCHES, PX_PROMPT, PX_GEN, PX_MEMCOPY_GEN = 2, 256, 3840, 16, 4
+PX_START = PX_PATCHES + PX_PROMPT
+PX_LEN = PX_START + PX_GEN
+#: its cache: 40 layers x (k, v), each (2, 8 KV heads, 4112, 128) bf16
+PX_CACHE_BYTES = 40 * 2 * PX_BATCH * 8 * PX_LEN * 128 * 2
+assert PX_CACHE_BYTES == 1_347_420_160
+
+
+def whisper_launches(cfg, n: int) -> tuple:
+    """(flash, decode, gemm) launches of a whisper run of ``n`` tokens.
+    The prefill runs the encoder (q, k, v, o, w1, w2 per layer), the
+    decoder (self q, k, v, o; cross q, its K/V from the encoder, o; w1,
+    w2 per layer) and the tied head, with flash on the encoder's, the
+    decoder's self and its cross attention.  A decode step runs the
+    decoder without the cross K/V (8 products per layer) and the head,
+    decode_attention.cu on self attention; cross attention at Tq 1 is
+    plain, as in the reference."""
+    enc, dec = cfg.encoder_layers, cfg.n_layers
+    return (enc + 2 * dec, dec * (n - 1),
+            6 * enc + 10 * dec + 1 + (8 * dec + 1) * (n - 1))
+
+
+def padded_live(q, k, v):
+    """The plain version with the TPU kernel's defect: Tk padded with zero
+    keys to its block, the pads left in a non-causal softmax."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    pad = (-k.shape[2]) % min(TPU_BK, k.shape[2])
+    return ref.attention(q, F.pad(k, (0, 0, 0, pad)),
+                         F.pad(v, (0, 0, 0, pad)), causal=False), pad
+
+
+def capture_flash(model, params, prompt, extra, max_len: int, dev) -> dict:
+    """One prefill forward (not counted), keeping the first flash call's
+    inputs of each kind: the encoder's (non-causal, Tq = Tk), the
+    decoder's cross attention (non-causal, Tq < Tk) and its self
+    attention."""
+    import torch
+    from repro_torch.kernels import ops
+    real, seen = ops.flash_attention, {}
+
+    def keep(q, k, v, **kw):
+        kind = ("self" if kw.get("causal", True) else
+                "encoder" if q.shape[2] == k.shape[2] else "cross")
+        seen.setdefault(kind, (q, k, v, kw))
+        return real(q, k, v, **kw)
+
+    ops.flash_attention = keep
+    try:
+        with torch.no_grad():
+            cache = model.init_cache(prompt.shape[0], max_len, device=dev)
+            model.forward(params, prompt.to(dev), cache=cache, cache_pos=0,
+                          **extra)
+    finally:
+        ops.flash_attention = real
+    return seen
+
+
+def flash_times(q, k, v, label: str, card: str, phase: str, **kw) -> None:
+    """Kernel, plain and sdpa times of one flash call, with its bound
+    (flash_bound: the live logits of a causal or full mask)."""
+    from repro_torch.kernels import attention
+    b, hq, tq, d = q.shape
+    hkv, tk = k.shape[1], k.shape[2]
+    causal = kw.get("causal", True)
+    ms = time_ms(lambda: attention.flash_attention(q, k, v, **kw), reps=5)
+    plain_ms = time_ms(lambda: attention.flash_attention_plain(q, k, v, **kw),
+                       reps=2)
+    lib_ms = time_ms(lambda: sdpa(q, k, v, is_causal=causal), reps=5)
+    pairs = causal_pairs(tq, 0) if causal else tq * tk
+    bms, _, term = flash_bound(b * hq * pairs, d, q.element_size() * (
+        2 * b * hq * tq * d + 2 * b * hkv * tk * d), softcap=False)
+    log(phase, f"{label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, sdpa "
+               f"{lib_ms:.3f} ms, bound {bms:.4f} ms ({term}); {card}")
+
+
+def whisper_flash_checks(seen: dict, card: str) -> None:
+    """The encoder's and the cross attention's flash calls of a whisper
+    prefill, on their real inputs: the wgmma path, per row against the
+    plain version at ATTN_TOL, beside a control that must fail it (the
+    plain version with the TPU kernel's padded keys live), and times."""
+    from repro_torch.kernels import attention
+    for kind in ("encoder", "cross"):
+        q, k, v, kw = seen[kind]
+        label = (f"flash_attention bf16 whisper {kind} q {list(q.shape)} "
+                 f"k, v {list(k.shape)} non-causal, Tk {k.shape[2]} "
+                 f"(wgmma path)")
+        before = attention.launches_by_path[attention.WGMMA]
+        got = attention.flash_attention(q, k, v, **kw)
+        if attention.launches_by_path[attention.WGMMA] != before + 1:
+            raise AssertionError(f"{label}: not on the wgmma path")
+        want = attention.flash_attention_plain(q, k, v, **kw)
+        check_rows(label, got, want, ATTN_TOL)
+        live, pad = padded_live(q, k, v)
+        control(f"{label}: the plain version with its {pad} padded keys "
+                f"live (the TPU kernel's non-causal defect)", live, want,
+                ATTN_TOL)
+        flash_times(q, k, v, label, card, "serve_encdec_vlm", **kw)
+
+
+def padded_head_backward(dc, x, table, card: str) -> None:
+    """Whisper's tied head backward (dA = dC table, dB = x^T dC) as the
+    train step runs it, on dC's odd row stride (51865 bf16: TMA cannot
+    describe it, so both products take the skinny path), against one copy
+    of dC into rows padded to a multiple of 8, which puts both on the
+    tensor-core path: times of each and their results held to the plain
+    products."""
+    import torch
+    from repro_torch.kernels import gemm
+    m, n = dc.shape
+    buf = torch.empty(m, -(-n // 8) * 8, dtype=dc.dtype, device=dc.device)
+    padded = buf[:, :n]
+    padded.copy_(dc)
+    for name, a, b, pa, pb in (("dA", dc, table, padded, table),
+                               ("dB", x.mT, dc, x.mT, padded)):
+        want = gemm.gemm_plain(a, b)
+        check(f"gemm bfloat16 whisper head backward {name} on dC padded to "
+              f"row stride {buf.shape[1]}, path {gemm.plan(pa, pb).path}",
+              gemm.gemm(pa, pb), want, TOL["bfloat16"])
+    skinny = time_ms(lambda: (gemm.gemm(dc, table), gemm.gemm(x.mT, dc)),
+                     reps=5)
+    copy = time_ms(lambda: padded.copy_(dc), reps=5)
+    both = time_ms(lambda: (padded.copy_(dc), gemm.gemm(padded, table),
+                            gemm.gemm(x.mT, padded)), reps=5)
+    log("serve_encdec_vlm", f"whisper head backward {m}x{n}: dA + dB on dC "
+                            f"as it comes (paths {gemm.plan(dc, table).path}"
+                            f", {gemm.plan(x.mT, dc).path}) {skinny:.3f} ms;"
+                            f" one padded copy of dC {copy:.3f} ms, copy + "
+                            f"dA + dB (paths {gemm.plan(padded, table).path}"
+                            f", {gemm.plan(x.mT, padded).path}) {both:.3f} "
+                            f"ms; {card}")
+    del buf, padded
+
+
+def encdec_vlm_kernel_checks(dev, card: str) -> None:
+    """gemm.cu at whisper's ragged vocab head (N 51865, over the tied
+    table's transposed view) at prefill, decode and training widths, at
+    pixtral's prefill MLP and decode head, and at the largest backward
+    products of the train phase (qwen1.5-4b's untied head: dA = dC B^T
+    and dB = A^T dC on transposed views, whisper's tied head); flash at
+    pixtral's prefill (D 128, 4 query heads per KV head) and decode at
+    its cache; each against its plain version with times and bounds."""
+    import torch
+    from repro_torch.kernels import attention, decode_attention, gemm
+    gen = torch.Generator(device=dev).manual_seed(20)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+    table = rnd(51865, 384)
+    n_pre, n_train = WH_BATCH * WH_PROMPT, 8 * 448
+    cases = [
+        (f"whisper vocab head {n_pre}x51865x384 (table.mT)", rnd(n_pre, 384),
+         table.mT),
+        (f"whisper vocab head {WH_BATCH}x51865x384 (table.mT)",
+         rnd(WH_BATCH, 384), table.mT),
+        (f"whisper vocab head {n_train}x51865x384 (table.mT), training",
+         rnd(n_train, 384), table.mT),
+        ("whisper head backward dA 3584x384x51865 (dC table)",
+         rnd(n_train, 51865), table),
+        ("whisper head backward dB 384x51865x3584 (A^T dC)",
+         rnd(n_train, 384).mT, rnd(n_train, 51865)),
+    ]
+    for label, a, b in cases:
+        check(f"gemm bfloat16 {label}", gemm.gemm(a, b),
+              gemm.gemm_plain(a, b), TOL["bfloat16"])
+        gemm_times(a, b, f"{label}, path {gemm.plan(a, b).path}",
+                   "serve_encdec_vlm", card)
+    padded_head_backward(cases[3][1], cases[4][1].mT, table, card)
+    del cases, table
+    x, w = rnd(4096, 2560), rnd(2560, 151936)
+    dc = rnd(4096, 151936)
+    cases = [("qwen1.5-4b head backward dA 4096x2560x151936 (dC B^T)", dc,
+              w.mT),
+             ("qwen1.5-4b head backward dB 2560x151936x4096 (A^T dC)", x.mT,
+              dc)]
+    for label, a, b in cases:
+        check(f"gemm bfloat16 {label}", gemm.gemm(a, b),
+              gemm.gemm_plain(a, b), TOL["bfloat16"])
+        gemm_times(a, b, f"{label}, path {gemm.plan(a, b).path}",
+                   "serve_encdec_vlm", card)
+    del cases, x, w, dc
+    cases = [(f"pixtral MLP up {PX_BATCH * PX_START}x14336x5120",
+              rnd(PX_BATCH * PX_START, 5120), rnd(5120, 14336)),
+             (f"pixtral vocab head {PX_BATCH}x131072x5120",
+              rnd(PX_BATCH, 5120), rnd(5120, 131072))]
+    for label, a, b in cases:
+        check(f"gemm bfloat16 {label}", gemm.gemm(a, b),
+              gemm.gemm_plain(a, b), TOL["bfloat16"])
+        gemm_times(a, b, f"{label}, path {gemm.plan(a, b).path}",
+                   "serve_encdec_vlm", card)
+    del cases
+    b, hq, hkv, d = PX_BATCH, 32, 8, 128
+    q, k, v = rnd(b, hq, PX_START, d) * ATTN_Q_SCALE, \
+        rnd(b, hkv, PX_START, d), rnd(b, hkv, PX_START, d)
+    label = (f"flash_attention bf16 pixtral [{b},{hq},{PX_START},{d}] / "
+             f"[{b},{hkv},{PX_START},{d}] causal (wgmma path)")
+    before = attention.launches_by_path[attention.WGMMA]
+    got = attention.flash_attention(q, k, v, causal=True)
+    if attention.launches_by_path[attention.WGMMA] != before + 1:
+        raise AssertionError(f"{label}: not on the wgmma path")
+    check_rows(label, got, attention.flash_attention_plain(q, k, v,
+                                                           causal=True),
+               ATTN_TOL)
+    flash_times(q, k, v, label, card, "serve_encdec_vlm", causal=True)
+    del q, k, v, got
+    kv_len = PX_START + 1
+    q, k, v = rnd(b, hq, 1, d) * ATTN_Q_SCALE, rnd(b, hkv, PX_LEN, d), \
+        rnd(b, hkv, PX_LEN, d)
+    k[:, :, kv_len:] *= 4
+    label = (f"decode_attention bf16 pixtral q [{b},{hq},1,{d}] cache "
+             f"[{b},{hkv},{PX_LEN},{d}] kv_len {kv_len}")
+    want = decode_attention.decode_attention_plain(q, k, v, kv_len)
+    check_rows(label, decode_attention.decode_attention(q, k, v, kv_len),
+               want, ATTN_TOL)
+    control(f"{label} at kv_len {PX_LEN} vs plain at {kv_len}",
+            decode_attention.decode_attention(q, k, v, PX_LEN), want,
+            ATTN_TOL)
+    live = (torch.arange(PX_LEN, device=dev) < kv_len)[None, None, None]
+    ms = time_ms(lambda: decode_attention.decode_attention(q, k, v, kv_len),
+                 reps=50)
+    dms = device_ms(lambda: decode_attention.decode_attention(q, k, v,
+                                                              kv_len), 50)
+    plain_ms = time_ms(lambda: decode_attention.decode_attention_plain(
+        q, k, v, kv_len), reps=10)
+    lib_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=live), reps=50)
+    bms, by = bound(4.0 * b * hq * d * kv_len,
+                    2 * (2 * b * hkv * kv_len * d + 2 * b * hq * d),
+                    "bfloat16")
+    log("serve_encdec_vlm", f"{label}: kernel {ms:.4f} ms (device "
+                            f"{dms:.4f} ms), plain {plain_ms:.4f} ms, sdpa "
+                            f"(kv_len mask) {lib_ms:.4f} ms, bound "
+                            f"{bms:.4f} ms ({by}); {card}")
+    del q, k, v, want
+    torch.cuda.empty_cache()
+
+
+def in_session(fn, where: str, dev):
+    """``fn()`` inside a DFU offload session with interception on, as
+    ``launch/serve.py`` and ``launch/train.py --offload-config`` run it;
+    the session must see no fault, retry, fallback or quarantine (the
+    model's products reach the kernels through ``ops``, never through a
+    guarded unit, so no fault path can hide a broken kernel)."""
+    import repro_torch
+    from repro_torch import OffloadConfig
+    with repro_torch.session(OffloadConfig(policy="dfu"), device=dev,
+                             record_trace=False) as s:
+        out = fn()
+        no_faults(s.stats, where)
+    return out
+
+
+def phase_serve_encdec_vlm(dev) -> dict:
+    """The enc-dec and VLM families through the serving loop, with seeded
+    random bf16 weights made on the card and prefill_fresh_kv: (a)
+    whisper-tiny at full width and depth with ones-valued frames, dfu and
+    memcopy (the cross K/V made at prefill replaces the cache's
+    placeholder; every attention call of the memcopy run held to its
+    plain version); (b) pixtral-12b at full width and depth with 256
+    patch embeddings before 3840 tokens, prefill then decode from P + T,
+    dfu and memcopy.  These runs are the main path; their launches are
+    returned.  Then whisper's encoder and cross flash on their real
+    inputs with the TPU-defect control, the kernels at this phase's
+    shapes, pixtral's cross-check over 2 layers and a profiled prefill
+    and decode step."""
+    import dataclasses
+    import torch
+    from repro_torch.models import get_config
+    phase = "serve_encdec_vlm"
+    card = card_line()
+    launched: dict = {}
+
+    def add(got):
+        for name, n in got.items():
+            launched[name] = launched.get(name, 0) + n
+
+    gen = torch.Generator().manual_seed(2)
+    # (a) whisper-tiny
+    cfg = dataclasses.replace(get_config("whisper_tiny"),
+                              prefill_fresh_kv=True)
+    model, params = serve_model(cfg, dev, phase)
+    prompt = torch.randint(0, cfg.vocab, (WH_BATCH, WH_PROMPT),
+                           generator=gen)
+    frames = {"frames": torch.ones(WH_BATCH, cfg.encoder_seq, cfg.d_model,
+                                   dtype=torch.bfloat16, device=dev)}
+    got, _, _ = in_session(lambda: serve_policies(
+        model, params, prompt, n_dfu=WH_GEN, n_memcopy=WH_MEMCOPY_GEN,
+        max_len=WH_LEN, want_bytes=WH_CACHE_BYTES, dev=dev,
+        where="(a) whisper-tiny", phase=phase, extra=frames,
+        want_launches=lambda n: whisper_launches(cfg, n)),
+        "(a) whisper-tiny", dev)
+    add(got)
+    seen = capture_flash(model, params, prompt, frames, WH_LEN, dev)
+    whisper_flash_checks(seen, card)
+    del model, params, seen
+    torch.cuda.empty_cache()
+    # (b) pixtral-12b
+    cfg = dataclasses.replace(get_config("pixtral_12b"),
+                              prefill_fresh_kv=True)
+    model, params = serve_model(cfg, dev, phase)
+    prompt = torch.randint(0, cfg.vocab, (PX_BATCH, PX_PROMPT),
+                           generator=gen)
+    patches = {"patch_embeds": 0.02 * torch.randn(
+        PX_BATCH, PX_PATCHES, cfg.d_model, dtype=torch.bfloat16, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(3))}
+    got, _, _ = in_session(lambda: serve_policies(
+        model, params, prompt, n_dfu=PX_GEN, n_memcopy=PX_MEMCOPY_GEN,
+        max_len=PX_LEN, want_bytes=PX_CACHE_BYTES, dev=dev,
+        where="(b) pixtral-12b", phase=phase, extra=patches,
+        start=PX_START), "(b) pixtral-12b", dev)
+    add(got)
+    serve_profile(model, params, prompt, PX_LEN, dev, "(b) pixtral", phase,
+                  extra=patches, start=PX_START)
+    del model, params
+    torch.cuda.empty_cache()
+    encdec_vlm_kernel_checks(dev, card)
+    reset_counts()
+    serve_cross_check(cfg, prompt, PX_GEN, dev, "(b) pixtral cross-check",
+                      phase, extra=patches, start=PX_START)
+    torch.cuda.empty_cache()
+    return launched
+
+
+#: the train phase.  (a) whisper-tiny at full width and depth: batch 8 x
+#: 448 tokens (whisper's decoder context) and 1500 ones-valued frames,
+#: WT_STEPS AdamW steps with a checkpoint every WT_CKPT; the restart from
+#: the mid-run checkpoint runs under torch.use_deterministic_algorithms
+WT_BATCH, WT_SEQ, WT_STEPS, WT_CKPT = 8, 448, 24, 12
+#: (b) qwen1.5-4b at full width over 4 of its 40 layers (float32 masters
+#: and AdamW's moments of all 40 would be ~64 GB before activations):
+#: batch 4 x 1024, 5 steps
+QW_LAYERS, QW_BATCH, QW_SEQ, QW_STEPS = 4, 4, 1024, 5
+#: at the reference's TrainConfig (peak lr 3e-4, warmup 20).  The witness
+#: fits run it at warmup 1 (3e-4 from the second step on) on the kernels
+#: and on the plain versions, to show whose a rise of the loss is
+QW_WITNESS_WARMUP = 1
+#: the gradient check: one step's loss and every leaf's gradient on the
+#: kernels against the same step with every product on gemm_plain and
+#: every attention on flash_attention_plain, on the same weights and
+#: batch.  Both sides compute in bf16 with float32 sums and differ only
+#: in summation order and in flash's bf16 probabilities: a few bf16
+#: roundings (2^-8 = 3.9e-3 each) in each activation, so a leaf's
+#: gradient moves by about that.  Per leaf |g - g_plain|_2 / |g_plain|_2
+#: <= GRAD_TOL; a wrong operand, a transposed gradient or a lost fold is
+#: an error of order 1 (the control, dB = dC^T A in place of A^T dC)
+GRAD_TOL = 3e-2
+#: the loss of that step (a mean over thousands of positions), relative
+LOSS_TOL = 1e-3
+#: the qwen fit at the reference's settings against the same fit with
+#: every product and attention plain: each step's loss, relative
+TRAJ_TOL = 1e-2
+
+
+def forward_products(cfg) -> int:
+    """gemm.cu launches of one training forward: whisper's prefill count
+    (whisper_launches at one token), else the decoder-only count."""
+    if cfg.family == "encdec":
+        return whisper_launches(cfg, 1)[2]
+    return gemms_per_forward(cfg)
+
+
+class forced_plain:
+    """Every product on gemm_plain and every prefill attention on
+    flash_attention_plain while the block runs (through ``ops``, as the
+    model calls them): the plain side of the train phase's checks."""
+
+    def __enter__(self):
+        from repro_torch.kernels import attention, gemm, ops
+        self.saved = ops.gemm, ops.flash_attention
+        ops.gemm = lambda a, b, block=0: gemm.gemm_plain(a, b)
+        ops.flash_attention = attention.flash_attention_plain
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.gemm, ops.flash_attention = self.saved
+        return False
+
+
+def named_leaves(tree, prefix: str = "") -> list:
+    """(path, tensor) of a parameter tree, in ``tree.leaves`` order."""
+    from repro_torch.tree import children
+    kids = children(tree)
+    if kids is None:
+        return [(prefix, tree)]
+    return [x for k, child in kids
+            for x in named_leaves(child, f"{prefix}.{k}" if prefix
+                                  else str(k))]
+
+
+def loss_and_grads(model, params, batch, tcfg, seen=None) -> tuple:
+    """One step's loss and float32 gradient of every leaf (the train
+    step's own loss, ``train.loop.make_loss``); ``seen`` keeps the first
+    flash call's detached inputs of each kind."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.train.loop import make_loss
+    from repro_torch.tree import leaves
+    real = ops.flash_attention
+
+    def keep(q, k, v, **kw):
+        kind = ("self" if kw.get("causal", True) else
+                "encoder" if q.shape[2] == k.shape[2] else "cross")
+        seen.setdefault(kind, (q.detach(), k.detach(), v.detach(), kw))
+        return real(q, k, v, **kw)
+
+    if seen is not None:
+        ops.flash_attention = keep
+    try:
+        extra = {k: v for k, v in batch.items()
+                 if k not in ("tokens", "labels")}
+        loss = make_loss(model, tcfg)(params, batch["tokens"],
+                                      batch["labels"], extra)
+        grads = torch.autograd.grad(loss, leaves(params), allow_unused=True)
+    finally:
+        ops.flash_attention = real
+    grads = [torch.zeros_like(p) if g is None else g.float()
+             for p, g in zip(leaves(params), grads)]
+    return float(loss.detach()), grads
+
+
+def grad_errors(params, got, want) -> list:
+    """(relative L2 error, path) of every leaf's gradient, worst first."""
+    out = []
+    for (path, _), g, w in zip(named_leaves(params), got, want):
+        den = w.norm().item()
+        err = (g - w).norm().item()
+        out.append((err / den if den else err, path))
+    return sorted(out, reverse=True)
+
+
+def swapped_db(ctx, grad):
+    """gemm's backward with a fault (the control): dB = dC^T A, the
+    transpose of A^T dC, wherever that has dB's shape (a square weight)."""
+    from repro_torch.kernels import gemm
+    da, db, _ = gemm._gemm_backward(ctx, grad)
+    if db is not None and db.shape[-1] == db.shape[-2]:
+        a, _ = ctx.saved_tensors
+        db = gemm._gemm(gemm._matrix(grad).mT, a, block=ctx.block)
+    return da, db, None
+
+
+def grad_check(model, params, batch, tcfg, where: str, card: str) -> float:
+    """One training step's loss and every leaf's gradient through the
+    kernels (gemm.cu forward and both backward products, flash forward)
+    against the same step forced plain (forced_plain), at LOSS_TOL and
+    GRAD_TOL per leaf; the control with gemm's dB transposed must fail
+    it; then every kind of flash call the step made, on its own inputs,
+    on the wgmma path and per row against the plain version, with times.
+    Returns the kernel path's loss."""
+    from repro_torch.kernels import attention, gemm
+    seen: dict = {}
+    loss, got = loss_and_grads(model, params, batch, tcfg, seen)
+    with forced_plain():
+        loss_p, want = loss_and_grads(model, params, batch, tcfg)
+    errs = grad_errors(params, got, want)
+    rel = abs(loss - loss_p) / abs(loss_p)
+    log("train", f"{where} gradient check: loss {loss:.6f} (plain "
+                 f"{loss_p:.6f}, rel {rel:.2e}, tol {LOSS_TOL:g}); "
+                 f"{len(errs)} leaves, worst relative L2 errors "
+                 + ", ".join(f"{p} {e:.2e}" for e, p in errs[:6])
+                 + f" (tol {GRAD_TOL:g})")
+    bad = [(e, p) for e, p in errs if not e <= GRAD_TOL]
+    if not rel <= LOSS_TOL or bad:
+        raise AssertionError(f"{where} gradient check: loss rel {rel:.2e}; "
+                             f"leaves over {GRAD_TOL:g}: {bad}")
+    gemm.gemm_grad.register_autograd(swapped_db,
+                                     setup_context=gemm._gemm_setup)
+    try:
+        _, wrong = loss_and_grads(model, params, batch, tcfg)
+    finally:
+        gemm.gemm_grad.register_autograd(gemm._gemm_backward,
+                                         setup_context=gemm._gemm_setup)
+    caught = [(e, p) for e, p in grad_errors(params, wrong, want)
+              if not e <= GRAD_TOL]
+    if not caught:
+        raise AssertionError(f"control {where}: gemm's dB transposed, and "
+                             f"no leaf's gradient is over {GRAD_TOL:g}; the "
+                             f"check cannot tell")
+    log("train", f"control {where}: gemm's dB transposed (dC^T A): "
+                 f"{len(caught)} leaves over {GRAD_TOL:g} (worst "
+                 f"{caught[0][1]} {caught[0][0]:.2e}), as it must be")
+    del got, want, wrong
+    for kind, (q, k, v, kw) in sorted(seen.items()):
+        label = (f"flash_attention bf16 {where} training {kind} q "
+                 f"{list(q.shape)} k, v {list(k.shape)} "
+                 f"{'causal' if kw.get('causal', True) else 'non-causal'} "
+                 f"(wgmma path)")
+        before = attention.launches_by_path[attention.WGMMA]
+        out = attention.flash_attention(q, k, v, **kw)
+        if attention.launches_by_path[attention.WGMMA] != before + 1:
+            raise AssertionError(f"{label}: not on the wgmma path")
+        check_rows(label, out, attention.flash_attention_plain(q, k, v,
+                                                                **kw),
+                   ATTN_TOL)
+        flash_times(q, k, v, label, card, "train", **kw)
+    return loss
+
+
+def dispatch_costs(dev, card: str) -> None:
+    """The host's cost per call of entering a kernel through its autograd
+    operator rather than through its launch alone, under no_grad as the
+    serving loop calls it: gemm at whisper's decode MLP (33 products a
+    decode step) and flash at a short prefill.  Wall time per call over
+    CALLS back-to-back calls."""
+    import torch
+    from repro_torch.kernels import attention, gemm
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+    a, b = rnd(WH_BATCH, 384), rnd(384, 1536)
+    q, k, v = rnd(WH_BATCH, 6, 64, 64), rnd(WH_BATCH, 6, 64, 64), \
+        rnd(WH_BATCH, 6, 64, 64)
+    calls = 2000
+    cases = [("gemm 4x1536x384, launch alone (gemm.gemm)",
+              lambda: gemm.gemm(a, b)),
+             ("gemm 4x1536x384, operator (gemm.gemm_grad)",
+              lambda: gemm.gemm_grad(a, b, 0)),
+             ("flash [4,6,64,64] causal, launch alone",
+              lambda: attention.flash_attention(q, k, v, causal=True)),
+             ("flash [4,6,64,64] causal, operator",
+              lambda: attention.flash_attention_grad(q, k, v, True, 0, 0.0,
+                                                     None))]
+    with torch.no_grad():
+        for label, fn in cases:
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            us = (time.perf_counter() - t0) / calls * 1e6
+            log("train", f"host cost per call, {label}: {us:.2f} us wall "
+                         f"over {calls} calls; {card}")
+
+
+def fit_counted(trainer, where: str, flash_per_step: int) -> tuple:
+    """``trainer.fit()`` with the launch counts set to 0 just before it:
+    asserts 3 gemm launches per forward product per step (the forward,
+    dA and dB: every product's operands both take a gradient here), the
+    forward's flash launches per step, all on the wgmma path, and no
+    decode launch; returns (launches, history, wall seconds, peak
+    bytes)."""
+    import torch
+    from repro_torch.kernels import attention
+    cfg = trainer.model.cfg
+    steps = trainer.tcfg.steps - trainer.step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    hist = trainer.fit(verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts()
+    want = (3 * forward_products(cfg) * steps, flash_per_step * steps, 0)
+    have = (got["gemm"], got["flash_attention"], got["decode_attention"])
+    if have != want:
+        raise AssertionError(f"{where}: launches {got}, want (gemm, flash, "
+                             f"decode) {want}")
+    if attention.launches_by_path[attention.WGMMA] != want[1]:
+        raise AssertionError(f"{where}: flash launches by path "
+                             f"{attention.launches_by_path}")
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"{where}: losses {losses} not finite and "
+                             f"falling")
+    return got, hist, wall, torch.cuda.max_memory_allocated()
+
+
+def remat_counts(trainer, batch, flash_fwd: int, where: str) -> None:
+    """One step under remat "dots" and "full" on copies of the trained
+    weights: dots saves the 2-D products' outputs (3 gemm launches per
+    product, flash again in the recompute), full recomputes the whole
+    forward (4 per product, flash twice).  Not counted as the main
+    path's."""
+    import dataclasses
+    from repro_torch.optim import init_compression
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import leaves, unflatten
+    products = forward_products(trainer.model.cfg)
+    for remat, per_product in (("dots", 3), ("full", 4)):
+        params = unflatten(trainer.params, [x.detach().clone() for x in
+                                            leaves(trainer.params)])
+        step = make_train_step(trainer.model, dataclasses.replace(
+            trainer.tcfg, remat=remat), trainer.opt)
+        reset_counts()
+        _, _, _, met = step(params, trainer.opt.init(params),
+                            init_compression(params), batch, 1)
+        got = counts()
+        want = (per_product * products, 2 * flash_fwd)
+        if (got["gemm"], got["flash_attention"]) != want:
+            raise AssertionError(f"{where} remat {remat}: launches {got}, "
+                                 f"want (gemm, flash) {want}")
+        log("train", f"{where} remat={remat}: one step, loss "
+                     f"{float(met['loss']):.4f}, launches {got} (gemm "
+                     f"{per_product} x {products}, flash 2 x {flash_fwd})")
+        del params, step
+
+
+def restart_check(trainer, ckpt_dir: str, extra_fn, where: str) -> None:
+    """A new trainer resumes from the mid-run checkpoint (step WT_CKPT)
+    alone and runs to the end; its weights must equal the uninterrupted
+    run's bit for bit.  Both runs are under deterministic algorithms
+    (the index and gather backwards then sum in a fixed order); the ops
+    that warned they have no deterministic form are named."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.train import Trainer
+    from repro_torch.tree import leaves
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        shutil.copytree(os.path.join(ckpt_dir, f"step_{WT_CKPT}"),
+                        os.path.join(d, f"step_{WT_CKPT}"))
+        tr = Trainer(trainer.model, trainer.pipe, trainer.tcfg, ckpt_dir=d,
+                     extra_batch_fn=extra_fn, device=trainer.device)
+        hist = tr.fit(verbose=False)
+    if len(hist) != WT_STEPS - WT_CKPT or tr.step != WT_STEPS:
+        raise AssertionError(f"{where} restart: ran {len(hist)} steps to "
+                             f"{tr.step}")
+    pairs = list(zip(leaves(tr.params), leaves(trainer.params)))
+    same = sum(torch.equal(a, b) for a, b in pairs)
+    worst = max((a - b).abs().max().item() for a, b in pairs)
+    if same != len(pairs):
+        raise AssertionError(f"{where} restart: {len(pairs) - same} of "
+                             f"{len(pairs)} weights differ from the "
+                             f"uninterrupted run's (max |diff| {worst:.3e})")
+    losses = [h["loss"] for h in hist]
+    want = [h["loss"] for h in trainer.history[WT_CKPT:]]
+    if losses != want:
+        raise AssertionError(f"{where} restart: losses {losses} != the "
+                             f"uninterrupted run's {want}")
+    log("train", f"{where}: resumed from step {WT_CKPT} alone, ran to step "
+                 f"{WT_STEPS}: all {len(pairs)} weights bit for bit the "
+                 f"uninterrupted run's, losses equal")
+
+
+def phase_train(dev) -> dict:
+    """Training through ``repro_torch.train.Trainer``: (a) whisper-tiny at
+    full width and depth, WT_STEPS steps of AdamW on float32 masters cast
+    to bf16 at every use, every product and its two gradients on gemm.cu
+    and the attention forward on flash_attention.cu, a checkpoint every
+    WT_CKPT steps, under deterministic algorithms; the restart from the
+    mid-run checkpoint; one step each under remat dots and full; a
+    profiled step.  (b) qwen1.5-4b at full width over 4 layers, QW_STEPS
+    steps at the reference's TrainConfig, held step by step to the same
+    fit forced plain, and the witness fits at warmup 1.  Before each fit,
+    its first step's loss and gradients are held to the plain step's
+    (grad_check).  The two fits are the main path; their launches are
+    returned."""
+    import dataclasses
+    import tempfile
+    import warnings
+    import torch
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models import Model, get_config
+    from repro_torch.train import Trainer, TrainConfig
+    card = card_line()
+    launched: dict = {}
+
+    def add(got):
+        for name, n in got.items():
+            launched[name] = launched.get(name, 0) + n
+
+    # (a) whisper-tiny
+    cfg = get_config("whisper_tiny")
+    model = Model.from_config(cfg)
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=WT_SEQ,
+                                    global_batch=WT_BATCH))
+
+    def frames(step):
+        return {"frames": torch.ones(WT_BATCH, cfg.encoder_seq, cfg.d_model,
+                                     dtype=torch.bfloat16)}
+
+    tcfg = TrainConfig(steps=WT_STEPS, peak_lr=1e-3, warmup=4,
+                       ckpt_every=WT_CKPT)
+    flash_fwd = whisper_launches(cfg, 1)[0]
+    # the index and gather backwards sum in a fixed order; cuBLAS (the
+    # plain attention backward) reads this before its next call
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d, \
+                warnings.catch_warnings(record=True) as warned:
+            warnings.simplefilter("always")
+            tr = Trainer(model, pipe, tcfg, ckpt_dir=d,
+                         extra_batch_fn=frames, device=dev)
+            n_params = sum(p.numel() for p in tr.params.parameters())
+            batch = {k: v.to(dev) for k, v in pipe.global_batch(0).items()}
+            batch.update({k: v.to(dev) for k, v in frames(0).items()})
+            first = grad_check(model, tr.params, batch, tcfg,
+                               "(a) whisper-tiny", card)
+            got, hist, wall, peak = in_session(
+                lambda: fit_counted(tr, "(a) whisper-tiny", flash_fwd),
+                "(a) whisper-tiny", dev)
+            add(got)
+            first_loss(first, hist, "(a) whisper-tiny")
+            tokens = WT_BATCH * WT_SEQ
+            times = sorted(tr.step_times[1:])
+            log("train", f"(a) whisper-tiny: {n_params} float32 master "
+                         f"weights, batch {WT_BATCH} x {WT_SEQ} tokens + "
+                         f"{cfg.encoder_seq} frames, {WT_STEPS} steps in "
+                         f"{wall:.2f} s; step median {times[len(times) // 2] * 1e3:.1f} "
+                         f"ms ({tokens / times[len(times) // 2]:.0f} "
+                         f"tokens/s), first {tr.step_times[0] * 1e3:.1f} ms; "
+                         f"loss {hist[0]['loss']:.4f} -> "
+                         f"{hist[-1]['loss']:.4f} (grad_norm "
+                         f"{hist[-1]['grad_norm']:.3f}); launches {got} "
+                         f"(gemm 3 x {forward_products(cfg)} per step, flash "
+                         f"{flash_fwd}); peak device memory "
+                         f"{peak / 1e9:.2f} GB; {card}")
+            log("train", "(a) losses: " + " ".join(
+                f"{h['loss']:.4f}" for h in hist))
+            restart_check(tr, d, frames, "(a) whisper-tiny")
+            remat_counts(tr, batch, flash_fwd, "(a) whisper-tiny")
+            from repro_torch.optim import init_compression
+            from repro_torch.train import make_train_step
+            step = make_train_step(model, tcfg, tr.opt)
+            device_profile(lambda: step(tr.params, tr.opt_state,
+                                        init_compression(tr.params), batch,
+                                        WT_STEPS),
+                           "(a) whisper-tiny: one training step", top=8,
+                           phase="train", host=True)
+        names = sorted({str(w.message).split(" does not have")[0]
+                        for w in warned if "deterministic" in
+                        str(w.message)})
+        log("train", f"(a) ops without a deterministic form: "
+                     f"{names or 'none warned'}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del tr, batch, step
+    torch.cuda.empty_cache()
+    dispatch_costs(dev, card)
+    # (b) qwen1.5-4b, depth cut, at the reference's TrainConfig
+    cfg = dataclasses.replace(get_config("qwen1_5_4b"), n_layers=QW_LAYERS)
+    model = Model.from_config(cfg)
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=QW_SEQ,
+                                    global_batch=QW_BATCH))
+    tcfg = TrainConfig(steps=QW_STEPS)
+    tr = Trainer(model, pipe, tcfg, device=dev)
+    n_params = sum(p.numel() for p in tr.params.parameters())
+    batch = {k: v.to(dev) for k, v in pipe.global_batch(0).items()}
+    first = grad_check(model, tr.params, batch, tcfg, "(b) qwen1.5-4b x 4",
+                       card)
+    del batch
+    got, hist, wall, peak = in_session(
+        lambda: fit_counted(tr, "(b) qwen1.5-4b x 4", cfg.n_layers),
+        "(b) qwen1.5-4b x 4", dev)
+    add(got)
+    first_loss(first, hist, "(b) qwen1.5-4b x 4")
+    times = sorted(tr.step_times[1:])
+    log("train", f"(b) qwen1.5-4b x {QW_LAYERS} layers: {n_params} float32 "
+                 f"master weights, batch {QW_BATCH} x {QW_SEQ}, {QW_STEPS} "
+                 f"steps (peak lr {tcfg.peak_lr:g}, warmup {tcfg.warmup}) "
+                 f"in {wall:.2f} s; step median "
+                 f"{times[len(times) // 2] * 1e3:.1f} ms "
+                 f"({QW_BATCH * QW_SEQ / times[len(times) // 2]:.0f} "
+                 f"tokens/s); loss " + " ".join(f"{h['loss']:.4f}"
+                                                for h in hist)
+                 + f"; launches {got} (gemm 3 x {forward_products(cfg)} "
+                 f"per step); peak device memory {peak / 1e9:.2f} GB; "
+                 f"{card}")
+    del tr
+    torch.cuda.empty_cache()
+    plain = plain_fit(model, pipe, tcfg, dev)
+    worst = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                for a, b in zip(hist, plain))
+    log("train", f"(b) the same fit forced plain: loss " + " ".join(
+        f"{h['loss']:.4f}" for h in plain) + f"; worst step relative "
+        f"difference {worst:.2e} (tol {TRAJ_TOL:g})")
+    if not worst <= TRAJ_TOL:
+        raise AssertionError(f"(b) qwen1.5-4b x 4: the kernels' losses "
+                             f"{[h['loss'] for h in hist]} leave the plain "
+                             f"fit's {[h['loss'] for h in plain]}")
+    witness = dataclasses.replace(tcfg, warmup=QW_WITNESS_WARMUP)
+    tr = Trainer(model, pipe, witness, device=dev)
+    kern = tr.fit(verbose=False)
+    del tr
+    torch.cuda.empty_cache()
+    plain = plain_fit(model, pipe, witness, dev)
+    log("train", f"(b) witness at peak lr {witness.peak_lr:g}, warmup "
+                 f"{witness.warmup}: kernels' loss " + " ".join(
+                     f"{h['loss']:.4f}" for h in kern) + "; plain "
+                 + " ".join(f"{h['loss']:.4f}" for h in plain) + f"; {card}")
+    if not all(math.isfinite(h["loss"]) for h in kern + plain):
+        raise AssertionError("(b) witness: a loss is not finite")
+    torch.cuda.empty_cache()
+    return launched
+
+
+def first_loss(loss: float, hist: list, where: str) -> None:
+    """The gradient check's step is the fit's first: same weights, same
+    batch, so the same loss."""
+    if not abs(loss - hist[0]["loss"]) <= LOSS_TOL * abs(loss):
+        raise AssertionError(f"{where}: the gradient check's loss {loss} "
+                             f"is not the fit's first {hist[0]['loss']}")
+
+
+def plain_fit(model, pipe, tcfg, dev) -> list:
+    """A fit from the same seed and data with every product and attention
+    plain (forced_plain); its history."""
+    import torch
+    from repro_torch.train import Trainer
+    with forced_plain():
+        tr = Trainer(model, pipe, tcfg, device=dev)
+        hist = tr.fit(verbose=False)
+    del tr
+    torch.cuda.empty_cache()
+    return hist
 
 
 #: the runtime phase's (a): LSMS's KKR plane (complex128, n 6912) dealt
@@ -3077,18 +3989,24 @@ def main() -> int:
     runtime_launches = phase_runtime(dev)
     serve_launches = phase_serve(dev)
     moe_ssm_launches = phase_serve_moe_ssm(dev)
+    encdec_vlm_launches = phase_serve_encdec_vlm(dev)
+    train_launches = phase_train(dev)
     for name, row in rows.items():
         row["launches"] = (blas_launches[name] + lsms_launches[name]
                            + solver_launches[name] + venue_launches[name]
                            + runtime_launches.get(name, 0)
                            + serve_launches[name]
-                           + moe_ssm_launches.get(name, 0))
+                           + moe_ssm_launches.get(name, 0)
+                           + encdec_vlm_launches.get(name, 0)
+                           + train_launches.get(name, 0))
         log("done", f"{name} launches: blas {blas_launches[name]}, lsms "
                     f"{lsms_launches[name]}, solvers "
                     f"{solver_launches[name]}, venue {venue_launches[name]}, "
                     f"runtime {runtime_launches.get(name, 0)}, serve "
                     f"{serve_launches[name]}, serve_moe_ssm "
-                    f"{moe_ssm_launches.get(name, 0)}")
+                    f"{moe_ssm_launches.get(name, 0)}, serve_encdec_vlm "
+                    f"{encdec_vlm_launches.get(name, 0)}, train "
+                    f"{train_launches.get(name, 0)}")
         if row["launches"] == 0:
             raise AssertionError(f"{name} kernel never launched on the "
                                  f"main path")

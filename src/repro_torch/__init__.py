@@ -15,9 +15,10 @@ the simulated-tier mode on the CPU; without CUDA it raises.  The legacy
 ``install()``/``uninstall()``/``offload()`` surface is a shim over an
 implicit session.  Concurrent sessions may share one device budget
 (``SharedDevicePool``); ``faults`` is the fault model behind the
-runtime's retry, host fallback and circuit breaker.  The dense LM
-stack and its serving loop (``repro_torch.models``,
-``repro_torch.train.Server``) follow the same rule.  Attributes resolve
+runtime's retry, host fallback and circuit breaker.  The LM stack, its
+serving loop and its trainer (``repro_torch.models``,
+``repro_torch.train.Server``, ``repro_torch.train.Trainer``) follow the
+same rule.  Attributes resolve
 lazily, so ``import repro_torch`` imports nothing heavy and
 builds no kernel.
 """

@@ -24,6 +24,14 @@ past a ragged Tk are always masked, so ``causal=False`` with
 ``Tk % block != 0`` gives what ``ref.attention`` gives, where the TPU
 kernel lets its zero padding into the softmax (``attention.py:58-63`` and
 ``:96-100``).
+
+Inside autograd (training), :func:`flash_attention` is a
+``torch.library`` custom op: its forward is the kernel, its backward
+recomputes the attention from q, k and v with the plain formulation
+(:func:`flash_attention_plain`) under autograd.  The JAX package writes
+no backward kernel to port (no ``custom_vjp`` under ``repro/kernels``),
+so this one is plain PyTorch; a flash backward kernel is later
+performance work, not a port requirement.
 """
 from __future__ import annotations
 
@@ -227,8 +235,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q: [B, Hq, Tq, D]; k, v: [B, Hkv, Tk, D] with Hq % Hkv == 0.
     Query rows are right-aligned to the keys (``q_offset = Tk - Tq``).
-    Returns [B, Hq, Tq, D] in q's dtype."""
+    Returns [B, Hq, Tq, D] in q's dtype.  Where q, k or v takes a
+    gradient, the call goes through :func:`flash_attention_grad`;
+    elsewhere it is the launch alone, by ``gemm.gemm``'s rule."""
     check_shapes("flash_attention", q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return flash_attention_grad(q, k, v, causal, window, softcap, scale)
+    return _flash(q, k, v, causal=causal, window=window, softcap=softcap,
+                  scale=scale)
+
+
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool, window: int, softcap: float,
+           scale: Optional[float]) -> torch.Tensor:
+    """The kernel's launch (a CUDA tensor) or its plain version (CPU)."""
     if all(x.device.type == "cpu" for x in (q, k, v)):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      softcap=softcap, scale=scale)
@@ -254,3 +275,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         torch.cuda.current_stream(q.device).cuda_stream)
     compat.check(rc, "flash_attention")
     return out
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool, window: int, softcap: float,
+                         scale: Optional[float]) -> torch.Tensor:
+    """:func:`flash_attention` as an operator autograd differentiates:
+    the forward launches the kernel once, the backward launches none."""
+    return _flash(q, k, v, causal=causal, window=window, softcap=softcap,
+                  scale=scale)
+
+
+def _flash_setup(ctx, inputs, output) -> None:
+    q, k, v, causal, window, softcap, scale = inputs
+    ctx.save_for_backward(q, k, v)
+    ctx.kw = dict(causal=causal, window=window, softcap=softcap,
+                  scale=scale)
+
+
+def _flash_backward(ctx, grad: torch.Tensor):
+    """The gradients of the plain formulation, recomputed from q, k, v
+    (float32 logits and softmax, as :func:`flash_attention_plain`)."""
+    saved = ctx.saved_tensors
+    need = ctx.needs_input_grad[:3]
+    with torch.enable_grad():
+        ins = [x.detach().requires_grad_(n) for x, n in zip(saved, need)]
+        out = flash_attention_plain(*ins, **ctx.kw)
+        got = iter(torch.autograd.grad(
+            out, [x for x, n in zip(ins, need) if n], grad))
+    return tuple(next(got) if n else None for n in need) + (None,) * 4
+
+
+flash_attention_grad.register_autograd(_flash_backward,
+                                       setup_context=_flash_setup)

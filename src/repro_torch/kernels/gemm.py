@@ -11,6 +11,15 @@ transposed view (:func:`layout`), with any row stride: ``table.mT`` and
 views of a larger matrix go in uncopied.  :func:`plan` picks the kernel's
 path from the dtype, M and the operands' alignment (see ``csrc/gemm.cu``)
 and, for path 2, how many ways K is split.
+
+:func:`gemm_grad` is the product inside autograd, for training: a
+``torch.library`` custom op whose backward runs the kernel twice more,
+``dA = dC B^T`` and ``dB = A^T dC``, on transposed views of the saved
+operands (per-operand transpose flags, no copies; only an incoming
+gradient whose rows path 1 cannot read is copied, :func:`_matrix`).
+The JAX package writes no backward kernel (no ``custom_vjp`` under
+``repro/kernels``): ``jax.grad`` derives one from the ``pallas_call``.
+Here both backward products are this kernel.
 """
 from __future__ import annotations
 
@@ -182,7 +191,22 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *,
     the input dtype.  ``block`` (OffloadConfig.kernel_block) picks the
     tile edge of paths 1, 3 and 4 from :data:`EDGES`; a value the kernel
     does not compile raises ``ValueError``.  It changes no result, and on
-    CPU tensors it is inert."""
+    CPU tensors it is inert.  Where an operand takes a gradient, the call
+    goes through :func:`gemm_grad`; elsewhere it is the launch alone: the
+    operator's dispatch adds 23-41 us of host time a call on the H100
+    (``PERF.md``), which a decode step would pay on each product."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        if out_dtype not in (None, a.dtype):
+            raise TypeError(f"gemm: out_dtype {out_dtype} has no gradient; "
+                            f"the product's output takes the inputs' dtype")
+        return gemm_grad(a, b, block)
+    return _gemm(a, b, out_dtype=out_dtype, block=block)
+
+
+def _gemm(a: torch.Tensor, b: torch.Tensor, *,
+          out_dtype: Optional[torch.dtype] = None,
+          block: int = 0) -> torch.Tensor:
+    """The kernel's launch (CUDA tensors) or its plain version (CPU)."""
     block = _check_block(block)
     if a.device.type == "cpu" and b.device.type == "cpu":
         return gemm_plain(a, b, out_dtype=out_dtype)
@@ -230,3 +254,51 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *,
                   int(tb), torch.cuda.current_stream(a.device).cuda_stream)
     compat.check(rc, "gemm")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the product inside autograd
+# ---------------------------------------------------------------------------
+def _matrix(x: torch.Tensor) -> torch.Tensor:
+    """An incoming gradient as the backward products read it: ``x``
+    itself where the kernel reads its layout (and, in 16 bits, path 1's
+    TMA can describe it), else a copy into rows padded to a multiple of
+    8 elements.  The odd vocab head's dC (whisper-tiny's row stride
+    51865) would put dA and dB on path 2; the copy puts both on path 1
+    (28.9 ms against 1.24 ms with the copy on the H100: ``PERF.md``)."""
+    lay = layout(x)
+    if lay is not None and (x.element_size() != 2 or _tma_ok(x, lay[1])):
+        return x
+    n = x.shape[-1]
+    out = torch.empty(x.shape[:-1] + (-(-n // 8) * 8,), dtype=x.dtype,
+                      device=x.device)[..., :n]
+    return out.copy_(x)
+
+
+@torch.library.custom_op("repro_torch::gemm", mutates_args=())
+def gemm_grad(a: torch.Tensor, b: torch.Tensor, block: int) -> torch.Tensor:
+    """:func:`gemm` as an operator autograd differentiates (and selective
+    activation checkpointing can name: ``train.loop``'s ``remat="dots"``
+    saves its outputs)."""
+    return _gemm(a, b, block=block)
+
+
+def _gemm_setup(ctx, inputs, output) -> None:
+    a, b, block = inputs
+    ctx.save_for_backward(a, b)
+    ctx.block = block
+
+
+def _gemm_backward(ctx, grad: torch.Tensor):
+    """One kernel launch per operand that takes a gradient."""
+    a, b = ctx.saved_tensors
+    grad = _matrix(grad)
+    da = db = None
+    if ctx.needs_input_grad[0]:
+        da = _gemm(grad, b.mT, block=ctx.block)
+    if ctx.needs_input_grad[1]:
+        db = _gemm(a.mT, grad, block=ctx.block)
+    return da, db, None
+
+
+gemm_grad.register_autograd(_gemm_backward, setup_context=_gemm_setup)

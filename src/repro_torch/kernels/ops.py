@@ -78,7 +78,9 @@ def matmul(a: torch.Tensor, b: torch.Tensor, block: int = 0
            ) -> torch.Tensor:
     """C = A @ B for matrices or stacks of matrices of one dtype.
     ``block`` is the gemm kernel's tile edge (``kernel_block``; 0: each
-    path's default)."""
+    path's default).  Where an operand takes a gradient (training), the
+    kernel's wrapper runs it as an operator whose backward runs the
+    kernel too."""
     mm = functools.partial(gemm, block=block) if block else gemm
     if a.is_complex():
         ar, ai = a.real.contiguous(), a.imag.contiguous()

@@ -17,7 +17,9 @@ on one :class:`~repro_torch.core.residency.SharedDevicePool` of
 ``--pool-mb`` MB (:func:`serve_streams`); the pool's per-tenant report
 prints at exit.  Every worker launches on the default stream.  Weights
 come from a seeded ``torch.Generator`` (seed 0), the prompt from seed 1;
-both differ from the reference's JAX draws.
+both differ from the reference's JAX draws.  An enc-dec model
+(whisper-tiny) gets ones-valued stub ``frames``, as the reference's
+launcher feeds it; a VLM is served on its text alone, as there.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import threading
 
 
 def serve_streams(model, params, scfg, prompt, n_tokens: int, streams: int,
-                  pool, ocfg=None, device=None) -> list:
+                  pool, ocfg=None, device=None, extra=None) -> list:
     """Serve ``streams`` copies of ``prompt`` concurrently, one worker
     thread each, each with its own ``Server`` over the shared ``params``
     inside its own session (``name=f"stream-{i}"``, ``pool=pool``,
@@ -34,7 +36,8 @@ def serve_streams(model, params, scfg, prompt, n_tokens: int, streams: int,
     ``(tokens, ServeStats, tenant row, (start, end))`` per stream: the
     tenant row is ``pool.tenant_stats()`` just before the session closed,
     and ``start``/``end`` are ``time.perf_counter()`` stamps around the
-    stream's ``generate``.  The first worker error is re-raised."""
+    stream's ``generate`` (with ``extra``, the family's stub inputs).
+    The first worker error is re-raised."""
     import time
 
     from repro_torch.core import session as ses
@@ -52,7 +55,7 @@ def serve_streams(model, params, scfg, prompt, n_tokens: int, streams: int,
                              pool=pool) as s:
                 srv = Server(model, params, scfg, device=device)
                 t0 = time.perf_counter()
-                out = srv.generate(prompt, n_tokens)
+                out = srv.generate(prompt, n_tokens, extra)
                 t1 = time.perf_counter()
                 results[idx] = (out, srv.stats,
                                 pool.tenant_stats().get(s.name), (t0, t1))
@@ -115,13 +118,18 @@ def main(argv=None) -> int:
                        cache_dtype=torch_dtype(cfg.dtype))
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=torch.Generator().manual_seed(1))
+    extra = None
+    if cfg.family == "encdec":
+        extra = {"frames": torch.ones(
+            (args.batch, cfg.encoder_seq, cfg.d_model),
+            dtype=torch_dtype(cfg.dtype), device=device)}
     if args.streams > 1:
         from repro_torch.core.residency import SharedDevicePool
         pool = SharedDevicePool(args.pool_mb << 20, name="serve")
         ocfg = (OffloadConfig.load(args.offload_config)
                 if args.offload_config else None)
         results = serve_streams(model, params, scfg, prompt, args.gen,
-                                args.streams, pool, ocfg, device)
+                                args.streams, pool, ocfg, device, extra)
         print(f"arch={cfg.name} policy={args.policy} "
               f"streams={args.streams} pool={args.pool_mb}MB "
               f"device={device}")
@@ -142,7 +150,7 @@ def main(argv=None) -> int:
         session = Session(OffloadConfig.load(args.offload_config),
                           device=device).open()
     try:
-        out = srv.generate(prompt, args.gen)
+        out = srv.generate(prompt, args.gen, extra)
     finally:
         if session is not None:
             print(session.report())

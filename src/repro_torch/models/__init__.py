@@ -1,5 +1,6 @@
-"""Model substrate of the port: the dense, MoE, SSM and hybrid
-architectures behind the reference's model API (``repro/models``)."""
+"""Model substrate of the port: the ten architectures (dense, MoE, SSM,
+hybrid, enc-dec, VLM) behind the reference's model API
+(``repro/models``)."""
 from repro_torch.models.registry import (ARCHS, Model, build, canon,
                                          get_config)
 

@@ -3,14 +3,19 @@
 ``params_from_jax`` takes the reference's parameter pytree as numpy
 arrays (``jax.tree.map(np.asarray, params)``, done by the caller: the
 port imports no JAX) and returns the port's :class:`Params` with the same
-names and shapes, matrices in ``cfg.dtype``, norm weights and the SSD's
-float32 parameters in float32 (``transformer.FLOAT32``).
-``cache_from_jax`` and ``cache_to_numpy`` do the same for the decode
-cache, a tuple over period positions of ``(k, v)`` or ``(ssm_h,
-conv_state)``.  Each leaf keeps its role's dtype: ``ssm_h`` is float32
-whatever the cache dtype, as the reference keeps it (``ssm.py:198-203``),
-and the rest take the cache dtype.  numpy has no bfloat16, so bf16 caches
-travel as float32 values (exact: every bf16 is a float32).
+names and shapes, matrices in ``cfg.dtype``, norm weights (the
+enc-dec LayerNorms' ``w`` and ``b``) and the SSD's float32 parameters in
+float32 (``transformer.FLOAT32``); with ``master=True``, the trainer's
+tree: every leaf float32, as the reference keeps it, taking a gradient.
+The enc-dec tree (``enc`` and ``dec`` stacked by the reference's
+``vmap``, ``pos_dec``, ``ln_enc``, ``ln_dec``) converts by the same
+names.  ``cache_from_jax`` and ``cache_to_numpy`` do the same for the
+decode cache: a tuple over period positions of ``(k, v)`` or ``(ssm_h,
+conv_state)``, or the enc-dec ``(self_kv, cross_kv)``.  Each leaf keeps
+its role's dtype: ``ssm_h`` is float32 whatever the cache dtype, as the
+reference keeps it (``ssm.py:198-203``), and the rest take the cache
+dtype.  numpy has no bfloat16, so bf16 caches travel as float32 values
+(exact: every bf16 is a float32).
 """
 from __future__ import annotations
 
@@ -32,16 +37,17 @@ def _tensor(x, dtype: Optional[torch.dtype], device) -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-def params_from_jax(tree: Mapping, cfg: ModelConfig, device="cpu"
-                    ) -> Params:
-    """The port's parameters from the reference's numpy pytree."""
+def params_from_jax(tree: Mapping, cfg: ModelConfig, device="cpu",
+                    master: bool = False) -> Params:
+    """The port's parameters from the reference's numpy pytree (the
+    trainer's float32 masters with ``master``)."""
     def conv(x):
         if isinstance(x, Mapping):
             return {k: conv(v) for k, v in x.items()}
         if isinstance(x, (tuple, list)):
             return tuple(conv(v) for v in x)
         return _tensor(x, None, "cpu")
-    return to_params(conv(tree), cfg, device)
+    return to_params(conv(tree), cfg, device, master=master)
 
 
 def leaf_dtypes(pair: Tuple, dtype: torch.dtype) -> Tuple[torch.dtype, ...]:

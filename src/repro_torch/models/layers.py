@@ -1,8 +1,10 @@
-"""Shared transformer building blocks of the dense family.
+"""Shared transformer building blocks of all ten architectures.
 
 The counterpart of ``repro/models/layers.py``: ``rms_norm`` (``:31``),
-``rope`` (``:51``), ``init_attention``/``attention_fwd`` (``:72-162``),
-the SwiGLU ``init_mlp``/``mlp_fwd`` (``:179-207``) and
+``layer_norm`` (``:39``), ``rope`` (``:51``),
+``init_attention``/``attention_fwd`` with its ``kv_override`` branch for
+cross-attention (``:72-162``), ``cross_kv`` (``:165``), the SwiGLU and the
+two-matrix GELU ``init_mlp``/``mlp_fwd`` (``:179-200``) and
 ``init_embed``/``embed_fwd``/``unembed_fwd`` (``:210-235``).  Every
 product goes through :func:`repro_torch.kernels.ops.matmul`, so on the
 card it runs ``csrc/gemm.cu`` (bf16 in, float32 accumulator, bf16 out), as
@@ -13,19 +15,24 @@ Parameters are :class:`Params` trees with the reference's names and its
 ``(in, out)`` weight layout.  Deliberate differences, with identical
 numerics:
 
-* weight matrices, biases and the embedding table are stored in
-  ``cfg.dtype``, where the reference stores float32 and casts at every use
-  (``p["wq"].astype(dt)``): the same bf16 values reach every product, at
-  half the memory (18.5 GB for gemma2-9b instead of 37).  Norm weights stay
-  float32, since :func:`rms_norm` reads them in float32;
+* for serving, weight matrices, biases and the embedding table are
+  stored in ``cfg.dtype``, where the reference stores float32 and casts
+  at every use (``p["wq"].astype(dt)``): the same bf16 values reach every
+  product, at half the memory (18.5 GB for gemma2-9b instead of 37).
+  Norm weights stay float32, since the norms read them in float32.  Every
+  use still casts to the activations' dtype (``.to(dt)``, a no-op on that
+  storage), so the trainer's float32 master weights
+  (``Model.init(..., master=True)``) take the reference's casts and its
+  gradients;
 * the decode-cache write (``dynamic_update_slice``, ``:128-131``) is an
   in-place slice write into the caller's cache tensors, which come back
   as the new cache;
 * the logit soft-cap runs in place on the float32 logits, so the
-  (B, T, vocab) prefill logits exist once, not three times;
-* ``shard(...)`` annotations are dropped: one card has no mesh.
-  ``layer_norm``, the GELU MLP and ``cross_kv`` wait for the enc-dec
-  family (ROADMAP Queue 1 item 11).
+  (B, T, vocab) prefill logits exist once, not three times (training
+  takes the out-of-place form, whose tanh autograd keeps);
+* ``shard(...)`` annotations are dropped: one card has no mesh;
+* GELU is the tanh form (``approximate="tanh"``), JAX's default for
+  ``jax.nn.gelu``; PyTorch's default is the erf form.
 """
 from __future__ import annotations
 
@@ -46,8 +53,9 @@ class Params(nn.Module):
     """A tree of parameters read like the reference's dicts: ``p["wq"]``,
     ``"bq" in p``.  Nested mappings become sub-trees, tuples become
     :class:`torch.nn.ModuleList` s of sub-trees, tensors become
-    parameters that take no gradient (the port serves, it does not
-    train)."""
+    parameters.  They take no gradient until ``requires_grad_()`` asks
+    for one: the serving loop's weights never do, the trainer's float32
+    masters do."""
 
     def __init__(self, tree: Mapping):
         super().__init__()
@@ -98,6 +106,16 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float,
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * (w.float() + offset)).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in float32 with the biased variance (``jnp.var``)."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * w + b).to(x.dtype)
 
 
 # ----------------------------------------------------------------------- #
@@ -151,32 +169,40 @@ def attention_fwd(p, cfg: ModelConfig, x: torch.Tensor,
                   causal: bool = True,
                   cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                   cache_pos: Optional[int] = None,
+                  kv_override: Optional[Tuple[torch.Tensor,
+                                              torch.Tensor]] = None,
                   ) -> Tuple[torch.Tensor, Optional[Tuple]]:
-    """Self-attention with an optional decode cache.
+    """Self- (or cross-) attention with an optional decode cache.
 
     cache: (k_cache, v_cache) each (B, Hkv, S, D), written in place at
-    ``cache_pos`` and returned as the new cache."""
+    ``cache_pos`` and returned as the new cache.  kv_override: a
+    precomputed (k, v) for cross-attention (:func:`cross_kv`); q then
+    takes no rope, as in the reference."""
     b, t, _ = x.shape
     hd, hq, hkv = cfg.head_dim, cfg.padded_heads, cfg.n_kv_heads
     dt = x.dtype
 
-    q = ops.matmul(x, p["wq"])
+    q = ops.matmul(x, p["wq"].to(dt))
     if "bq" in p:
-        q = q + p["bq"]
+        q = q + p["bq"].to(dt)
     q = q.reshape(b, t, hq, hd).transpose(1, 2)
-    k = ops.matmul(x, p["wk"])
-    v = ops.matmul(x, p["wv"])
-    if "bk" in p:
-        k = k + p["bk"]
-        v = v + p["bv"]
-    k = k.reshape(b, t, hkv, hd).transpose(1, 2)
-    v = v.reshape(b, t, hkv, hd).transpose(1, 2)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if kv_override is None:
+        k = ops.matmul(x, p["wk"].to(dt))
+        v = ops.matmul(x, p["wv"].to(dt))
+        if "bk" in p:
+            k = k + p["bk"].to(dt)
+            v = v + p["bv"].to(dt)
+        k = k.reshape(b, t, hkv, hd).transpose(1, 2)
+        v = v.reshape(b, t, hkv, hd).transpose(1, 2)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    else:
+        k, v = kv_override
 
     new_cache = None
     kv_len = None
-    fresh_prefill = cache is not None and cfg.prefill_fresh_kv and t > 1
+    fresh_prefill = (cache is not None and cfg.prefill_fresh_kv and t > 1
+                     and kv_override is None)
     if cache is not None:
         kc, vc = cache
         pos = int(cache_pos) if cache_pos is not None else 0
@@ -201,7 +227,19 @@ def attention_fwd(p, cfg: ModelConfig, x: torch.Tensor,
             out.dtype)
         out = out * mask[None, :, None, None]
     out = out.transpose(1, 2).reshape(b, t, hq * hd)
-    return ops.matmul(out, p["wo"]), new_cache
+    return ops.matmul(out, p["wo"].to(dt)), new_cache
+
+
+def cross_kv(p, cfg: ModelConfig, enc: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V, each (B, Hkv, S_enc, D), from the encoder's
+    output."""
+    b, s, _ = enc.shape
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    k = ops.matmul(enc, p["wk"].to(enc.dtype))
+    v = ops.matmul(enc, p["wv"].to(enc.dtype))
+    return (k.reshape(b, s, hkv, hd).transpose(1, 2),
+            v.reshape(b, s, hkv, hd).transpose(1, 2))
 
 
 # ----------------------------------------------------------------------- #
@@ -210,7 +248,15 @@ def attention_fwd(p, cfg: ModelConfig, x: torch.Tensor,
 def init_mlp(gen: torch.Generator, cfg: ModelConfig, device,
              lead: Tuple[int, ...] = ()) -> Dict[str, torch.Tensor]:
     d, ff = cfg.d_model, cfg.d_ff
-    kw = dict(dtype=torch_dtype(cfg.dtype), device=device, lead=lead)
+    dt = torch_dtype(cfg.dtype)
+    kw = dict(dtype=dt, device=device, lead=lead)
+    if cfg.use_layernorm_gelu:       # whisper's two-matrix GELU MLP
+        return {"w1": dense_init(gen, (d, ff), **kw),
+                "b1": torch.zeros(lead + (ff,), dtype=dt, device=device),
+                "w2": dense_init(gen, (ff, d),
+                                 scale=0.02 / (2 * cfg.n_layers) ** 0.5,
+                                 **kw),
+                "b2": torch.zeros(lead + (d,), dtype=dt, device=device)}
     return {"wg": dense_init(gen, (d, ff), **kw),
             "wu": dense_init(gen, (d, ff), **kw),
             "wd": dense_init(gen, (ff, d),
@@ -218,9 +264,14 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, device,
 
 
 def mlp_fwd(p, x: torch.Tensor) -> torch.Tensor:
-    g = ops.matmul(x, p["wg"])
-    u = ops.matmul(x, p["wu"])
-    return ops.matmul(torch.nn.functional.silu(g) * u, p["wd"])
+    dt = x.dtype
+    if "w1" in p:
+        h = ops.matmul(x, p["w1"].to(dt)) + p["b1"].to(dt)
+        h = torch.nn.functional.gelu(h, approximate="tanh")
+        return ops.matmul(h, p["w2"].to(dt)) + p["b2"].to(dt)
+    g = ops.matmul(x, p["wg"].to(dt))
+    u = ops.matmul(x, p["wu"].to(dt))
+    return ops.matmul(torch.nn.functional.silu(g) * u, p["wd"].to(dt))
 
 
 # ----------------------------------------------------------------------- #
@@ -244,11 +295,15 @@ def embed_fwd(p, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def unembed_fwd(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    dt = x.dtype
     if cfg.tie_embeddings:
-        logits = ops.matmul(x, p["table"].mT)
+        logits = ops.matmul(x, p["table"].mT.to(dt))
     else:
-        logits = ops.matmul(x, p["unembed"])
+        logits = ops.matmul(x, p["unembed"].to(dt))
     logits = logits.float()
     if cfg.final_softcap > 0:
+        if logits.requires_grad:
+            return torch.tanh(logits / cfg.final_softcap) \
+                * cfg.final_softcap
         logits.div_(cfg.final_softcap).tanh_().mul_(cfg.final_softcap)
     return logits

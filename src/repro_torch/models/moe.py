@@ -67,7 +67,7 @@ def top_k(probs: torch.Tensor, k: int
 
 def _route(p, cfg: ModelConfig, xf: torch.Tensor):
     """Router probabilities and the aux loss.  xf: (N, d)."""
-    logits = ops.matmul(xf, p["router"])
+    logits = ops.matmul(xf, p["router"].to(xf.dtype))
     probs = torch.softmax(logits.float(), dim=-1)
     weights, idx = top_k(probs, cfg.top_k)
     weights = weights / weights.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -82,9 +82,10 @@ def _route(p, cfg: ModelConfig, xf: torch.Tensor):
 
 def _expert_ffn(p, xe: torch.Tensor) -> torch.Tensor:
     """Batched expert SwiGLU, one launch per product.  xe: (E, C, d)."""
-    g = ops.matmul(xe, p["wg"])
-    u = ops.matmul(xe, p["wu"])
-    return ops.matmul(F.silu(g) * u, p["wd"])
+    dt = xe.dtype
+    g = ops.matmul(xe, p["wg"].to(dt))
+    u = ops.matmul(xe, p["wu"].to(dt))
+    return ops.matmul(F.silu(g) * u, p["wd"].to(dt))
 
 
 def capacity(cfg: ModelConfig, n: int) -> int:

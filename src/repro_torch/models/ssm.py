@@ -104,7 +104,7 @@ def ssd_fwd(p, cfg: ModelConfig, xin: torch.Tensor, chunk: int = CHUNK,
                          f"of chunks of {q}")
     nc = t // q
 
-    zxbcdt = ops.matmul(xin, p["in_proj"])
+    zxbcdt = ops.matmul(xin, p["in_proj"].to(xin.dtype))
     z, xbc, dtp = _split_proj(cfg, zxbcdt)
     raw_xbc = xbc
     xbc, _ = _causal_conv(xbc, p["conv_w"], p["conv_b"])
@@ -124,11 +124,11 @@ def ssd_fwd(p, cfg: ModelConfig, xin: torch.Tensor, chunk: int = CHUNK,
     # intra-chunk: L[i, j] = exp(cum_i - cum_j) for i >= j, per head
     cum_h = cum.transpose(2, 3)                               # (nc,B,H,q)
     lmat = torch.exp(cum_h[..., :, None] - cum_h[..., None, :])
-    lmat.masked_fill_(~torch.ones(q, q, dtype=torch.bool,
-                                  device=xin.device).tril(), 0.0)
+    upper = ~torch.ones(q, q, dtype=torch.bool, device=xin.device).tril()
     cb = torch_matmul(cc, bc.transpose(-1, -2))               # (nc,B,q,q)
-    y_intra = torch_matmul(lmat.mul_(cb[:, :, None]),
-                           xdt.transpose(2, 3)).transpose(2, 3)
+    # out of place: in training, exp's backward reads lmat
+    lmat = lmat.masked_fill(upper, 0.0) * cb[:, :, None]
+    y_intra = torch_matmul(lmat, xdt.transpose(2, 3)).transpose(2, 3)
 
     # chunk states, (nc, B, S, H, P): sum_j B_j exp(cum_last - cum_j) x_j dt_j
     decay_to_end = torch.exp(cum[:, :, -1:] - cum)            # (nc,B,q,H)
@@ -151,7 +151,7 @@ def ssd_fwd(p, cfg: ModelConfig, xin: torch.Tensor, chunk: int = CHUNK,
     y = y_intra + y_inter + xc * p["d_skip"][:, None]
     y = y.transpose(0, 1).reshape(bsz, t, din).to(xin.dtype)
     y = rms_norm(y * F.silu(z), p["norm_w"], cfg.rms_eps)
-    out = ops.matmul(y, p["out_proj"])
+    out = ops.matmul(y, p["out_proj"].to(y.dtype))
     if return_state:
         conv_state = raw_xbc[:, -(cfg.ssm_conv - 1):, :]
         return out, (hcur.transpose(1, 2), conv_state)
@@ -168,7 +168,7 @@ def ssd_step(p, cfg: ModelConfig, xin: torch.Tensor,
     hp = cfg.ssm_head_dim
     ssm_h, conv_state = state
 
-    zxbcdt = ops.matmul(xin, p["in_proj"])
+    zxbcdt = ops.matmul(xin, p["in_proj"].to(xin.dtype))
     z, xbc, dtp = _split_proj(cfg, zxbcdt)
     xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"],
                                    state=conv_state)
@@ -185,7 +185,7 @@ def ssd_step(p, cfg: ModelConfig, xin: torch.Tensor,
     y = y + xh * p["d_skip"][None, :, None]
     y = y.reshape(bsz, 1, din).to(xin.dtype)
     y = rms_norm(y * F.silu(z), p["norm_w"], cfg.rms_eps)
-    return ops.matmul(y, p["out_proj"]), (ssm_h, conv_state)
+    return ops.matmul(y, p["out_proj"].to(y.dtype)), (ssm_h, conv_state)
 
 
 def init_ssm_state(cfg: ModelConfig, batch: int, dtype=torch.float32,

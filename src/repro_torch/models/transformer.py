@@ -1,4 +1,5 @@
-"""Decoder-only LM assembly: the dense, MoE, SSM and hybrid families.
+"""Decoder-only LM assembly: the dense, MoE, SSM, hybrid and VLM
+families.
 
 The counterpart of ``repro/models/transformer.py``: ``period_of``,
 ``_init_block``/``_block_fwd``, ``init_model``, ``forward`` and
@@ -18,9 +19,11 @@ P)``, ``conv_state`` ``(n_groups, B, K-1, C)`` in the cache dtype.
 The reference drives the stack with ``jax.lax.scan``; here it is a
 Python loop over the layers, reading views of the stacked tensors.  The
 cache is written in place (attention's slice write, the SSD's ``copy_``
-of its new state) and the same tuple comes back as the new cache.  The
-enc-dec and VLM families are not ported yet (ROADMAP Queue 1 item 11):
-they raise.
+of its new state) and the same tuple comes back as the new cache.  A VLM
+config (pixtral-12b) prepends the stub frontend's ``patch_embeds`` to the
+token embeddings, as the reference does: the prefix takes cache slots
+and positions, and its rows are dropped before the vocab head.  The
+enc-dec family (whisper-tiny) is ``models/encdec.py``.
 """
 from __future__ import annotations
 
@@ -34,22 +37,12 @@ from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import Params
 
-#: parameter names that stay float32: norm weights, and the SSD's
-#: parameters that the reference reads in float32 (``ssm.py:108-110,
-#: 152-155``)
-NORMS = frozenset({"ln1", "ln2", "ln1_post", "ln2_post", "final_norm"})
+#: parameter names that stay float32: norm weights (the enc-dec
+#: LayerNorms' ``w`` and ``b`` below them), and the SSD's parameters that
+#: the reference reads in float32 (``ssm.py:108-110, 152-155``)
+NORMS = frozenset({"ln1", "ln2", "ln1_post", "ln2_post", "final_norm",
+                   "lnx", "ln_enc", "ln_dec"})
 FLOAT32 = NORMS | {"a_log", "dt_bias", "d_skip", "norm_w", "conv_b"}
-
-#: the families the port runs
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
-
-def check_family(cfg: ModelConfig) -> None:
-    """Raise for the families the port cannot run yet: enc-dec, VLM."""
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): not ported yet: the port runs the "
-            f"{', '.join(FAMILIES)} families (ROADMAP Queue 1 item 11)")
 
 
 def period_of(cfg: ModelConfig) -> int:
@@ -128,20 +121,24 @@ def _block_fwd(p, cfg: ModelConfig, x: torch.Tensor,
 # ----------------------------------------------------------------------- #
 # model init                                                               #
 # ----------------------------------------------------------------------- #
-def to_params(tree: Mapping, cfg: ModelConfig, device=None) -> Params:
+def to_params(tree: Mapping, cfg: ModelConfig, device=None,
+              master: bool = False) -> Params:
     """A :class:`Params` of the reference's parameter tree (tensors or
-    numpy arrays): :data:`FLOAT32` in float32, the rest in ``cfg.dtype``."""
-    dt = torch_dtype(cfg.dtype)
+    numpy arrays): :data:`FLOAT32` (and everything under a norm) in
+    float32, the rest in ``cfg.dtype``; with ``master``, every leaf in
+    float32 and taking a gradient, as the trainer keeps them."""
+    dt = torch.float32 if master else torch_dtype(cfg.dtype)
 
-    def conv(name, x):
+    def conv(name, x, f32=False):
         if isinstance(x, Mapping):
-            return {k: conv(k, v) for k, v in x.items()}
+            return {k: conv(k, v, f32 or k in NORMS) for k, v in x.items()}
         if isinstance(x, (tuple, list)):
-            return tuple(conv(name, v) for v in x)
+            return tuple(conv(name, v, f32) for v in x)
         return torch.as_tensor(x).to(
-            device=device, dtype=torch.float32 if name in FLOAT32 else dt)
+            device=device,
+            dtype=torch.float32 if f32 or name in FLOAT32 else dt)
 
-    return Params(conv("", tree))
+    return Params(conv("", tree)).requires_grad_(master)
 
 
 def init_model(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
@@ -149,7 +146,6 @@ def init_model(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     the reference draws them (N(0, 0.02^2), output projections scaled by
     1/sqrt(2 n_layers), norms 1, biases 0, the SSD's float32 parameters
     as ``ssm.init_ssm``); the draws differ from JAX's."""
-    check_family(cfg)
     period = period_of(cfg)
     n_groups = cfg.n_layers // period
     return Params({
@@ -166,6 +162,7 @@ def init_model(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
 # ----------------------------------------------------------------------- #
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
+            patch_embeds: Optional[torch.Tensor] = None,
             cache: Optional[Tuple] = None,
             cache_pos: Optional[int] = None,
             moe_impl: str = "scatter",
@@ -173,11 +170,17 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Tuple]]:
     """tokens: (B, T) -> (logits (B, T, V) float32, aux_loss, new_cache).
     ``cache_pos`` is a host integer: where this call's tokens start.
-    ``aux_loss`` is the MoE layers' router loss, summed over layers."""
-    check_family(cfg)
+    ``aux_loss`` is the MoE layers' router loss, summed over layers.
+    ``patch_embeds`` (B, P, d), a VLM's stub frontend output, go before
+    the tokens; the logits then cover the T text positions only."""
     dtype = torch_dtype(cfg.dtype)
     period = period_of(cfg)
     x = L.embed_fwd(params["embed"], cfg, tokens, dtype)
+    n_patch = 0
+    if patch_embeds is not None:
+        n_patch = patch_embeds.shape[1]
+        x = torch.cat([patch_embeds.to(device=x.device, dtype=dtype), x],
+                      dim=1)
     t = x.shape[1]
     if positions is None:
         start = int(cache_pos) if cache_pos is not None else 0
@@ -195,6 +198,8 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             if a is not None:
                 aux = aux + a
     x = L.rms_norm(x, params["final_norm"], cfg.rms_eps, cfg.norm_offset)
+    if n_patch:
+        x = x[:, n_patch:]
     if last_only:
         x = x[:, -1:]
     logits = L.unembed_fwd(params["embed"], cfg, x)
@@ -211,7 +216,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     ``dtype`` at attention positions, (ssm_h float32, conv_state in
     ``dtype``) at SSD positions.  Every tensor is allocated whole, never
     an expanded view: the forward writes the cache in place."""
-    check_family(cfg)
     period = period_of(cfg)
     n_groups = cfg.n_layers // period
     cache = []

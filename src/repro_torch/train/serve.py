@@ -24,15 +24,19 @@ simulated tiers.  Its calls run under that device's tier mapping
 decoding is ``torch.argmax`` (the first maximum, as ``jnp.argmax``);
 temperature sampling draws from a ``torch.Generator`` seeded with
 ``ServeConfig.seed``, so its draws differ from JAX's by construction.
-Steps run eagerly: no jit counterpart, no CUDA graphs yet.  The
-reference's ``extra`` inputs (enc-dec frames, VLM patches) wait for those
-families.
+Steps run eagerly: no jit counterpart, no CUDA graphs yet.  ``prefill``
+and ``generate`` take the reference's ``extra`` inputs: an enc-dec
+model's ``frames``, a VLM's ``patch_embeds``.  ``generate`` keeps the
+reference's decode start, ``prompt.shape[1]`` (``serve.py:160``), which
+for a VLM with patches is not the P + T slots the prefill wrote (ROADMAP,
+found in the reference); a caller that wants P + T calls ``prefill`` and
+``decode(start_pos=P + T)`` itself.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -115,11 +119,15 @@ class Server:
         return tok, cache
 
     # ------------------------------------------------------------------ #
-    def prefill(self, tokens: torch.Tensor) -> Tuple[torch.Tensor, Any]:
+    def prefill(self, tokens: torch.Tensor, extra: Optional[Dict] = None
+                ) -> Tuple[torch.Tensor, Any]:
         """Run the prompt, building the cache on the HOST tier (first
-        touch by the CPU side, like the paper's malloc'd matrices)."""
+        touch by the CPU side, like the paper's malloc'd matrices).
+        ``extra``: the family's stub-frontend inputs (``frames``,
+        ``patch_embeds``), passed to the forward."""
         with memspace.installed(self.space), torch.no_grad():
             tokens = tokens.to(self.device)
+            extra = {k: v.to(self.device) for k, v in (extra or {}).items()}
             b, _ = tokens.shape
             t0 = time.perf_counter()
             cache = self.model.init_cache(b, self.scfg.max_len,
@@ -137,7 +145,7 @@ class Server:
                 self.stats.migrations += int(
                     self.scfg.offload_policy == "dfu")
             logits, _, cache = self.model.forward(
-                self.params, tokens, cache=cache, cache_pos=0)
+                self.params, tokens, cache=cache, cache_pos=0, **extra)
             if self.scfg.offload_policy == "memcopy":
                 cache, moved = _tree_put(cache, HOST)
                 self.stats.bytes_dev_to_host += moved
@@ -184,7 +192,8 @@ class Server:
         return gen, cache
 
     # ------------------------------------------------------------------ #
-    def generate(self, prompt: torch.Tensor, n_tokens: int) -> torch.Tensor:
-        tok, cache = self.prefill(prompt)
+    def generate(self, prompt: torch.Tensor, n_tokens: int,
+                 extra: Optional[Dict] = None) -> torch.Tensor:
+        tok, cache = self.prefill(prompt, extra)
         gen, _ = self.decode(tok, cache, prompt.shape[1], n_tokens - 1)
         return torch.cat([tok, gen], dim=1)
