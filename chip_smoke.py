@@ -20,7 +20,9 @@ First-Use decode cache, then on the MoE and SSD models
 (granite-moe-1b-a400m, mamba2-1.3b, moonshot-v1-16b-a3b cut in depth,
 jamba reduced), then on the enc-dec whisper-tiny and the VLM pixtral-12b,
 then training (``repro_torch.train.Trainer``) on whisper-tiny and on
-qwen1.5-4b cut in depth.  Phases, in order:
+qwen1.5-4b cut in depth, then the mesh paths (expert-parallel a2a,
+compressed_psum, elastic restore) on a 1-rank mesh and the dry run on
+the CPU.  Phases, in order:
 
 1. build   — build and load the kernels; the card's name and power limit.
 2. kernels — each kernel against its plain version, with the tolerance
@@ -161,15 +163,42 @@ qwen1.5-4b cut in depth.  Phases, in order:
              warmup 1, on the kernels and plain.  The main-path runs of
              10 and 11 run inside a DFU session with interception on,
              which must see no fault, retry, fallback or quarantine.
+12. mesh   — the mesh paths, on a (data=1, model=1) DeviceMesh over a
+             1-rank NCCL group (a FileStore under build/): (a)
+             granite-moe-1b-a400m at full width and depth, batch 2 x
+             4096, under the mesh's axis env with moe_impl="a2a": the
+             dry run's prefill_step, then 8 serve_steps; 2 all-to-alls
+             per MoE layer per forward, 97 gemm launches per forward (the
+             a2a body's router and expert products are torch.matmul and
+             einsum, as the reference's), 24 flash all on wgmma, 24
+             decode per step; the same steps on the scatter plan fed the
+             a2a run's tokens (greedy tokens agree wherever the top-2
+             margin exceeds 2 max|dlogit|); the first MoE layer's a2a
+             output against its scatter output on the real hidden
+             states, at a capacity with no drops, per row; (b)
+             compressed_psum over whisper-tiny's gradient leaves, bit for
+             bit compress_decompress with a zero residual; (c) a
+             whisper-tiny checkpoint restored with shardings= onto the
+             mesh bit for bit, each leaf a DTensor on the card; (d) the
+             dry run (launch/dryrun.py) of qwen2.5-32b train_4k on the
+             one-pod mesh and jamba-1.5-large-398b long_500k on the
+             two-pod mesh, each in a CPU process of its own over a fake
+             group of 512 ranks: status ok, FLOPs > 0, both rooflines;
+             (e) the dry run's counter over gemma2-9b's prefill forward
+             and whisper-tiny's training step, each whole step's H100
+             compute bound against the device time phases 8 and 11
+             profiled in this run: bound / measured <= 1.05.
 
 The kernels line's launches are those of the main path's runs: the
 BLAS, LSMS and solvers phases, the venue phase's (a)-(c), every run of
 the runtime phase, the serve phase's dfu, streams and memcopy runs, the
-serve_moe_ssm and serve_encdec_vlm phases' dfu and memcopy runs, and the
-train phase's two fits, each with the counts set to 0 just before it.
-The cross-checks', the profiles', the gradient checks', the restart's,
-the remat steps' and the plain and witness fits' launches are not among
-them.  Every mismatch or missing launch raises, so the script exits non-zero.
+serve_moe_ssm and serve_encdec_vlm phases' dfu and memcopy runs, the
+train phase's two fits, and the mesh phase's a2a run, each with the
+counts set to 0 just before it.
+The cross-checks', the mesh phase's scatter comparison, the profiles',
+the gradient checks', the restart's, the remat steps' and the plain and
+witness fits' launches are not among them.  Every mismatch or missing
+launch raises, so the script exits non-zero.
 The lines before the last are a JSON object of per-kernel numbers and
 the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the port
@@ -1887,7 +1916,8 @@ def device_profile(fn, label: str, top: int = 6, phase: str = "serve",
     over kernels and copies, the device's idle share, and the kernels that
     take the most device time; with ``host``, also the operators that
     take the most host time (self CPU time, the profiler's own cost
-    included)."""
+    included).  Returns the device time in ms (None where the profiler
+    recorded none)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1907,7 +1937,7 @@ def device_profile(fn, label: str, top: int = 6, phase: str = "serve",
         ms = time_ms(fn, reps=1)
         log(phase, f"profile {label}: the profiler recorded no device "
                    f"time; {ms:.1f} ms by CUDA events")
-        return
+        return None
     total_ms = sum(t for _, t in by_name.values()) / 1e3
     log(phase, f"profile {label}: wall {wall_ms:.1f} ms (under the "
                f"profiler), device {total_ms:.1f} ms, idle share "
@@ -1920,6 +1950,7 @@ def device_profile(fn, label: str, top: int = 6, phase: str = "serve",
         for e in ops[:top]:
             log(phase, f"  host {e.self_cpu_time_total / 1e3:9.2f} ms  "
                        f"{e.count:5d} x  {e.key[:80]}")
+    return total_ms
 
 
 def serve_streams_check(model, params, prompt, out, alone, n_layers: int,
@@ -2032,8 +2063,8 @@ def phase_serve(dev) -> dict:
         launched[name] = launched.get(name, 0) + n
     serve_cross_check(cfg, prompt, SERVE_GEN, dev, "serve cross-check",
                       "serve")
-    serve_profile(model, params, prompt, SERVE_LEN, dev, "gemma2-9b",
-                  "serve")
+    MEASURED["gemma2-9b prefill"] = serve_profile(
+        model, params, prompt, SERVE_LEN, dev, "gemma2-9b", "serve")
     del params
     torch.cuda.empty_cache()
     return launched
@@ -2415,13 +2446,14 @@ def serve_profile(model, params, prompt, max_len: int, dev, label: str,
                   start=None) -> None:
     """Where one prefill and one decode step spend their time: each once
     under torch.profiler (device_profile; its launches are not counted).
-    The decode step sits at ``start`` (default the prompt's length)."""
+    The decode step sits at ``start`` (default the prompt's length).
+    Returns the prefill's device time in ms."""
     import torch
     cache = model.init_cache(prompt.shape[0], max_len, device=dev)
     tok = prompt[:, :1].to(dev)
     start = prompt.shape[1] if start is None else start
     with torch.no_grad():
-        device_profile(lambda: model.forward(
+        prefill_ms = device_profile(lambda: model.forward(
             params, prompt.to(dev), cache=cache, cache_pos=0,
             **(extra or {})),
             f"{label}: one prefill forward {tuple(prompt.shape)}",
@@ -2431,6 +2463,7 @@ def serve_profile(model, params, prompt, max_len: int, dev, label: str,
             f"{label}: one decode step (kv_len {start + 1})",
             phase=phase, host=True)
     del cache
+    return prefill_ms
 
 
 def phase_serve_moe_ssm(dev) -> dict:
@@ -3280,11 +3313,11 @@ def phase_train(dev) -> dict:
             from repro_torch.optim import init_compression
             from repro_torch.train import make_train_step
             step = make_train_step(model, tcfg, tr.opt)
-            device_profile(lambda: step(tr.params, tr.opt_state,
-                                        init_compression(tr.params), batch,
-                                        WT_STEPS),
-                           "(a) whisper-tiny: one training step", top=8,
-                           phase="train", host=True)
+            MEASURED["whisper-tiny train step"] = device_profile(
+                lambda: step(tr.params, tr.opt_state,
+                             init_compression(tr.params), batch, WT_STEPS),
+                "(a) whisper-tiny: one training step", top=8,
+                phase="train", host=True)
         names = sorted({str(w.message).split(" does not have")[0]
                         for w in warned if "deterministic" in
                         str(w.message)})
@@ -3959,6 +3992,389 @@ def phase_runtime(dev) -> dict:
     return launched
 
 
+# ----------------------------------------------------------------------- #
+# the mesh phase                                                           #
+# ----------------------------------------------------------------------- #
+#: decode steps after the a2a prefill (build_cell's serve_step each)
+MESH_DECODE = 8
+#: the dry run's cells, each in its own process with its own time limit
+#: (s): the launcher's documented example, and jamba at full width
+DRYRUN_CELLS = (("qwen2_5_32b", "train_4k", "single", 420),
+                ("jamba_1_5_large_398b", "long_500k", "multi", 420))
+#: the roofline counts' process (gemma2-9b prefill, whisper-tiny step)
+COUNT_LIMIT = 420
+#: a whole step's compute bound over its profiled device time may not
+#: exceed this: a count under which the card beats its own bound is a
+#: miscount (the margin is for the profiler's clock)
+BOUND_RATIO_MAX = 1.05
+
+
+def count_steps(out_path: str) -> None:
+    """(e)'s counts, on the CPU (run in a subprocess): the dry run's
+    counter over gemma2-9b's prefill forward at 2 x 4608 as the serve
+    phase profiles it (a 4624-slot cache, every position's logits) and
+    over whisper-tiny's training step at 8 x 448 with 1500 frames as the
+    train phase profiles it, each on a 1-rank mesh over a fake group and
+    fake tensors."""
+    import dataclasses
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import Model, get_config
+    from repro_torch.models.sharding import axis_env
+    dryrun.fake_group(1)
+    mesh = make_debug_mesh(1, model=1, device="cpu")
+    out = {}
+    with axis_env(specs.axis_env_for(mesh)):
+        cfg = dataclasses.replace(get_config("gemma2_9b"),
+                                  prefill_fresh_kv=True)
+        model = Model.from_config(cfg)
+
+        @torch.no_grad()
+        def prefill(params, tokens, cache):
+            return model.forward(params, tokens, cache=cache, cache_pos=0)
+
+        with FakeTensorMode():
+            args = (specs.param_structs(model, mesh, master=False),
+                    specs._batch((SERVE_BATCH, SERVE_PROMPT), torch.int64,
+                                 mesh),
+                    specs._cache_specs(model, SERVE_BATCH, SERVE_LEN, mesh,
+                                       seq_shard=False))
+            cell = specs.Cell("gemma2_9b", None, specs._implicit(prefill),
+                              args)
+            counted, _, wall = dryrun.count_cell(cell)
+        out["gemma2-9b prefill"] = dict(
+            flops_by_dtype=counted.flops_by_dtype, bytes=counted.bytes,
+            wall_s=wall, what=f"prefill forward {SERVE_BATCH} x "
+                              f"{SERVE_PROMPT}, cache {SERVE_LEN}")
+        model = Model.from_config(get_config("whisper_tiny"))
+        shape = specs.ShapeCell("whisper_step", "train", WT_SEQ, WT_BATCH)
+        with FakeTensorMode():
+            cell = specs.build_cell(model, "whisper_tiny", shape, mesh,
+                                    remat="none")
+            counted, _, wall = dryrun.count_cell(cell)
+        out["whisper-tiny train step"] = dict(
+            flops_by_dtype=counted.flops_by_dtype, bytes=counted.bytes,
+            wall_s=wall, what=f"training step {WT_BATCH} x {WT_SEQ} "
+                              f"tokens + 1500 frames, AdamW")
+    Path(out_path).write_text(json.dumps(out))
+
+
+def _background(name: str, cmd: list, limit: float) -> tuple:
+    """A CPU process of the mesh phase, started now: (name, Popen, limit,
+    start time)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return name, proc, limit, time.perf_counter()
+
+
+def _finish(job) -> str:
+    """Wait for a background process within its limit; its output."""
+    name, proc, limit, t0 = job
+    try:
+        out, _ = proc.communicate(timeout=max(1.0, limit - (
+            time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"mesh: {name} ran past its {limit} s limit")
+    if proc.returncode != 0:
+        raise AssertionError(f"mesh: {name} exited {proc.returncode}:\n"
+                             f"{out[-3000:]}")
+    return out
+
+
+def mesh_a2a(dev, mesh, card: str) -> dict:
+    """(a) granite-moe-1b-a400m at full width and depth, batch 2 x 4096,
+    under the 1-rank mesh's axis env: build_cell's prefill_step, then
+    MESH_DECODE serve_steps, with moe_impl="a2a" (the main path; its
+    launches are returned).  Then the same calls on the scatter plan,
+    fed the a2a run's tokens, and one MoE layer's a2a output against its
+    scatter output on the hidden states the a2a prefill gave it."""
+    import dataclasses
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.kernels import attention
+    from repro_torch.launch import specs
+    from repro_torch.models import get_config, moe
+    from repro_torch.models.sharding import axis_env
+    cfg = dataclasses.replace(get_config("granite_moe_1b_a400m"),
+                              prefill_fresh_kv=True)
+    model, params = serve_model(cfg, dev, "mesh")
+    prompt = torch.randint(0, cfg.vocab, (MS_BATCH, MS_PROMPT),
+                           generator=torch.Generator().manual_seed(1)).to(dev)
+    env = specs.axis_env_for(mesh)
+    real_moe, seen = moe.moe_fwd, []
+
+    def keep_first(p, cfg_, x, impl="scatter"):
+        if not seen and x.shape[1] > 1:
+            seen.append((p, x.detach().clone()))
+        return real_moe(p, cfg_, x, impl=impl)
+
+    def steps(impl: str, feed=None):
+        """The prefill, then MESH_DECODE decode steps; ``feed`` gives each
+        decode step's input token (default the last argmax)."""
+        cache = model.init_cache(MS_BATCH, MS_PROMPT + MESH_DECODE + 1,
+                                 torch.bfloat16, device=dev)
+        kept, toks = [], []
+        with torch.no_grad(), axis_env(env):
+            logits, _, cache = model.forward(
+                params, prompt, cache=cache, cache_pos=0, moe_impl=impl,
+                last_only=True)
+            for i in range(MESH_DECODE + 1):
+                kept.append(logits[:, -1].float())
+                toks.append(kept[-1].argmax(-1))
+                if i == MESH_DECODE:
+                    break
+                tok = (toks[-1] if feed is None else feed[:, i])[:, None]
+                logits, _, cache = model.forward(
+                    params, tok, cache=cache, cache_pos=MS_PROMPT + i,
+                    moe_impl=impl)
+        del cache
+        return torch.stack(toks, 1), torch.stack(kept, 1)
+
+    moe.moe_fwd = keep_first
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with CommDebugMode() as comm:
+            toks, logits = steps("a2a")
+        torch.cuda.synchronize()
+    finally:
+        moe.moe_fwd = real_moe
+    wall = time.perf_counter() - t0
+    got = counts()
+    n_fwd = MESH_DECODE + 1
+    moe_layers = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    colls = {str(k).split(".")[-1]: v
+             for k, v in comm.get_comm_counts().items()}
+    a2a = sum(v for k, v in colls.items() if "all_to_all" in k)
+    # under a2a the router and expert products are torch.matmul/einsum
+    # (the reference's shard_map body, outside its kernels): q, k, v, o
+    # per attention layer and the vocab head stay on gemm.cu
+    gemm_fwd = 4 * cfg.n_layers + 1
+    want = {"gemm": gemm_fwd * n_fwd, "flash_attention": cfg.n_layers,
+            "decode_attention": cfg.n_layers * MESH_DECODE}
+    if gemm_fwd != 97 or a2a != 2 * moe_layers * n_fwd or any(
+            got[k] != v for k, v in want.items()):
+        raise AssertionError(f"mesh (a): launches {got}, all-to-alls {a2a}; "
+                             f"want {want} and {2 * moe_layers * n_fwd}")
+    if attention.launches_by_path[attention.WGMMA] != cfg.n_layers:
+        raise AssertionError(f"mesh (a): flash by path "
+                             f"{attention.launches_by_path}, all wgmma")
+    if not bool(torch.isfinite(logits).all()) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError("mesh (a): non-finite logits or bad tokens")
+    log("mesh", f"(a) granite-moe a2a on the (data=1, model=1) mesh: "
+                f"prefill {MS_BATCH} x {MS_PROMPT} + {MESH_DECODE} decode "
+                f"steps in {wall:.3f} s; collectives {colls} "
+                f"({a2a} all-to-alls = 2 x {moe_layers} MoE layers x "
+                f"{n_fwd} forwards); launches {got} (gemm {gemm_fwd} per "
+                f"forward, flash all wgmma at D 64); {card}")
+    # the scatter plan on the a2a run's tokens, not counted
+    _, ref = steps("scatter", feed=toks[:, :MESH_DECODE])
+    delta = (logits - ref).abs().max().item()
+    top2 = ref.topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > 2 * delta
+    agree = toks == ref.argmax(-1)
+    if not bool(agree[sure].all()) or int(sure.sum()) == 0:
+        raise AssertionError(f"mesh (a): a2a tokens differ from scatter's "
+                             f"at steps with margin > 2 x {delta:.4f}, or "
+                             f"no step has such a margin")
+    log("mesh", f"(a) a2a vs scatter on the same tokens: max|dlogit| "
+                f"{delta:.5f}; tokens agree at all {int(sure.sum())} of "
+                f"{agree.numel()} steps whose top-2 margin exceeds 2 x "
+                f"max|dlogit| ({int(agree.sum())} agree in all); {card}")
+    # one MoE layer, at a capacity with no drops in either plan
+    p, x = seen[0]
+    nodrop = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                 / cfg.top_k)
+    with torch.no_grad(), axis_env(env):
+        want_out, _ = moe.moe_fwd(p, nodrop, x, impl="scatter")
+        got_out, _ = moe.moe_fwd_a2a(p, nodrop, x, mesh, env.batch,
+                                     env.model)
+    rel = row_rel(got_out, want_out)
+    if not rel <= ATTN_TOL:
+        raise AssertionError(f"mesh (a): first MoE layer a2a vs scatter "
+                             f"per-row rel err {rel:.3e} > {ATTN_TOL}")
+    log("mesh", f"(a) first MoE layer on the a2a prefill's hidden states "
+                f"{tuple(x.shape)}, no drops: a2a vs scatter per-row rel "
+                f"err {rel:.3e} (tol {ATTN_TOL}); {card}")
+    del params, model, seen
+    torch.cuda.empty_cache()
+    return got
+
+
+def mesh_psum_restore(dev, mesh, card: str) -> None:
+    """(b) compressed_psum over whisper-tiny's gradient leaves on the
+    NCCL group equals compress_decompress with a zero residual, bit for
+    bit; (c) a whisper-tiny checkpoint restored with shardings= onto the
+    mesh comes back bit for bit, each leaf a DTensor on the card."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch import shardings as shd
+    from repro_torch.models import Model, get_config
+    from repro_torch.optim import (CompressionState, compress_decompress,
+                                   compressed_psum)
+    from repro_torch.train import TrainConfig
+    from repro_torch.tree import leaves
+    cfg = get_config("whisper_tiny")
+    model = Model.from_config(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev,
+                        master=True)
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=WT_SEQ,
+                                    global_batch=WT_BATCH))
+    batch = {k: v.to(dev) for k, v in pipe.global_batch(0).items()}
+    batch["frames"] = torch.ones(WT_BATCH, cfg.encoder_seq, cfg.d_model,
+                                 dtype=torch.bfloat16, device=dev)
+    _, grads = loss_and_grads(model, params, batch, TrainConfig())
+    group = mesh.get_group("data")
+    t0 = time.perf_counter()
+    summed = [compressed_psum(g, group) for g in grads]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    want, _ = compress_decompress(grads, CompressionState(
+        [torch.zeros_like(g) for g in grads]))
+    bad = [i for i, (a, b) in enumerate(zip(summed, want))
+           if not torch.equal(a, b)]
+    if bad:
+        raise AssertionError(f"mesh (b): compressed_psum differs from "
+                             f"compress_decompress on leaves {bad}")
+    log("mesh", f"(b) compressed_psum over {len(grads)} gradient leaves "
+                f"({sum(g.numel() for g in grads)} values) on the NCCL "
+                f"group: bit for bit compress_decompress with a zero "
+                f"residual; {wall * 1e3:.1f} ms; {card}")
+    sh = shd.param_shardings(params, mesh, cfg)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        store = CheckpointStore(d)
+        store.save(1, params)
+        tree, manifest = store.restore(params, shardings=sh)
+    got = leaves(tree)
+    for i, (a, b, s) in enumerate(zip(got, leaves(params), leaves(sh))):
+        if (a.to_local().device != dev or list(a.placements) != s.placements
+                or not torch.equal(a.full_tensor(), b.detach())):
+            raise AssertionError(f"mesh (c): leaf {i} came back "
+                                 f"{a.placements} on {a.to_local().device}"
+                                 f", or not bit for bit")
+    log("mesh", f"(c) whisper-tiny checkpoint (step {manifest['step']}, "
+                f"{len(got)} leaves) restored with shardings= onto the "
+                f"1-rank CUDA mesh: every leaf a DTensor on {dev}, bit for "
+                f"bit; {card}")
+    del params, grads, summed, tree
+    torch.cuda.empty_cache()
+
+
+def mesh_dryrun(jobs: list, card: str) -> None:
+    """(d) the dry run's cells: status ok, FLOPs > 0; wall, dominant
+    term and both rooflines printed."""
+    for (arch, shape, mesh_name, _), job in zip(DRYRUN_CELLS, jobs):
+        out = _finish(job)
+        path = ROOT / "build" / "dryrun" / f"{arch}__{shape}__{mesh_name}.json"
+        rec = json.loads(path.read_text())
+        if rec["status"] != "ok" or not rec["cost"]["flops"] > 0:
+            raise AssertionError(f"mesh (d): {arch} {shape} {mesh_name}: "
+                                 f"{rec['status']} {rec.get('error')}\n"
+                                 f"{out[-2000:]}")
+        for key, name in (("roofline", "V5E"), ("roofline_h100", "H100")):
+            r = rec[key]
+            log("mesh", f"(d) dry run {arch} {shape} {mesh_name} "
+                        f"({rec['chips']} ranks, CPU fake tensors): wall "
+                        f"{rec['wall_s']} s; {name}: dominant "
+                        f"{r['dominant']}, compute {r['t_compute_s']} s, "
+                        f"memory {r['t_memory_s']} s (unfused bytes), "
+                        f"collective {r['t_collective_s']} s, roofline "
+                        f"fraction {r['roofline_fraction']}, useful FLOPs "
+                        f"{r['useful_flops_ratio']}; {card}")
+        log("mesh", f"(d) {arch}: per-rank FLOPs {rec['cost']['flops']:.4e}"
+                    f", collectives {rec['collectives']}, peak memory "
+                    f"{rec['memory']['peak_size_in_bytes'] / 1e9:.2f} GB "
+                    f"per rank; {card}")
+
+
+def mesh_roofline(job, card: str) -> None:
+    """(e) each whole step's compute bound on the H100 against the device
+    time the serve and train phases profiled in this run.  The counted
+    FLOPs are the plain versions' products, which take bf16 operands to
+    float32; on the card they run in bf16 (gemm.cu, flash), but for
+    training's plain attention backward in float32, so the bound takes
+    them all at the bf16 peak: a lower bound either way."""
+    _finish(job)
+    counted = json.loads((ROOT / "build" / "mesh_counts.json").read_text())
+    for name, rec in counted.items():
+        measured = MEASURED.get(name)
+        if measured is None:
+            raise AssertionError(f"mesh (e): no profiled device time for "
+                                 f"{name}")
+        bound_s = sum(rec["flops_by_dtype"].values()) / PEAK_OPS["bfloat16"]
+        bytes_s = rec["bytes"] / PEAK_BYTES
+        ratio = bound_s * 1e3 / measured
+        if not ratio <= BOUND_RATIO_MAX:
+            raise AssertionError(f"mesh (e): {name}: bound {bound_s:.4f} s "
+                                 f"over measured {measured:.1f} ms = "
+                                 f"{ratio:.3f} > {BOUND_RATIO_MAX}: a "
+                                 f"miscount")
+        flops = " ".join(f"{dt} {n:.4e}"
+                         for dt, n in sorted(rec["flops_by_dtype"].items()))
+        log("mesh", f"(e) {name} ({rec['what']}): counted FLOPs {flops}; "
+                    f"H100 compute bound {bound_s * 1e3:.2f} ms, device "
+                    f"time {measured:.2f} ms (profiled this run): bound / "
+                    f"measured {ratio:.3f}; the unfused bytes' term "
+                    f"{bytes_s * 1e3:.1f} ms is no bound (every "
+                    f"intermediate counted, flash's included); counted in "
+                    f"{rec['wall_s']:.1f} s on the CPU; {card}")
+
+
+def phase_mesh(dev) -> dict:
+    """The mesh paths on the card: (a)-(c) on a (data=1, model=1) mesh
+    over a 1-rank NCCL group (a FileStore under build/; no network),
+    while (d) the dry run's two cells and (e)'s counts run on the CPU in
+    processes of their own.  (a) is the main path; its launches are
+    returned."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+    card = card_line()
+    jobs = [_background(f"dry run {a} {s} {m}", [
+        sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+        "--shape", s, "--mesh", m, "--out", str(ROOT / "build" / "dryrun")],
+        limit) for a, s, m, limit in DRYRUN_CELLS]
+    counting = _background("roofline counts", [
+        sys.executable, "-c", "import sys, chip_smoke; "
+        "chip_smoke.count_steps(sys.argv[1])",
+        str(ROOT / "build" / "mesh_counts.json")], COUNT_LIMIT)
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+            dist.init_process_group(
+                "nccl", store=dist.FileStore(os.path.join(d, "store"), 1),
+                rank=0, world_size=1, device_id=dev)
+            try:
+                mesh = make_debug_mesh(1, model=1, device="cuda")
+                launched = mesh_a2a(dev, mesh, card)
+                mesh_psum_restore(dev, mesh, card)
+            finally:
+                dist.destroy_process_group()
+        mesh_dryrun(jobs, card)
+        mesh_roofline(counting, card)
+    finally:
+        for _, proc, _, _ in jobs + [counting]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return launched
+
+
+#: device times (ms) of whole steps that the serve and train phases
+#: profile, for the mesh phase's roofline (e)
+MEASURED: dict = {}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this "
@@ -3991,6 +4407,7 @@ def main() -> int:
     moe_ssm_launches = phase_serve_moe_ssm(dev)
     encdec_vlm_launches = phase_serve_encdec_vlm(dev)
     train_launches = phase_train(dev)
+    mesh_launches = phase_mesh(dev)
     for name, row in rows.items():
         row["launches"] = (blas_launches[name] + lsms_launches[name]
                            + solver_launches[name] + venue_launches[name]
@@ -3998,7 +4415,8 @@ def main() -> int:
                            + serve_launches[name]
                            + moe_ssm_launches.get(name, 0)
                            + encdec_vlm_launches.get(name, 0)
-                           + train_launches.get(name, 0))
+                           + train_launches.get(name, 0)
+                           + mesh_launches.get(name, 0))
         log("done", f"{name} launches: blas {blas_launches[name]}, lsms "
                     f"{lsms_launches[name]}, solvers "
                     f"{solver_launches[name]}, venue {venue_launches[name]}, "
@@ -4006,7 +4424,8 @@ def main() -> int:
                     f"{serve_launches[name]}, serve_moe_ssm "
                     f"{moe_ssm_launches.get(name, 0)}, serve_encdec_vlm "
                     f"{encdec_vlm_launches.get(name, 0)}, train "
-                    f"{train_launches.get(name, 0)}")
+                    f"{train_launches.get(name, 0)}, mesh "
+                    f"{mesh_launches.get(name, 0)}")
         if row["launches"] == 0:
             raise AssertionError(f"{name} kernel never launched on the "
                                  f"main path")

@@ -15,9 +15,20 @@ caller's thread (training then overwrites the tensors freely) and writes
 the files on a writer thread; ``wait()`` joins it, as the next save does
 first.  numpy has no bfloat16: a bf16 leaf is written as float32 values
 (exact) with ``"bfloat16"`` in the manifest, and ``restore`` casts every
-leaf to the dtype of ``tree_like``'s leaf.  The reference's elastic
-re-sharding (``shardings=``) belongs to the mesh paths (ROADMAP Queue 1
-item 11(d)): here a leaf comes back on the device of ``tree_like``'s.
+leaf to the dtype of ``tree_like``'s leaf.
+
+**Elastic restore**: the manifest stores logical shapes and dtypes, never
+a mesh.  ``restore(..., shardings=)`` re-shards every leaf onto the
+*current* mesh: ``shardings`` is a tree of
+:class:`repro_torch.launch.shardings.NamedSharding` (a spec over a
+``DeviceMesh``) matching ``tree_like``, and each rank keeps its block of
+each leaf (``distribute_tensor``, as the reference's ``jax.device_put``,
+``:97-118``), on the mesh's device.  Without ``shardings`` a leaf comes
+back on the device of ``tree_like``'s.  A save of DTensor leaves (a
+sharded job) gathers each one whole on every rank (``full_tensor``, so
+every rank must call ``save``) and rank 0 alone writes, in the same
+leaf order and layout, so a checkpoint saved by 8 ranks restores onto 4,
+onto one card, or in the reference.
 """
 from __future__ import annotations
 
@@ -30,12 +41,16 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.models.sharding import is_dtensor
 from repro_torch.tree import children, leaves, unflatten
 
 
 def _host(x: torch.Tensor) -> np.ndarray:
-    """A host copy of a leaf that later in-place updates do not touch."""
+    """A host copy of a leaf that later in-place updates do not touch (a
+    DTensor's whole value)."""
     x = x.detach()
+    if is_dtensor(x):
+        x = x.full_tensor()
     if x.dtype == torch.bfloat16:
         x = x.float()
     return x.to("cpu", copy=True).numpy()
@@ -63,6 +78,9 @@ class CheckpointStore:
         self.wait()
         ts = leaves(tree)
         host = [_host(x) for x in ts]
+        sharded = any(is_dtensor(x) for x in ts)
+        if sharded and torch.distributed.get_rank() != 0:
+            return                      # rank 0 writes the gathered leaves
         dtypes = [str(x.dtype).replace("torch.", "") for x in ts]
         structure = _structure(tree)
 
@@ -115,10 +133,12 @@ class CheckpointStore:
                                                  "manifest.json"))]
         return max(steps) if steps else None
 
-    def restore(self, tree_like: Any, *, step: Optional[int] = None
-                ) -> Tuple[Any, Dict]:
+    def restore(self, tree_like: Any, *, step: Optional[int] = None,
+                shardings: Any = None) -> Tuple[Any, Dict]:
         """(a tree shaped as ``tree_like`` holding step ``step``'s leaves,
-        default the latest; the manifest)."""
+        default the latest; the manifest).  With ``shardings`` (a tree of
+        ``NamedSharding`` matching ``tree_like``) each leaf comes back as
+        a DTensor over its mesh, this rank holding its block."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
@@ -130,15 +150,30 @@ class CheckpointStore:
             raise ValueError(f"checkpoint step {step} holds "
                              f"{manifest['n_leaves']} leaves, the tree "
                              f"{len(like)}")
+        shards = (leaves(shardings) if shardings is not None
+                  else [None] * len(like))
+        if len(shards) != len(like):
+            raise ValueError(f"{len(shards)} shardings for {len(like)} "
+                             f"leaves")
         out = []
-        for i, ref in enumerate(like):
+        for i, (ref, shd) in enumerate(zip(like, shards)):
             arr = np.load(os.path.join(path, f"leaf_{i}.npy"))
             if tuple(arr.shape) != tuple(ref.shape):
                 raise ValueError(f"checkpoint step {step} leaf {i}: shape "
                                  f"{arr.shape}, the tree's "
                                  f"{tuple(ref.shape)}")
-            out.append(torch.from_numpy(arr).to(device=ref.device,
-                                                dtype=ref.dtype))
+            x = torch.from_numpy(arr)
+            if shd is None:
+                out.append(x.to(device=ref.device, dtype=ref.dtype))
+                continue
+            from torch.distributed.tensor import distribute_tensor
+            mesh = shd.mesh
+            dev = (torch.device("cuda", torch.cuda.current_device())
+                   if mesh.device_type == "cuda" else
+                   torch.device(mesh.device_type))
+            out.append(distribute_tensor(          # elastic re-shard
+                x.to(device=dev, dtype=ref.dtype), mesh, shd.placements,
+                src_data_rank=None))
         return unflatten(tree_like, out), manifest
 
     # ------------------------------------------------------------------ #

@@ -309,3 +309,10 @@ def _flash_backward(ctx, grad: torch.Tensor):
 
 flash_attention_grad.register_autograd(_flash_backward,
                                        setup_context=_flash_setup)
+
+
+@flash_attention_grad.register_fake
+def _flash_fake(q, k, v, causal, window, softcap, scale) -> torch.Tensor:
+    """The output's shape and dtype without computing it (fake and meta
+    tensors: the dry run's sharding propagation)."""
+    return q.new_empty(q.shape[:-1] + v.shape[-1:])

@@ -270,8 +270,7 @@ def _matrix(x: torch.Tensor) -> torch.Tensor:
     if lay is not None and (x.element_size() != 2 or _tma_ok(x, lay[1])):
         return x
     n = x.shape[-1]
-    out = torch.empty(x.shape[:-1] + (-(-n // 8) * 8,), dtype=x.dtype,
-                      device=x.device)[..., :n]
+    out = x.new_empty(x.shape[:-1] + (-(-n // 8) * 8,))[..., :n]
     return out.copy_(x)
 
 
@@ -302,3 +301,10 @@ def _gemm_backward(ctx, grad: torch.Tensor):
 
 
 gemm_grad.register_autograd(_gemm_backward, setup_context=_gemm_setup)
+
+
+@gemm_grad.register_fake
+def _gemm_fake(a: torch.Tensor, b: torch.Tensor, block: int) -> torch.Tensor:
+    """The product's shape and dtype without computing it (fake and meta
+    tensors: the dry run's sharding propagation)."""
+    return a.new_empty(a.shape[:-1] + b.shape[-1:])

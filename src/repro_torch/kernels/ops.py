@@ -39,6 +39,7 @@ from repro_torch.kernels import trsm as trsm_kernel
 from repro_torch.kernels.attention import flash_attention
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.gemm import gemm, layout, row_major
+from repro_torch.models.sharding import per_shard
 
 
 def _operand(x: torch.Tensor) -> torch.Tensor:
@@ -147,7 +148,18 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
       that attends over its fresh keys): the flash kernel;
     * else the query-chunked or the full plain formulation, as the
       reference runs them outside its kernels (the decode steps of
-      windowed layers among them)."""
+      windowed layers among them).
+
+    DTensor inputs (a mesh's dry run) run that choice on each rank's
+    shards of the batch and heads (``models.sharding.per_shard``): the
+    kernels and their plain versions see local tensors."""
+    kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+              kv_len=kv_len, chunk_q=chunk_q)
+    return per_shard(functools.partial(_attention, **kw), q, k, v)
+
+
+def _attention(q, k, v, *, causal, window, softcap, scale, kv_len,
+               chunk_q) -> torch.Tensor:
     tq = q.shape[-2]
     if tq == 1 and kv_len is not None and causal and window == 0:
         return decode_attention(q, k, v, kv_len, softcap=softcap,

@@ -1,1 +1,1 @@
-"""Entry points of the port (``repro/launch``; only ``serve`` so far)."""
+"""Entry points of the port (``repro/launch``)."""

@@ -10,13 +10,19 @@ Without ``--device`` it trains on the card (``cuda:0``) and raises when
 there is none.  An enc-dec model gets ones-valued stub ``frames``, a VLM
 ones-valued ``patch_embeds``, as the reference's driver feeds them.
 ``--offload-config tuned.json`` trains inside a port session running
-those settings; the session report prints at exit.  ``--mesh`` and
-``--dry-compile`` (the sharded step and the 512-device dry run) wait for
-ROADMAP Queue 1 item 11(d) and raise.
+those settings; the session report prints at exit.
+
+``--mesh single|multi --dry-compile`` runs the dry run of the sharded
+training step instead (``launch/dryrun.py`` ``run_cell(arch,
+"train_4k", ...)`` at the full config, ignoring ``--reduced``, as the
+reference's ``:44-50``), over a fake process group of
+``DRYRUN_DEVICES`` ranks (default 512); it needs no card.  Either flag
+alone trains as without it, as in the reference.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 
 def main(argv=None) -> int:
@@ -44,10 +50,13 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="cuda:N (default cuda:0) or cpu")
     args = ap.parse_args(argv)
-    if args.mesh or args.dry_compile:
-        raise NotImplementedError(
-            "--mesh / --dry-compile: the sharded step and the dry run are "
-            "not ported yet (ROADMAP Queue 1 item 11(d))")
+    if args.mesh and args.dry_compile:
+        os.environ.setdefault("DRYRUN_DEVICES", "512")
+        from repro_torch.launch.dryrun import run_cell
+        rec = run_cell(args.arch, "train_4k", args.mesh == "multi",
+                       remat=args.remat, n_micro=args.n_micro,
+                       grad_compress=args.grad_compress, out_dir=None)
+        return 0 if rec["status"] == "ok" else 1
 
     import torch
 

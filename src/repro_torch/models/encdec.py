@@ -32,6 +32,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.models import layers as L
 from repro_torch.models.layers import Params
+from repro_torch.models.sharding import shard
 
 #: rows of the decoder's learned position table (``encdec.py:56``)
 POS_ROWS = 4096
@@ -86,7 +87,8 @@ def _enc_layer_fwd(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     out, _ = L.attention_fwd(p["attn"], cfg, _norm(x, p["ln1"]), zeros,
                              causal=False)
     x = x + out
-    return x + L.mlp_fwd(p["mlp"], _norm(x, p["ln2"]))
+    return shard(x + L.mlp_fwd(p["mlp"], _norm(x, p["ln2"])),
+                 "batch", "seq", None)
 
 
 def encode(params: Params, cfg: ModelConfig,
@@ -114,7 +116,8 @@ def _dec_layer_fwd(p, cfg: ModelConfig, x: torch.Tensor,
     out, _ = L.attention_fwd(p["xattn"], cfg, _norm(x, p["lnx"]), positions,
                              causal=False, kv_override=kv)
     x = x + out
-    return x + L.mlp_fwd(p["mlp"], _norm(x, p["ln2"])), kv
+    return shard(x + L.mlp_fwd(p["mlp"], _norm(x, p["ln2"])),
+                 "batch", "seq", None), kv
 
 
 def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,

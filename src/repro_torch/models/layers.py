@@ -30,7 +30,6 @@ numerics:
 * the logit soft-cap runs in place on the float32 logits, so the
   (B, T, vocab) prefill logits exist once, not three times (training
   takes the out-of-place form, whose tanh autograd keeps);
-* ``shard(...)`` annotations are dropped: one card has no mesh;
 * GELU is the tanh form (``approximate="tanh"``), JAX's default for
   ``jax.nn.gelu``; PyTorch's default is the erf form.
 """
@@ -44,6 +43,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.kernels import ops
+from repro_torch.models.sharding import (embedding, merge_last, shard,
+                                         split_last)
 
 #: rows generated at a time by :func:`dense_init` (bounds its float32 temp)
 _INIT_ROWS = 8192
@@ -178,22 +179,23 @@ def attention_fwd(p, cfg: ModelConfig, x: torch.Tensor,
     ``cache_pos`` and returned as the new cache.  kv_override: a
     precomputed (k, v) for cross-attention (:func:`cross_kv`); q then
     takes no rope, as in the reference."""
-    b, t, _ = x.shape
-    hd, hq, hkv = cfg.head_dim, cfg.padded_heads, cfg.n_kv_heads
+    t = x.shape[1]
+    hq, hkv = cfg.padded_heads, cfg.n_kv_heads
     dt = x.dtype
 
     q = ops.matmul(x, p["wq"].to(dt))
     if "bq" in p:
         q = q + p["bq"].to(dt)
-    q = q.reshape(b, t, hq, hd).transpose(1, 2)
+    q = shard(split_last(q, hq).transpose(1, 2),
+              "batch", "model", None, None)
     if kv_override is None:
         k = ops.matmul(x, p["wk"].to(dt))
         v = ops.matmul(x, p["wv"].to(dt))
         if "bk" in p:
             k = k + p["bk"].to(dt)
             v = v + p["bv"].to(dt)
-        k = k.reshape(b, t, hkv, hd).transpose(1, 2)
-        v = v.reshape(b, t, hkv, hd).transpose(1, 2)
+        k = split_last(k, hkv).transpose(1, 2)
+        v = split_last(v, hkv).transpose(1, 2)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     else:
@@ -226,20 +228,19 @@ def attention_fwd(p, cfg: ModelConfig, x: torch.Tensor,
         mask = (torch.arange(hq, device=out.device) % group < real).to(
             out.dtype)
         out = out * mask[None, :, None, None]
-    out = out.transpose(1, 2).reshape(b, t, hq * hd)
-    return ops.matmul(out, p["wo"].to(dt)), new_cache
+    out = ops.matmul(merge_last(out.transpose(1, 2)), p["wo"].to(dt))
+    return shard(out, "batch", "seq", None), new_cache
 
 
 def cross_kv(p, cfg: ModelConfig, enc: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-attention K/V, each (B, Hkv, S_enc, D), from the encoder's
     output."""
-    b, s, _ = enc.shape
-    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    hkv = cfg.n_kv_heads
     k = ops.matmul(enc, p["wk"].to(enc.dtype))
     v = ops.matmul(enc, p["wv"].to(enc.dtype))
-    return (k.reshape(b, s, hkv, hd).transpose(1, 2),
-            v.reshape(b, s, hkv, hd).transpose(1, 2))
+    return (split_last(k, hkv).transpose(1, 2),
+            split_last(v, hkv).transpose(1, 2))
 
 
 # ----------------------------------------------------------------------- #
@@ -271,7 +272,8 @@ def mlp_fwd(p, x: torch.Tensor) -> torch.Tensor:
         return ops.matmul(h, p["w2"].to(dt)) + p["b2"].to(dt)
     g = ops.matmul(x, p["wg"].to(dt))
     u = ops.matmul(x, p["wu"].to(dt))
-    return ops.matmul(torch.nn.functional.silu(g) * u, p["wd"].to(dt))
+    h = shard(torch.nn.functional.silu(g) * u, "batch", "seq", "model")
+    return ops.matmul(h, p["wd"].to(dt))
 
 
 # ----------------------------------------------------------------------- #
@@ -288,10 +290,10 @@ def init_embed(gen: torch.Generator, cfg: ModelConfig,
 
 def embed_fwd(p, cfg: ModelConfig, tokens: torch.Tensor,
               dtype: torch.dtype) -> torch.Tensor:
-    x = p["table"][tokens].to(dtype)
+    x = embedding(tokens, p["table"]).to(dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype)
-    return x
+    return shard(x, "batch", "seq", None)
 
 
 def unembed_fwd(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -303,7 +305,8 @@ def unembed_fwd(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     logits = logits.float()
     if cfg.final_softcap > 0:
         if logits.requires_grad:
-            return torch.tanh(logits / cfg.final_softcap) \
+            logits = torch.tanh(logits / cfg.final_softcap) \
                 * cfg.final_softcap
-        logits.div_(cfg.final_softcap).tanh_().mul_(cfg.final_softcap)
-    return logits
+        else:
+            logits.div_(cfg.final_softcap).tanh_().mul_(cfg.final_softcap)
+    return shard(logits, "batch", "seq", "model")

@@ -28,6 +28,7 @@ the rest in ``cfg.dtype`` (``transformer.FLOAT32``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -37,6 +38,7 @@ from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import torch_matmul
 from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.models.sharding import per_shard, replicated, shard
 
 #: chunk length of the SSD: the intra-chunk work is quadratic in it
 CHUNK = 64
@@ -90,33 +92,22 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return F.silu(out + b.to(xbc.dtype)), new_state
 
 
-def ssd_fwd(p, cfg: ModelConfig, xin: torch.Tensor, chunk: int = CHUNK,
-            return_state: bool = False):
-    """Chunked SSD.  xin: (B, T, d) -> (B, T, d); with ``return_state``
-    also (ssm_h (B, H, S, P) float32, conv_state (B, K-1, C)) after the
-    last position: the prefill of a decode cache."""
-    bsz, t, _ = xin.shape
-    din, s, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    hp = cfg.ssm_head_dim
-    q = min(chunk, t)
-    if t % q:
-        raise ValueError(f"ssd_fwd: {t} positions are not a whole number "
-                         f"of chunks of {q}")
+def _ssd_chunks(xh: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
+                dt: torch.Tensor, a: torch.Tensor, d_skip: torch.Tensor,
+                q: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked scan, float32.  xh (B, T, H, P), bmat and cmat
+    (B, T, S), dt (B, T, H) -> (y (B, T, H, P), the state after the last
+    position (B, S, H, P))."""
+    bsz, t, h, hp = xh.shape
+    s = bmat.shape[-1]
     nc = t // q
-
-    zxbcdt = ops.matmul(xin, p["in_proj"].to(xin.dtype))
-    z, xbc, dtp = _split_proj(cfg, zxbcdt)
-    raw_xbc = xbc
-    xbc, _ = _causal_conv(xbc, p["conv_w"], p["conv_b"])
-    dt = F.softplus(dtp.float() + p["dt_bias"])               # (B,T,H)
-    a = -torch.exp(p["a_log"])                                # (H,)
 
     def chunks(v):  # (B, T, ...) -> (nc, B, q, ...)
         return v.reshape((bsz, nc, q) + v.shape[2:]).transpose(0, 1)
 
-    xc = chunks(xbc[..., :din].reshape(bsz, t, h, hp).float())  # (.,q,H,P)
-    bc = chunks(xbc[..., din:din + s].float())                # (nc,B,q,S)
-    cc = chunks(xbc[..., din + s:].float())                   # (nc,B,q,S)
+    xc = chunks(xh)                                           # (.,q,H,P)
+    bc = chunks(bmat)                                         # (nc,B,q,S)
+    cc = chunks(cmat)                                         # (nc,B,q,S)
     dtc = chunks(dt)                                          # (nc,B,q,H)
     cum = torch.cumsum(dtc * a, dim=2)                        # (nc,B,q,H)
     xdt = xc * dtc[..., None]                                 # (nc,B,q,H,P)
@@ -124,7 +115,7 @@ def ssd_fwd(p, cfg: ModelConfig, xin: torch.Tensor, chunk: int = CHUNK,
     # intra-chunk: L[i, j] = exp(cum_i - cum_j) for i >= j, per head
     cum_h = cum.transpose(2, 3)                               # (nc,B,H,q)
     lmat = torch.exp(cum_h[..., :, None] - cum_h[..., None, :])
-    upper = ~torch.ones(q, q, dtype=torch.bool, device=xin.device).tril()
+    upper = ~torch.ones(q, q, dtype=torch.bool, device=xh.device).tril()
     cb = torch_matmul(cc, bc.transpose(-1, -2))               # (nc,B,q,q)
     # out of place: in training, exp's backward reads lmat
     lmat = lmat.masked_fill(upper, 0.0) * cb[:, :, None]
@@ -148,14 +139,63 @@ def ssd_fwd(p, cfg: ModelConfig, xin: torch.Tensor, chunk: int = CHUNK,
     y_inter = torch_matmul(cc, hprevs.view(nc, bsz, s, h * hp)).view(
         nc, bsz, q, h, hp) * torch.exp(cum)[..., None]
 
-    y = y_intra + y_inter + xc * p["d_skip"][:, None]
-    y = y.transpose(0, 1).reshape(bsz, t, din).to(xin.dtype)
+    y = y_intra + y_inter + xc * d_skip[:, None]
+    return y.transpose(0, 1).reshape(bsz, t, h, hp), hcur
+
+
+def _ssd_core(fn, *xs, a: torch.Tensor, d_skip: torch.Tensor, **kw):
+    """``fn`` on each batch shard (``sharding.per_shard``: under a mesh's
+    dry run every rank scans its batch rows over all heads; the products
+    of a scan have no DTensor rule); ``a`` and ``d_skip`` whole."""
+    return per_shard(functools.partial(fn, a=replicated(a),
+                                       d_skip=replicated(d_skip), **kw),
+                     *xs, shardable=(0,))
+
+
+def ssd_fwd(p, cfg: ModelConfig, xin: torch.Tensor, chunk: int = CHUNK,
+            return_state: bool = False):
+    """Chunked SSD.  xin: (B, T, d) -> (B, T, d); with ``return_state``
+    also (ssm_h (B, H, S, P) float32, conv_state (B, K-1, C)) after the
+    last position: the prefill of a decode cache."""
+    bsz, t, _ = xin.shape
+    din, s, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    hp = cfg.ssm_head_dim
+    q = min(chunk, t)
+    if t % q:
+        raise ValueError(f"ssd_fwd: {t} positions are not a whole number "
+                         f"of chunks of {q}")
+
+    zxbcdt = ops.matmul(xin, p["in_proj"].to(xin.dtype))
+    z, xbc, dtp = _split_proj(cfg, zxbcdt)
+    raw_xbc = xbc
+    xbc, _ = _causal_conv(xbc, p["conv_w"], p["conv_b"])
+    dt = F.softplus(dtp.float() + p["dt_bias"])               # (B,T,H)
+    a = -torch.exp(p["a_log"])                                # (H,)
+    xh = shard(xbc[..., :din].reshape(bsz, t, h, hp).float(),
+               "batch", None, "model", None)                  # (B,T,H,P)
+    y, hcur = _ssd_core(_ssd_chunks, xh, xbc[..., din:din + s].float(),
+                        xbc[..., din + s:].float(), dt, a=a,
+                        d_skip=p["d_skip"], q=q)
+    y = y.reshape(bsz, t, din).to(xin.dtype)
     y = rms_norm(y * F.silu(z), p["norm_w"], cfg.rms_eps)
     out = ops.matmul(y, p["out_proj"].to(y.dtype))
     if return_state:
         conv_state = raw_xbc[:, -(cfg.ssm_conv - 1):, :]
         return out, (hcur.transpose(1, 2), conv_state)
     return out
+
+
+def _ssd_update(ssm_h: torch.Tensor, xh: torch.Tensor, bvec: torch.Tensor,
+                cvec: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                d_skip: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One token's state update, float32.  ssm_h (B, H, S, P), xh
+    (B, H, P), bvec and cvec (B, S), dt (B, H) -> (y (B, H, P), the new
+    state)."""
+    decay = torch.exp(dt * a)                                  # (B,H)
+    upd = bvec[:, None, :, None] * (dt[..., None] * xh)[:, :, None, :]
+    ssm_h = ssm_h * decay[..., None, None] + upd               # (B,H,S,P)
+    y = torch_matmul(cvec[:, None, None, :], ssm_h)[:, :, 0]   # (B,H,P)
+    return y + xh * d_skip[None, :, None], ssm_h
 
 
 def ssd_step(p, cfg: ModelConfig, xin: torch.Tensor,
@@ -172,17 +212,13 @@ def ssd_step(p, cfg: ModelConfig, xin: torch.Tensor,
     z, xbc, dtp = _split_proj(cfg, zxbcdt)
     xbc, conv_state = _causal_conv(xbc, p["conv_w"], p["conv_b"],
                                    state=conv_state)
-    bvec = xbc[:, 0, din:din + s].float()                      # (B,S)
-    cvec = xbc[:, 0, din + s:].float()                         # (B,S)
     dt = F.softplus(dtp[:, 0].float() + p["dt_bias"])          # (B,H)
     a = -torch.exp(p["a_log"])
     xh = xbc[:, 0, :din].reshape(bsz, h, hp).float()           # (B,H,P)
-
-    decay = torch.exp(dt * a)                                  # (B,H)
-    upd = bvec[:, None, :, None] * (dt[..., None] * xh)[:, :, None, :]
-    ssm_h = ssm_h * decay[..., None, None] + upd               # (B,H,S,P)
-    y = torch_matmul(cvec[:, None, None, :], ssm_h)[:, :, 0]   # (B,H,P)
-    y = y + xh * p["d_skip"][None, :, None]
+    y, ssm_h = _ssd_core(_ssd_update, ssm_h, xh,
+                         xbc[:, 0, din:din + s].float(),
+                         xbc[:, 0, din + s:].float(), dt, a=a,
+                         d_skip=p["d_skip"])
     y = y.reshape(bsz, 1, din).to(xin.dtype)
     y = rms_norm(y * F.silu(z), p["norm_w"], cfg.rms_eps)
     return ops.matmul(y, p["out_proj"].to(y.dtype)), (ssm_h, conv_state)

@@ -17,7 +17,12 @@ conv_state)`` at SSD positions: ``ssm_h`` float32 ``(n_groups, B, H, S,
 P)``, ``conv_state`` ``(n_groups, B, K-1, C)`` in the cache dtype.
 
 The reference drives the stack with ``jax.lax.scan``; here it is a
-Python loop over the layers, reading views of the stacked tensors.  The
+Python loop over the layers, reading views of the stacked tensors.  Each
+layer's output, the residual stream, is constrained to the batch
+(``sharding.shard``, the identity without a mesh): under a mesh's dry run
+DTensor places each op from its inputs' placements, where GSPMD solves
+the whole program, and without the constraint each layer would start
+from the last one's (partial) sums and count differently.  The
 cache is written in place (attention's slice write, the SSD's ``copy_``
 of its new state) and the same tuple comes back as the new cache.  A VLM
 config (pixtral-12b) prepends the stub frontend's ``patch_embeds`` to the
@@ -36,6 +41,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 from repro_torch.models.layers import Params
+from repro_torch.models.sharding import shard
 
 #: parameter names that stay float32: norm weights (the enc-dec
 #: LayerNorms' ``w`` and ``b`` below them), and the SSD's parameters that
@@ -115,7 +121,7 @@ def _block_fwd(p, cfg: ModelConfig, x: torch.Tensor,
         out = L.mlp_fwd(p["mlp"], h)
     if cfg.post_norms:
         out = L.rms_norm(out, p["ln2_post"], cfg.rms_eps, cfg.norm_offset)
-    return x + out, aux, new_cache
+    return shard(x + out, "batch", "seq", None), aux, new_cache
 
 
 # ----------------------------------------------------------------------- #

@@ -29,8 +29,8 @@ a bf16 config computes in bf16, gradients arrive in float32, and AdamW
 updates float32 values, as the reference's ``astype`` at every use does.
 A :class:`Trainer` runs on one device: ``device=None`` is the card
 (``cuda:0``) and raises without CUDA; ``device="cpu"`` runs on the CPU.
-The reference's ``unroll_layers`` (a dry-run cost probe) has no
-counterpart: the port's layer stack is always a Python loop.
+``TrainConfig.unroll_layers`` (the reference's dry-run cost probe) is
+accepted and ignored: the port's layer stack is always a Python loop.
 """
 from __future__ import annotations
 
@@ -46,6 +46,7 @@ from repro_torch.checkpoint import CheckpointStore
 from repro_torch.core import memspace
 from repro_torch.data import TokenPipeline
 from repro_torch.models.registry import Model
+from repro_torch.models.sharding import shard
 from repro_torch.optim import (AdamW, compress_decompress, cosine_schedule,
                                init_compression)
 from repro_torch.optim.adamw import global_norm
@@ -65,6 +66,7 @@ class TrainConfig:
     ckpt_every: int = 50
     straggler_factor: float = 3.0
     moe_impl: str = "scatter"
+    unroll_layers: bool = False     # accepted, ignored: a Python loop
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -75,7 +77,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     logits = logits.float()
     m = torch.amax(logits, dim=-1, keepdim=True).detach()
     lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    # resolved before the select: on vocab-sharded logits the gather is
+    # partial (the rows other ranks hold), reduced by this constraint
+    gold = shard(torch.gather(logits, -1, labels[..., None].long()),
+                 "batch", "seq", None)[..., 0]
     ce = torch.mean(lse - gold)
     if z_coef > 0:
         ce = ce + z_coef * torch.mean(torch.square(lse))

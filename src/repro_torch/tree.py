@@ -81,3 +81,31 @@ def unflatten(like, new: List[torch.Tensor]) -> Any:
     if next(it, None) is not None:
         raise ValueError("unflatten: more leaves than the tree holds")
     return out
+
+
+def paths(tree, prefix: tuple = ()) -> List[tuple]:
+    """``(names, leaf)`` pairs in :func:`leaves`' order; ``names`` is the
+    tuple of keys from the root as strings (a sequence index as its
+    digits), as ``repro/launch/shardings.py`` ``_path_names`` reads a
+    JAX key path."""
+    if tree is None:
+        return []
+    kids = children(tree)
+    if kids is None:
+        return [(prefix, tree)]
+    return [x for k, child in kids for x in paths(child, prefix + (str(k),))]
+
+
+def map_with_path(fn, tree, prefix: tuple = ()) -> Any:
+    """``fn(names, leaf)`` over every leaf, in a tree of plain dicts and
+    tuples shaped as ``tree`` (a ``Params`` as the dict of its names)."""
+    if tree is None:
+        return None
+    kids = children(tree)
+    if kids is None:
+        return fn(prefix, tree)
+    vals = [map_with_path(fn, c, prefix + (str(k),)) for k, c in kids]
+    if isinstance(tree, (Mapping, nn.Module)) and not isinstance(
+            tree, nn.ModuleList):
+        return dict(zip((k for k, _ in kids), vals))
+    return tuple(vals)

@@ -531,6 +531,51 @@ def test_simulator_multidevice_dfu_scales():
     assert jfour.total_s == four.total_s
 
 
+def test_simulator_single_device_unchanged_by_field():
+    """``tests/test_multidevice.py:402``: one device keeps no per-device
+    table, in both packages."""
+    rep = MemTierSimulator(policy="dfu", threshold=500).run(
+        _big_trace(Trace))
+    assert rep.n_devices == 1 and rep.per_device_h2d == {}
+    jrep = JSim(policy="dfu", threshold=500).run(_big_trace(JTrace))
+    assert jrep.n_devices == 1 and jrep.per_device_h2d == {}
+    assert jrep.total_s == rep.total_s
+
+
+def _overflow(trace_cls):
+    t = trace_cls()
+    bufs = [t.new_buffer(60 << 20, f"B{i}") for i in range(3)]
+    for i in range(3):
+        t.gemm("d", 3000, 3000, 3000, bufs[i], bufs[i], bufs[(i + 1) % 3])
+    return t
+
+
+def test_simulator_multidevice_honors_evict_lru():
+    """``tests/test_multidevice.py:408``: a working set beyond one
+    device's 96 MB of HBM; without ``evict_lru`` the overflow buffer
+    stays remote, with it LRU residents bounce to the host; the port's
+    simulator moves the reference's bytes either way."""
+    from repro.memtier.spec import GH200 as JGH200
+    from repro_torch.memtier import GH200
+    reps = {}
+    for name, sim, spec, trace_cls in (
+            ("port", MemTierSimulator, GH200, Trace),
+            ("ref", JSim, JGH200, JTrace)):
+        tiny = spec.with_(device_capacity=96 << 20)
+        reps[name] = [sim(tiny, policy="dfu", threshold=100, n_devices=2,
+                          evict_lru=evict).run(_overflow(trace_cls))
+                      for evict in (False, True)]
+    for keep, evict in reps.values():
+        assert keep.bytes_dev_to_host == 0
+        assert evict.bytes_dev_to_host > 0
+        assert evict.bytes_host_to_dev > keep.bytes_host_to_dev
+    for port, ref in zip(reps["port"], reps["ref"]):
+        assert (port.bytes_host_to_dev, port.bytes_dev_to_host,
+                port.per_device_h2d) == (ref.bytes_host_to_dev,
+                                         ref.bytes_dev_to_host,
+                                         ref.per_device_h2d)
+
+
 # --------------------------------------------------------------------- #
 # the pallas venue and split precision on tiles                          #
 # --------------------------------------------------------------------- #
