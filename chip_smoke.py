@@ -22,7 +22,9 @@ jamba reduced), then on the enc-dec whisper-tiny and the VLM pixtral-12b,
 then training (``repro_torch.train.Trainer``) on whisper-tiny and on
 qwen1.5-4b cut in depth, then the mesh paths (expert-parallel a2a,
 compressed_psum, elastic restore) on a 1-rank mesh and the dry run on
-the CPU.  Phases, in order:
+the CPU, then the twins of the reference's five drivers
+(``repro_torch.examples``) through their own ``main``.  Phases, in
+order:
 
 1. build   — build and load the kernels; the card's name and power limit.
 2. kernels — each kernel against its plain version, with the tolerance
@@ -188,16 +190,49 @@ the CPU.  Phases, in order:
              and whisper-tiny's training step, each whole step's H100
              compute bound against the device time phases 8 and 11
              profiled in this run: bound / measured <= 1.05.
+13. apps   — memtier.spec.H100's rates against this run's
+             launch/calibrate.py, then the driver twins on the card: (a)
+             quickstart, its counters
+             equal to the same twin's with --device cpu but for the small
+             mm's two host slices the card streams, 8 gemm.cu launches;
+             (b) must_lsms at n 6912, complex128, atoms 2, energies 2,
+             scf 1 under cpu, memcopy, counter and dfu, each its own
+             session with sync on: energies within 1e-9, residuals, and
+             every zgemm counter as core/policy.py's rules give it
+             (lsms_expected), 64 gemm.cu launches; the live dfu trace
+             replayed through memtier.spec.H100 against the live zgemm
+             seconds, within REPLAY_BAND; (c) parsec_dft at ngrid 8192,
+             nstates 256, 12 filter passes under dfu: Ritz error < 1e-6,
+             0 B moved, one gemm.cu launch per dgemm; (d) serve_offload
+             on mamba2-1.3b at full width and depth with a float32 cache:
+             tokens bit for bit across dfu, memcopy and pinned, each
+             policy's bytes, migrations and reuses, 97 gemm.cu launches
+             per forward; (e) train_100m at its widths (8 x 256, n_micro
+             2, remat dots), steps cut from 300 to 150 with a checkpoint
+             every 50 (the script's time limit): first
+             its first step's loss and gradients through the kernels
+             against the plain step at float32 tolerances, with the
+             transposed-dB control, and gemm.cu's and flash's FMA paths
+             at the model's shapes; then the twin's main: 3 gemm.cu
+             launches per product per microbatch, flash twice per layer
+             per microbatch all on the FMA path, a finite falling loss,
+             checkpoints 50, 100, 150, the last restored bit for bit; a
+             profiled training step.  Meanwhile CPU processes replay
+             the LSMS and PARSEC production traces on the GH200 and H100
+             models; their tables print at the end.
 
 The kernels line's launches are those of the main path's runs: the
 BLAS, LSMS and solvers phases, the venue phase's (a)-(c), every run of
 the runtime phase, the serve phase's dfu, streams and memcopy runs, the
 serve_moe_ssm and serve_encdec_vlm phases' dfu and memcopy runs, the
-train phase's two fits, and the mesh phase's a2a run, each with the
-counts set to 0 just before it.
+train phase's two fits, the mesh phase's a2a run, and the apps phase's
+card runs of its five twins (quickstart, must_lsms's four policies,
+parsec_dft, serve_offload's three policies, train_100m's fit), each with
+the counts set to 0 just before it.
 The cross-checks', the mesh phase's scatter comparison, the profiles',
-the gradient checks', the restart's, the remat steps' and the plain and
-witness fits' launches are not among them.  Every mismatch or missing
+the gradient checks', the restart's, the remat steps', the plain and
+witness fits', the apps phase's kernel checks' and its CPU quickstart's
+launches are not among them.  Every mismatch or missing
 launch raises, so the script exits non-zero.
 The lines before the last are a JSON object of per-kernel numbers and
 the card's name and power limit; the last line is
@@ -1001,15 +1036,18 @@ def sdpa(q, k, v, **kw):
     return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
 
 
-def flash_bound(logits: int, d: int, nbytes: float, softcap: bool) -> tuple:
-    """The least time of a flash call: the larger of its tensor-core
-    operations (4 d per live logit) at the bf16 peak, its special-function
+def flash_bound(logits: int, d: int, nbytes: float, softcap: bool,
+                dtype: str = "bfloat16") -> tuple:
+    """The least time of a flash call: the larger of its matrix operations
+    (4 d per live logit) at the bf16 tensor-core peak (at the float32 FMA
+    peak for ``dtype="float32"``, the FMA path), its special-function
     operations (ex2 and rcp of the soft-cap's tanh and ex2 of the softmax:
     3 per live logit, 1 without the cap) at PEAK_MUFU, and its bytes (q, k,
     v read once, the output written once).  Returns (ms, bound_by, which
     term binds)."""
+    kind = "FMA" if dtype == "float32" else "tensor-core"
     terms = {
-        "tensor-core operations": 4.0 * d * logits / PEAK_OPS["bfloat16"],
+        f"{kind} operations": 4.0 * d * logits / PEAK_OPS[dtype],
         "MUFU operations": (3 if softcap else 1) * logits / PEAK_MUFU,
         "bytes": nbytes / PEAK_BYTES}
     term = max(terms, key=terms.get)
@@ -2652,6 +2690,7 @@ def capture_flash(model, params, prompt, extra, max_len: int, dev) -> dict:
 def flash_times(q, k, v, label: str, card: str, phase: str, **kw) -> None:
     """Kernel, plain and sdpa times of one flash call, with its bound
     (flash_bound: the live logits of a causal or full mask)."""
+    import torch
     from repro_torch.kernels import attention
     b, hq, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
@@ -2662,7 +2701,8 @@ def flash_times(q, k, v, label: str, card: str, phase: str, **kw) -> None:
     lib_ms = time_ms(lambda: sdpa(q, k, v, is_causal=causal), reps=5)
     pairs = causal_pairs(tq, 0) if causal else tq * tk
     bms, _, term = flash_bound(b * hq * pairs, d, q.element_size() * (
-        2 * b * hq * tq * d + 2 * b * hkv * tk * d), softcap=False)
+        2 * b * hq * tq * d + 2 * b * hkv * tk * d), softcap=False,
+        dtype="float32" if q.dtype == torch.float32 else "bfloat16")
     log(phase, f"{label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, sdpa "
                f"{lib_ms:.3f} ms, bound {bms:.4f} ms ({term}); {card}")
 
@@ -3033,14 +3073,17 @@ def swapped_db(ctx, grad):
     return da, db, None
 
 
-def grad_check(model, params, batch, tcfg, where: str, card: str) -> float:
+def grad_check(model, params, batch, tcfg, where: str, card: str, *,
+               loss_tol: float = LOSS_TOL, grad_tol: float = GRAD_TOL,
+               path: str = "wgmma", row_tol: float = ATTN_TOL) -> float:
     """One training step's loss and every leaf's gradient through the
     kernels (gemm.cu forward and both backward products, flash forward)
-    against the same step forced plain (forced_plain), at LOSS_TOL and
-    GRAD_TOL per leaf; the control with gemm's dB transposed must fail
-    it; then every kind of flash call the step made, on its own inputs,
-    on the wgmma path and per row against the plain version, with times.
-    Returns the kernel path's loss."""
+    against the same step forced plain (forced_plain), at ``loss_tol``
+    and ``grad_tol`` per leaf (bf16's LOSS_TOL and GRAD_TOL by default);
+    the control with gemm's dB transposed must fail it; then every kind
+    of flash call the step made, on its own inputs, on ``path`` and per
+    row against the plain version at ``row_tol``, with times.  Returns
+    the kernel path's loss."""
     from repro_torch.kernels import attention, gemm
     seen: dict = {}
     loss, got = loss_and_grads(model, params, batch, tcfg, seen)
@@ -3049,14 +3092,14 @@ def grad_check(model, params, batch, tcfg, where: str, card: str) -> float:
     errs = grad_errors(params, got, want)
     rel = abs(loss - loss_p) / abs(loss_p)
     log("train", f"{where} gradient check: loss {loss:.6f} (plain "
-                 f"{loss_p:.6f}, rel {rel:.2e}, tol {LOSS_TOL:g}); "
+                 f"{loss_p:.6f}, rel {rel:.2e}, tol {loss_tol:g}); "
                  f"{len(errs)} leaves, worst relative L2 errors "
                  + ", ".join(f"{p} {e:.2e}" for e, p in errs[:6])
-                 + f" (tol {GRAD_TOL:g})")
-    bad = [(e, p) for e, p in errs if not e <= GRAD_TOL]
-    if not rel <= LOSS_TOL or bad:
+                 + f" (tol {grad_tol:g})")
+    bad = [(e, p) for e, p in errs if not e <= grad_tol]
+    if not rel <= loss_tol or bad:
         raise AssertionError(f"{where} gradient check: loss rel {rel:.2e}; "
-                             f"leaves over {GRAD_TOL:g}: {bad}")
+                             f"leaves over {grad_tol:g}: {bad}")
     gemm.gemm_grad.register_autograd(swapped_db,
                                      setup_context=gemm._gemm_setup)
     try:
@@ -3065,27 +3108,27 @@ def grad_check(model, params, batch, tcfg, where: str, card: str) -> float:
         gemm.gemm_grad.register_autograd(gemm._gemm_backward,
                                          setup_context=gemm._gemm_setup)
     caught = [(e, p) for e, p in grad_errors(params, wrong, want)
-              if not e <= GRAD_TOL]
+              if not e <= grad_tol]
     if not caught:
         raise AssertionError(f"control {where}: gemm's dB transposed, and "
-                             f"no leaf's gradient is over {GRAD_TOL:g}; the "
+                             f"no leaf's gradient is over {grad_tol:g}; the "
                              f"check cannot tell")
     log("train", f"control {where}: gemm's dB transposed (dC^T A): "
-                 f"{len(caught)} leaves over {GRAD_TOL:g} (worst "
+                 f"{len(caught)} leaves over {grad_tol:g} (worst "
                  f"{caught[0][1]} {caught[0][0]:.2e}), as it must be")
     del got, want, wrong
     for kind, (q, k, v, kw) in sorted(seen.items()):
-        label = (f"flash_attention bf16 {where} training {kind} q "
-                 f"{list(q.shape)} k, v {list(k.shape)} "
+        label = (f"flash_attention {str(q.dtype)[6:]} {where} training "
+                 f"{kind} q {list(q.shape)} k, v {list(k.shape)} "
                  f"{'causal' if kw.get('causal', True) else 'non-causal'} "
-                 f"(wgmma path)")
-        before = attention.launches_by_path[attention.WGMMA]
+                 f"({path} path)")
+        before = attention.launches_by_path[path]
         out = attention.flash_attention(q, k, v, **kw)
-        if attention.launches_by_path[attention.WGMMA] != before + 1:
-            raise AssertionError(f"{label}: not on the wgmma path")
+        if attention.launches_by_path[path] != before + 1:
+            raise AssertionError(f"{label}: not on the {path} path")
         check_rows(label, out, attention.flash_attention_plain(q, k, v,
                                                                 **kw),
-                   ATTN_TOL)
+                   row_tol)
         flash_times(q, k, v, label, card, "train", **kw)
     return loss
 
@@ -4062,8 +4105,8 @@ def count_steps(out_path: str) -> None:
 
 
 def _background(name: str, cmd: list, limit: float) -> tuple:
-    """A CPU process of the mesh phase, started now: (name, Popen, limit,
-    start time)."""
+    """A CPU process of the mesh or apps phase, started now: (name, Popen,
+    limit, start time)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="")
     proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
@@ -4071,7 +4114,7 @@ def _background(name: str, cmd: list, limit: float) -> tuple:
     return name, proc, limit, time.perf_counter()
 
 
-def _finish(job) -> str:
+def _finish(job, phase: str = "mesh") -> str:
     """Wait for a background process within its limit; its output."""
     name, proc, limit, t0 = job
     try:
@@ -4080,9 +4123,10 @@ def _finish(job) -> str:
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.communicate()
-        raise AssertionError(f"mesh: {name} ran past its {limit} s limit")
+        raise AssertionError(f"{phase}: {name} ran past its {limit} s "
+                             f"limit")
     if proc.returncode != 0:
-        raise AssertionError(f"mesh: {name} exited {proc.returncode}:\n"
+        raise AssertionError(f"{phase}: {name} exited {proc.returncode}:\n"
                              f"{out[-3000:]}")
     return out
 
@@ -4370,6 +4414,446 @@ def phase_mesh(dev) -> dict:
     return launched
 
 
+#: the apps phase: the twins of the reference's drivers
+#: (repro_torch.examples), each through its own main on the card.
+#: (b) LSMS at its production KKR width, run_mini(atoms 2, energies 2, scf
+#: 1, n 6912, complex128): 4 zgemm calls t @ G per policy, G
+#: host-first-touched (one n^2 complex128 plane), the t-matrix born on the
+#: card
+APPS_LSMS_N, APPS_LSMS_ATOMS, APPS_LSMS_ENERGIES = 6912, 2, 2
+LSMS_G_BYTES = APPS_LSMS_N * APPS_LSMS_N * 16
+assert LSMS_G_BYTES == 764_411_904
+#: the H100 model's prediction of the live DFU session's zgemm seconds
+#: (its trace replayed through memtier.spec.H100) over the synchronized
+#: live seconds.  The model charges each call max(flops / (gpu_flops x
+#: eff), bytes / gpu_local_bw) at gemm.cu's measured float64 rate, plus
+#: the link copy of every operand on its first use; it leaves out the
+#: 4M's split and sum of the complex planes and the host's dispatch, and
+#: charges the card-born t-matrix a copy the live run does not make (the
+#: trace does not say where a buffer was born).  Each of these is a few
+#: to ~20% of a call (PERF.md §6), so the ratio sits near 1; a constant
+#: off by 2x in the dominant term (the DMMA rate) leaves the band
+REPLAY_BAND = (0.5, 2.0)
+#: (c) PARSEC's subspace iteration at ngrid 8192 (H 536,870,912 B dense),
+#: nstates 256: 12 filter passes of order 10 (the driver's 8 leave the
+#: lower half ~2e-6 from eigvalsh at this size, 12 ~3e-9 on the CPU)
+DFT_NGRID, DFT_NSTATES, DFT_SCF, DFT_CHEB = 8192, 256, 12, 10
+#: (d) the driver's serving run at mamba2-1.3b's full width and depth:
+#: batch 4 x 16 prompt tokens, 32 generated, max_len 96, float32 cache
+SO_BATCH, SO_GEN, SO_LEN = 4, 32, 96
+#: (e) train_100m at its widths and batch (8 x 256 tokens, n_micro 2, remat
+#: dots), its steps cut from 300 to 150 and its checkpoints from every 100
+#: to every 50: 300 steps (149-176 s at 435-551 ms a step) took the whole
+#: script to 650 s, past the ~600 s it is held to
+T100_STEPS, T100_BATCH, T100_SEQ, T100_CKPT, T100_MICRO = 150, 8, 256, 50, 2
+#: the float32 gradient check of (e): both sides are IEEE float32 (TF32
+#: refused) and differ only in summation order (gemm.cu's FMA tiles
+#: against cuBLAS, flash's online softmax against the full one): each
+#: product's sum carries ~sqrt(K) eps32 ~ 3e-6 relative (K <= 3072), and
+#: a leaf's gradient sums ~170 products' worth of such errors over 12
+#: layers, ~1e-4 at most where a weight's gradient cancels over 2048
+#: positions; 1e-3 per leaf leaves a tenfold margin, and a wrong operand
+#: is an error of order 1.  The loss is a mean of 2048 terms: 1e-5
+GRAD_TOL_F32 = 1e-3
+LOSS_TOL_F32 = 1e-5
+#: seconds each background replay of the production traces may take
+#: (two specs x four policies; ~60 s for LSMS on this container's CPU)
+REPLAY_LIMIT = 900
+
+
+def lsms_expected(policy: str, calls: int, atoms: int, g: int) -> dict:
+    """The zgemm counters of run_mini's t @ G calls under ``policy``, from
+    core/policy.py's rules: the t-matrix is born on the card, G on the
+    host (``g`` bytes), the product is one such plane."""
+    if policy == "cpu":
+        # never offloads: the host path streams G to the card every call
+        return dict(offloaded=0, on_host=calls, bytes_in=0, bytes_out=0,
+                    cache_hits=0, cache_misses=0, transient_bytes=calls * g)
+    if policy == "memcopy":
+        # G staged in and the product staged out around every call; the
+        # card-born t-matrix is already there (a hit, no copy)
+        return dict(offloaded=calls, on_host=0, bytes_in=calls * g,
+                    bytes_out=calls * g, cache_hits=calls,
+                    cache_misses=calls, transient_bytes=0)
+    # dfu and counter (G is read m times >= 100, within the budget): G
+    # moves on its first use per atom and hits after; each t-matrix is
+    # registered in place (a miss moving nothing)
+    return dict(offloaded=calls, on_host=0, bytes_in=atoms * g, bytes_out=0,
+                cache_hits=calls - atoms, cache_misses=calls + atoms,
+                transient_bytes=0)
+
+
+def apps_quickstart() -> dict:
+    """(a) quickstart on the card, then the same twin on the CPU: every
+    counter equal, but for the small mm's two 64 x 64 slices of host
+    arrays, which the card streams (pinned host memory) and the simulated
+    tier counts as device-born (a view is a new, untagged tensor)."""
+    import copy
+    from repro_torch.examples import quickstart
+    reset_counts()
+    card = quickstart.main([])
+    launched = counts()
+    cpu = quickstart.main(["--device", "cpu"])
+    want = copy.deepcopy(cpu["counters"])
+    want["sgemm"]["transient_bytes"] += 2 * 64 * 64 * 4
+    if card["counters"] != want:
+        raise AssertionError(f"apps (a): card counters {card['counters']} "
+                             f"!= the CPU twin's with the slices streamed "
+                             f"{want}")
+    if (launched["gemm"], sum(launched.values())) != (8, 8):
+        raise AssertionError(f"apps (a): launches {launched}, want 8 gemm "
+                             f"(7 offloaded sgemm and the small one on the "
+                             f"host path; the gemv is the library's)")
+    log("apps", f"(a) quickstart: counters {card['counters']} (the CPU "
+                f"twin's, sgemm transient_bytes "
+                f"{cpu['counters']['sgemm']['transient_bytes']} there); "
+                f"mean reuse {card['reuse']:.1f}, result tier "
+                f"{card['tier']}; launches {launched}")
+    return launched
+
+
+def apps_calibration(dev, card: str) -> None:
+    """The H100 model's rates against this run's launch/calibrate.py
+    (before the phase's CPU processes start: the host's rates would share
+    its cores with them)."""
+    from repro_torch.launch import calibrate
+    from repro_torch.memtier.spec import SPECS
+    rates = calibrate.measure(dev, log=lambda m: log("apps", m))
+    h = SPECS["h100"]
+    for key, spec_value in (("link_bw", h.link_bw),
+                            ("gpu_local_bw", h.gpu_local_bw),
+                            ("cpu_flops", h.cpu_flops),
+                            ("cpu_local_bw", h.cpu_local_bw),
+                            ("launch_s", h.kernel_launch_s)):
+        log("apps", f"calibration {key}: {rates[key]:.4g} now, "
+                    f"{spec_value:.4g} in memtier.spec.H100 "
+                    f"({rates[key] / spec_value:.3f}x)")
+    log("apps", f"calibration gemm.cu float64 rate "
+                f"{rates['gemm_f64_flops']:.4g} now, "
+                f"{h.gpu_flops * h.eff('gpu', 'zgemm'):.4g} in the spec; "
+                f"{card}")
+
+
+def apps_lsms(dev, card: str) -> dict:
+    """(b) must_lsms at n 6912 under cpu, memcopy, counter and dfu, each
+    its own session with sync on: energies, residuals and every zgemm
+    counter against lsms_expected; the live DFU trace replayed through
+    the H100 model against the live zgemm seconds."""
+    from repro_torch.examples import must_lsms
+    from repro_torch.memtier import replay_trace
+    from repro_torch.memtier.spec import SPECS
+    calls = APPS_LSMS_ATOMS * APPS_LSMS_ENERGIES
+    reset_counts()
+    t0 = time.perf_counter()
+    out = must_lsms.main(["--n", str(APPS_LSMS_N), "--atoms",
+                          str(APPS_LSMS_ATOMS), "--energies",
+                          str(APPS_LSMS_ENERGIES), "--scf", "1", "--sync",
+                          "--part", "live"])["policies"]
+    wall = time.perf_counter() - t0
+    launched = counts()
+    e0 = out["dfu"]["energy"]
+    for policy, r in out.items():
+        z = r["zgemm"]
+        want = lsms_expected(policy, calls, APPS_LSMS_ATOMS, LSMS_G_BYTES)
+        have = {k: z[k] for k in want}
+        if have != want or z["calls"] != calls:
+            raise AssertionError(f"apps (b) {policy}: zgemm {have} (calls "
+                                 f"{z['calls']}) != {want}")
+        if not (abs(r["energy"] - e0) <= LSMS_ENERGY_RTOL * abs(e0)
+                and r["max_resid"] < LSMS_RESID):
+            raise AssertionError(f"apps (b) {policy}: energy "
+                                 f"{r['energy']!r} vs dfu's {e0!r}, "
+                                 f"max_resid {r['max_resid']:.3e}")
+        log("apps", f"(b) LSMS n={APPS_LSMS_N} {policy}: energy "
+                    f"{r['energy']:.12f}, max_resid {r['max_resid']:.3e}, "
+                    f"zgemm {z['seconds']:.4f} s for {calls} calls "
+                    f"(synchronized), bytes_in {z['bytes_in']}, bytes_out "
+                    f"{z['bytes_out']}, transient {z['transient_bytes']}, "
+                    f"hits {z['cache_hits']}"
+                    + (" (the host path computes on the card: not a CPU "
+                       "baseline)" if policy == "cpu" else "") + f"; {card}")
+    if (launched["gemm"], sum(launched.values())) != (4 * 4 * calls,
+                                                      4 * 4 * calls):
+        raise AssertionError(f"apps (b): launches {launched}, want "
+                             f"{4 * 4 * calls} gemm (4 policies x {calls} "
+                             f"calls x the 4M's 4 planes)")
+    rep = replay_trace(out["dfu"]["trace"], spec=SPECS["h100"],
+                       policies=("dfu",))["dfu"]
+    pred = rep.per_routine_s["zgemm"]
+    live = out["dfu"]["zgemm"]["seconds"]
+    ratio = pred / live
+    log("apps", f"(b) the live dfu trace ({len(out['dfu']['trace'])} "
+                f"calls) on the H100 model: zgemm {pred:.4f} s predicted "
+                f"(movement {rep.movement_s:.4f} s, h->d "
+                f"{rep.bytes_host_to_dev} B) against {live:.4f} s live: "
+                f"ratio {ratio:.3f} (band {REPLAY_BAND}); loop wall "
+                f"{wall:.2f} s for the 4 policies; launches {launched}")
+    if not REPLAY_BAND[0] <= ratio <= REPLAY_BAND[1]:
+        raise AssertionError(f"apps (b): the H100 model's zgemm {pred:.4f} "
+                             f"s / live {live:.4f} s = {ratio:.3f} is out "
+                             f"of {REPLAY_BAND}: a spec constant is wrong")
+    return launched
+
+
+def apps_parsec(card: str) -> dict:
+    """(c) parsec_dft at ngrid 8192, nstates 256 under dfu: the Ritz
+    values' lower half within 1e-6 of eigvalsh (the twin's own check),
+    nothing moved (H and psi are born on the card), every dgemm offloaded
+    and one gemm.cu launch each."""
+    from repro_torch.examples import parsec_dft
+    reset_counts()
+    t0 = time.perf_counter()
+    out = parsec_dft.main(["--ngrid", str(DFT_NGRID), "--nstates",
+                           str(DFT_NSTATES), "--scf", str(DFT_SCF),
+                           "--cheb-order", str(DFT_CHEB), "--sync",
+                           "--part", "live"])["live"]
+    wall = time.perf_counter() - t0
+    launched = counts()
+    d = out["stats"].per_routine["dgemm"]
+    calls = 3 + DFT_SCF * (DFT_CHEB + 3)
+    have = (d.calls, d.offloaded, d.bytes_in, d.transient_bytes)
+    if have != (calls, calls, 0, 0):
+        raise AssertionError(f"apps (c): dgemm (calls, offloaded, bytes_in, "
+                             f"transient) {have} != ({calls}, {calls}, 0, 0)")
+    if (launched["gemm"], sum(launched.values())) != (calls, calls):
+        raise AssertionError(f"apps (c): launches {launched}, want {calls} "
+                             f"gemm")
+    if not out["max_err_low_half"] < 1e-6:
+        raise AssertionError(f"apps (c): Ritz error {out['max_err_low_half']}")
+    log("apps", f"(c) PARSEC ngrid {DFT_NGRID} nstates {DFT_NSTATES} scf "
+                f"{DFT_SCF}: max_err(low half) "
+                f"{out['max_err_low_half']:.3e} (< 1e-6), ritz_min "
+                f"{out['ritz_min']:.9f}; dgemm {d.calls} calls all "
+                f"offloaded, bytes_in 0, {d.seconds:.3f} s synchronized; "
+                f"wall {wall:.2f} s (with the host's dense eigvalsh); "
+                f"launches {launched}; {card}")
+    return launched
+
+
+def apps_serve(card: str) -> dict:
+    """(d) serve_offload on mamba2-1.3b at full width and depth with a
+    float32 cache: tokens bit for bit across dfu, memcopy and pinned (the
+    twin's own check, and here), each policy's bytes, migrations and
+    reuses as train/serve.py counts them, 97 gemm launches per forward."""
+    import torch
+    from repro_torch.examples import serve_offload
+    from repro_torch.models import get_config
+    cfg = get_config("mamba2_1_3b")
+    state = state_bytes(cfg, SO_BATCH, SO_LEN, 4)
+    steps = SO_GEN - 1
+    want = {"dfu": (state, 0, steps, 1, steps * SO_BATCH),
+            "memcopy": (SO_GEN * state, SO_GEN * state, 0, 0,
+                        steps * SO_BATCH),
+            "pinned": (0, 0, steps, 0, steps * SO_BATCH)}
+    reset_counts()
+    out = serve_offload.main(["--no-reduced"])
+    launched = counts()
+    for policy, (tokens, st) in out.items():
+        have = (st.bytes_host_to_dev, st.bytes_dev_to_host, st.cache_reuses,
+                st.migrations, st.tokens)
+        if have != want[policy]:
+            raise AssertionError(f"apps (d) {policy}: (h->d, d->h, reuses, "
+                                 f"migrations, tokens) {have} != "
+                                 f"{want[policy]}")
+        log("apps", f"(d) mamba2-1.3b {policy}: prefill {st.prefill_s:.3f} "
+                    f"s, decode {st.decode_s:.3f} s for {steps} steps "
+                    f"({st.decode_s / steps * 1e3:.1f} ms per step); h->d "
+                    f"{st.bytes_host_to_dev} B, d->h {st.bytes_dev_to_host} "
+                    f"B, migrations {st.migrations}, reuses "
+                    f"{st.cache_reuses}; {card}")
+    tokens = out["dfu"][0]
+    if tuple(tokens.shape) != (SO_BATCH, SO_GEN) or not all(
+            torch.equal(t, tokens) for t, _ in out.values()):
+        raise AssertionError(f"apps (d): tokens differ across policies: "
+                             f"{ {p: t.tolist() for p, (t, _) in out.items()} }")
+    per_forward = gemms_per_forward(cfg)
+    forwards = len(out) * SO_GEN
+    if (launched["gemm"], sum(launched.values())) != (
+            per_forward * forwards, per_forward * forwards):
+        raise AssertionError(f"apps (d): launches {launched}, want "
+                             f"{per_forward} gemm per forward x {forwards}")
+    log("apps", f"(d) tokens {tuple(tokens.shape)} equal under "
+                f"{sorted(out)}; the state {state} B (float32 ssm_h and "
+                f"conv_state); launches {launched} ({per_forward} per "
+                f"forward)")
+    return launched
+
+
+def apps_train_kernels(dev, card: str) -> None:
+    """gemm.cu's FMA path at the 100M model's float32 training shapes of
+    one microbatch (M = 4 x 256) and flash's FMA path at its attention,
+    each against its plain version, with times, bound and library."""
+    import torch
+    from repro_torch.kernels import attention, gemm
+    gen = torch.Generator(device=dev).manual_seed(22)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+    m = T100_BATCH // T100_MICRO * T100_SEQ
+    x, h = rnd(m, 768), rnd(m, 3072)
+    table, dc = rnd(32000, 768), rnd(m, 32000)
+    cases = (("MLP gate/up forward", x, rnd(768, 3072)),
+             ("MLP down forward", h, rnd(3072, 768)),
+             ("tied head forward, B = table.mT", x, table.mT),
+             ("tied head dB = A^T dC", x.mT, dc))
+    for label, a, b in cases:
+        name = (f"{a.shape[0]}x{b.shape[1]}x{a.shape[1]} {label} "
+                f"(repro-100m, FMA)")
+        check(f"gemm float32 {name}", gemm.gemm(a, b), gemm.gemm_plain(a, b),
+              TOL["float32"])
+        gemm_times(a, b, name, phase="apps", card=card)
+    q, k, v = (rnd(T100_BATCH // T100_MICRO, 12, T100_SEQ, 64)
+               for _ in range(3))
+    label = (f"flash_attention float32 [{T100_BATCH // T100_MICRO}, 12, "
+             f"{T100_SEQ}, 64] causal (repro-100m, FMA path)")
+    before = attention.launches_by_path[attention.FMA]
+    got = attention.flash_attention(q, k, v, causal=True)
+    if attention.launches_by_path[attention.FMA] != before + 1:
+        raise AssertionError(f"{label}: not on the FMA path")
+    check_rows(label, got, attention.flash_attention_plain(q, k, v,
+                                                            causal=True),
+               TOL["float32"])
+    flash_times(q, k, v, label, card, "apps", causal=True)
+
+
+def apps_train(dev, card: str) -> dict:
+    """(e) train_100m at its widths, steps cut (T100_STEPS): first the
+    twin's first step through
+    the kernels against the same step forced plain (grad_check, float32
+    tolerances, flash on its FMA path) with its control, and the kernels
+    at the model's shapes; then the twin's main: its launches (gemm.cu 3
+    per product per microbatch, flash twice per layer per microbatch
+    under remat dots, all FMA), a finite falling loss, a checkpoint
+    every T100_CKPT steps, the last restored bit for bit."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.examples import train_100m
+    from repro_torch.kernels import attention
+    from repro_torch.models.registry import Model
+    from repro_torch.train import Trainer, TrainConfig
+    from repro_torch.tree import leaves
+    where = "(e) repro-100m"
+    cfg = train_100m.CONFIG_100M
+    model = Model.from_config(cfg)
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=T100_SEQ,
+                                    global_batch=T100_BATCH))
+    tcfg = TrainConfig(steps=T100_STEPS, n_micro=T100_MICRO, remat="dots",
+                       ckpt_every=T100_CKPT, log_every=10)
+    tr = Trainer(model, pipe, tcfg, device=dev)
+    batch = {k: v.to(dev) for k, v in pipe.global_batch(0).items()}
+    first = grad_check(model, tr.params, batch, tcfg, where, card,
+                       loss_tol=LOSS_TOL_F32, grad_tol=GRAD_TOL_F32,
+                       path=attention.FMA, row_tol=TOL["float32"])
+    del tr, batch
+    apps_train_kernels(dev, card)
+    torch.cuda.empty_cache()
+    ckpt = ROOT / "build" / "train_100m_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = train_100m.main(["--steps", str(T100_STEPS), "--ckpt-every",
+                           str(T100_CKPT), "--ckpt-dir", str(ckpt)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = counts()
+    peak = torch.cuda.max_memory_allocated()
+    trainer, hist = out["trainer"], out["history"]
+    products = gemms_per_forward(cfg)
+    micro = T100_STEPS * T100_MICRO
+    want = (3 * products * micro, 2 * cfg.n_layers * micro, 0)
+    have = (launched["gemm"], launched["flash_attention"],
+            launched["decode_attention"])
+    if have != want or attention.launches_by_path != {
+            attention.WGMMA: 0, attention.FMA: want[1]}:
+        raise AssertionError(f"{where}: launches {launched} (flash by path "
+                             f"{attention.launches_by_path}), want (gemm, "
+                             f"flash all FMA, decode) {want}")
+    losses = [h["loss"] for h in hist]
+    if len(losses) != T100_STEPS or not all(
+            math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{where}: losses {losses[:3]}..{losses[-3:]} "
+                             f"({len(losses)}) not finite and falling")
+    first_loss(first, hist, where)
+    steps = sorted((p.name for p in ckpt.iterdir()),
+                   key=lambda name: int(name.split("_")[1]))
+    want_steps = [f"step_{s}" for s in range(T100_CKPT, T100_STEPS + 1,
+                                             T100_CKPT)]
+    if steps != want_steps:
+        raise AssertionError(f"{where}: checkpoints {steps} != {want_steps}")
+    tree, manifest = CheckpointStore(str(ckpt)).restore(trainer._state_tree())
+    pairs = list(zip(leaves(tree), leaves(trainer._state_tree())))
+    same = sum(torch.equal(a, b) for a, b in pairs)
+    if manifest["step"] != T100_STEPS or same != len(pairs):
+        raise AssertionError(f"{where}: step {manifest['step']} restored "
+                             f"{same} of {len(pairs)} leaves bit for bit")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    times = sorted(trainer.step_times[1:])
+    med = times[len(times) // 2]
+    log("apps", f"{where}: {out['params']} parameters (param_count), "
+                f"{sum(p.numel() for p in leaves(trainer.params))} float32 "
+                f"weights, {T100_STEPS} steps of {T100_BATCH} x {T100_SEQ} "
+                f"in {wall:.2f} s; step median {med * 1e3:.1f} ms "
+                f"({T100_BATCH * T100_SEQ / med:.0f} tokens/s), first "
+                f"{trainer.step_times[0] * 1e3:.1f} ms; straggler events "
+                f"{trainer.straggler_events}; loss {losses[0]:.4f} -> "
+                f"{losses[-1]:.4f}; launches {launched} (gemm 3 x "
+                f"{products} x {T100_MICRO} per step, flash 2 x "
+                f"{cfg.n_layers} x {T100_MICRO}, all FMA); checkpoints "
+                f"{steps}, step {T100_STEPS} restored bit for bit ({same} "
+                f"leaves); peak device memory {peak / 1e9:.2f} GB; {card}")
+    log("apps", f"{where} losses every 10 steps: " + " ".join(
+        f"{x:.4f}" for x in losses[::10]))
+    from repro_torch.train import make_train_step
+    step = make_train_step(model, tcfg, trainer.opt)
+    batch = {k: v.to(dev) for k, v in pipe.global_batch(0).items()}
+    device_profile(lambda: step(trainer.params, trainer.opt_state,
+                                trainer.comp_state, batch, T100_STEPS),
+                   f"{where}: one training step (not counted)", top=8,
+                   phase="apps", host=True)
+    del out, trainer, tree, step, batch
+    torch.cuda.empty_cache()
+    return launched
+
+
+def phase_apps(dev) -> dict:
+    """The twins of the reference's drivers through their own mains, on
+    the card: (a) quickstart, (b) must_lsms at n 6912 under four
+    policies, (c) parsec_dft at ngrid 8192, (d) serve_offload on
+    mamba2-1.3b at full width and depth, (e) train_100m at its widths
+    over T100_STEPS steps; meanwhile CPU processes replay the LSMS and PARSEC production traces
+    on the GH200 and H100 models, whose tables print at the end.  Every
+    run's launches are the main path's; they are returned."""
+    card = card_line()
+    apps_calibration(dev, card)
+    jobs = [_background(f"{name} production replay", [
+        sys.executable, "-m", f"repro_torch.examples.{name}", "--part",
+        "replay"], REPLAY_LIMIT) for name in ("must_lsms", "parsec_dft")]
+    launched: dict = {}
+    try:
+        for got in (apps_quickstart(), apps_lsms(dev, card),
+                    apps_parsec(card), apps_serve(card),
+                    apps_train(dev, card)):
+            for name, n in got.items():
+                launched[name] = launched.get(name, 0) + n
+        for job in jobs:
+            t0 = time.perf_counter()
+            text = _finish(job, "apps")
+            log("apps", f"{job[0]} (waited {time.perf_counter() - t0:.1f} "
+                        f"s more):")
+            for line in text.splitlines():
+                log("apps", f"  {line}")
+    finally:
+        for _, proc, _, _ in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return launched
+
+
 #: device times (ms) of whole steps that the serve and train phases
 #: profile, for the mesh phase's roofline (e)
 MEASURED: dict = {}
@@ -4408,6 +4892,7 @@ def main() -> int:
     encdec_vlm_launches = phase_serve_encdec_vlm(dev)
     train_launches = phase_train(dev)
     mesh_launches = phase_mesh(dev)
+    apps_launches = phase_apps(dev)
     for name, row in rows.items():
         row["launches"] = (blas_launches[name] + lsms_launches[name]
                            + solver_launches[name] + venue_launches[name]
@@ -4416,7 +4901,8 @@ def main() -> int:
                            + moe_ssm_launches.get(name, 0)
                            + encdec_vlm_launches.get(name, 0)
                            + train_launches.get(name, 0)
-                           + mesh_launches.get(name, 0))
+                           + mesh_launches.get(name, 0)
+                           + apps_launches.get(name, 0))
         log("done", f"{name} launches: blas {blas_launches[name]}, lsms "
                     f"{lsms_launches[name]}, solvers "
                     f"{solver_launches[name]}, venue {venue_launches[name]}, "
@@ -4425,7 +4911,8 @@ def main() -> int:
                     f"{moe_ssm_launches.get(name, 0)}, serve_encdec_vlm "
                     f"{encdec_vlm_launches.get(name, 0)}, train "
                     f"{train_launches.get(name, 0)}, mesh "
-                    f"{mesh_launches.get(name, 0)}")
+                    f"{mesh_launches.get(name, 0)}, apps "
+                    f"{apps_launches.get(name, 0)}")
         if row["launches"] == 0:
             raise AssertionError(f"{name} kernel never launched on the "
                                  f"main path")

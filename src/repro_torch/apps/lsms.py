@@ -131,7 +131,10 @@ def run_mini(atoms: int = 4, energies: int = 4, scf: int = 2,
                                   + 0.01 * rng.standard_normal((n, n))),
                     dtype=dtype, device=dev)
                 tg = torch.matmul(tm, gmats[a])    # intercepted zgemm
-                m = eye - z * tg
+                # a Mem-Copy session returns the product on the host
+                # tier; the card has no coherent link to read it there,
+                # so the loop brings it back (no-op elsewhere)
+                m = eye - z * tg.to(dev)
                 # the public symbols: the patched solver tier under a
                 # lapack session, PyTorch's own without one
                 lu, piv = torch.linalg.lu_factor(m)

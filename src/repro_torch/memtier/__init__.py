@@ -8,12 +8,13 @@ asymmetric access bandwidths, a cache-coherent interconnect, page tables,
 ``move_pages``-style migration, and the hardware access-counter migration
 whose behaviour the paper measures in §4.4.1.
 
-Two calibrated specs ship: ``GH200`` (the paper's machine, used to validate
-the paper's claims) and ``TPU_V5E`` (the adaptation target used for the
-roofline analysis).
+Calibrated specs: ``GH200`` (the paper's machine, used to validate the
+paper's claims), ``TPU_V5E`` (the reference's adaptation target used for
+the roofline analysis) and ``H100`` (the port's card, from
+``launch/calibrate.py``).
 """
 from repro_torch.memtier.spec import (HardwareSpec, GH200, TPU_V5E,
-                                      GH200_4K, MemKind)
+                                      GH200_4K, H100, MemKind)
 from repro_torch.memtier.pagetable import PageTable, Buffer
 from repro_torch.memtier.simulator import (
     MemTierSimulator,
@@ -26,6 +27,7 @@ __all__ = [
     "GH200",
     "GH200_4K",
     "TPU_V5E",
+    "H100",
     "MemKind",
     "PageTable",
     "Buffer",

@@ -1,8 +1,10 @@
 """Hardware specifications for tiered-memory systems.
 
-The port's copy of ``repro/memtier/spec.py``, unchanged: the specs
-are the paper's GH200 and the reference's TPU v5e; no H100 spec is
-added here.
+The port's copy of ``repro/memtier/spec.py``: the paper's GH200 and the
+reference's TPU v5e, unchanged, and ``H100``, the port's own target (the
+card ``chip_smoke.py`` runs on), which the reference models no more than
+the port models a TPU.  Nothing reads ``H100`` unless asked by name:
+``replay_trace`` and the autotuner keep the GH200 as their default.
 
 Constants for GH200 come from the paper's own measurements:
 
@@ -16,6 +18,14 @@ Constants for GH200 come from the paper's own measurements:
 TPU v5e constants are the roofline constants mandated for this repo:
 197 TFLOP/s bf16 per chip, 819 GB/s HBM, ~50 GB/s/link ICI; host link is
 PCIe-class.
+
+H100 constants are this card's and its host's, measured by
+``python -m repro_torch.launch.calibrate`` on ``NVIDIA H100 80GB HBM3,
+700.00 W`` (PERF.md), or taken from NVIDIA's H100 SXM data sheet where a
+comment says so.  The card has no coherent link: a placement, a
+Mem-Copy stage and a streamed host operand are each one explicit copy
+over PCIe, and placement is explicit ``cudaMalloc`` (the caching
+allocator), so none of the GH200's system-malloc pathologies apply.
 """
 from __future__ import annotations
 
@@ -137,4 +147,56 @@ TPU_V5E = HardwareSpec(
     cpu_remote_64k_penalty=1.0,
 )
 
-SPECS = {s.name: s for s in (GH200, GH200_4K, TPU_V5E)}
+# The port's target: one SXM H100 (80 GB HBM3) on a PCIe host.
+H100 = HardwareSpec(
+    name="h100",
+    # host float64 triad a = b + s c over 2^26 elements, torch.add on all
+    # 8 cores (calibrate; numpy's two-pass triad reads 7.5 GB/s)
+    cpu_local_bw=45.98 * GB,
+    # no coherent link: the host reads HBM only through a copy, card ->
+    # pinned host, 1 GiB (calibrate)
+    cpu_remote_bw=54.74 * GB,
+    # card -> card copy of 1 GiB, read + write (calibrate)
+    gpu_local_bw=3010.3 * GB,
+    # the streamed copy runtime._harmonize makes of a host operand: pinned
+    # host -> card, 1 GiB (calibrate)
+    gpu_remote_bw=51.86 * GB,
+    # pinned host -> card, 1 GiB: the copy memspace.put makes (calibrate)
+    link_bw=51.86 * GB,
+    # host float64 torch.matmul 4096^3, 8 threads (calibrate)
+    cpu_flops=427.2e9,
+    # data sheet: H100 SXM FP64 tensor core peak, 67 TFLOP/s
+    gpu_flops=67.0e12,
+    # each routine's rate on the card over gpu_flops, as the trace counts
+    # its flops: gemm and symm run csrc/gemm.cu, float64 6912^3 on DMMA
+    # in 17.339 ms = 38.09 TFLOP/s (calibrate; PERF.md §6 17.2-17.8 ms);
+    # trmm is the same full product, for half the counted flops; trsm is
+    # complex on the library (c128 256 x 6656 unit lower, getrf's panel
+    # solve, 0.266 ms, PERF.md §6); syrk csrc/syrk.cu at PARSEC's shape
+    # (n 2400, k 93536) in 15.2 ms (PERF.md §6); the panel is never
+    # offloaded
+    gpu_eff=(("gemm", 0.5685), ("trsm", 0.0979), ("syrk", 0.529),
+             ("symm", 0.5685), ("trmm", 0.2843), ("getf2", 0.0)),
+    # the host's rates over cpu_flops (calibrate): solve_triangular
+    # 4096 x 256, lu_factor of a 6912 x 256 panel (m n^2 flops)
+    cpu_eff=(("gemm", 1.0), ("trsm", 0.551), ("getf2", 0.124)),
+    # host wall per gemm.gemm call at 64^3, back to back (calibrate)
+    kernel_launch_s=32.3e-6,
+    # a placement copies the whole tensor at once: no per-page work
+    migrate_page_s=0.0,
+    # a migration is the link copy itself: pinned host -> card (calibrate)
+    migrate_bw=51.86 * GB,
+    # the CUDA caching allocator rounds large blocks to 2 MiB
+    page_size=2 << 20,
+    # the card machine's host memory, SC_PHYS_PAGES (calibrate)
+    host_capacity=108_447_924_224,
+    # data sheet: 80 GB HBM3 (the driver reports 85,017,493,504 B)
+    device_capacity=80 * 10 ** 9,
+    # explicit cudaMalloc placement: no system-allocated device memory,
+    # and the host never maps HBM pages
+    unaligned_penalty=1.0,
+    sysmalloc_penalty=1.0,
+    cpu_remote_64k_penalty=1.0,
+)
+
+SPECS = {s.name: s for s in (GH200, GH200_4K, TPU_V5E, H100)}

@@ -237,3 +237,70 @@ def test_autotune_nb_point_env_and_config():
     assert "SCILIB_LAPACK" not in base.env()
     with repro_torch.session(cfg, device="cpu") as s:
         assert s.config.lapack_nb == 128
+
+
+# --------------------------------------------------------------------- #
+# the port's own target: memtier.spec.H100                               #
+# --------------------------------------------------------------------- #
+#: the H100 field that is zero by what it models: a placement is one copy
+#: of the whole tensor, with no per-page work (and in gpu_eff the panel
+#: factorization's 0.0: never offloaded, the reference's rule)
+H100_ZEROS = {"migrate_page_s"}
+
+
+def test_h100_spec_is_finite_and_positive():
+    import math
+    spec = SPECS["h100"]
+    assert spec.name == "h100"
+    for f in dataclasses.fields(spec):
+        value = getattr(spec, f.name)
+        if f.name == "name":
+            continue
+        if f.name in ("gpu_eff", "cpu_eff"):
+            table = dict(value)
+            assert {"gemm", "trsm", "getf2"} <= set(table), f.name
+            for routine, eff in table.items():
+                assert math.isfinite(eff) and 0.0 <= eff <= 1.0
+                assert eff > 0 or (f.name, routine) == ("gpu_eff", "getf2")
+            continue
+        assert math.isfinite(value), f.name
+        if f.name in H100_ZEROS:
+            assert value == 0, f.name
+        else:
+            assert value > 0, f.name
+    # no coherent link: a streamed operand is the placement's own copy
+    assert spec.gpu_remote_bw == spec.link_bw == spec.effective_migrate_bw()
+    assert spec.device_capacity == 80 * 10 ** 9
+    assert (spec.unaligned_penalty, spec.sysmalloc_penalty,
+            spec.cpu_remote_64k_penalty) == (1.0, 1.0, 1.0)
+
+
+@pytest.mark.parametrize("name", ("gh200", "gh200-4k", "tpu-v5e"))
+def test_reference_specs_are_unchanged(name):
+    assert dataclasses.asdict(SPECS[name]) == dataclasses.asdict(JSPECS[name])
+
+
+def test_defaults_still_replay_the_gh200():
+    import inspect
+    from repro_torch.memtier import GH200, replay_trace
+    assert inspect.signature(replay_trace).parameters["spec"].default \
+        is GH200
+    assert inspect.signature(MemTierSimulator).parameters["spec"].default \
+        is GH200
+    assert inspect.signature(at.autotune).parameters["spec"].default \
+        is SPECS["gh200"]
+    assert set(SPECS) == set(JSPECS) | {"h100"}
+
+
+def test_mini_trace_replays_on_the_h100():
+    from repro_torch.memtier import replay_trace
+    reps = replay_trace(Trace.load(MINI_TRACE), spec=SPECS["h100"],
+                        policies=("memcopy", "dfu", "cpu"))
+    assert all(r.spec == "h100" for r in reps.values())
+    assert 0 < reps["dfu"].moved_bytes <= reps["memcopy"].moved_bytes
+    assert all(math_ok(r.total_s) for r in reps.values())
+
+
+def math_ok(x: float) -> bool:
+    import math
+    return math.isfinite(x) and x > 0
