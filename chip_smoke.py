@@ -88,9 +88,18 @@ order:
 8. serve   — gemma2-9b (42 layers, d_model 3584, vocab 256000, bf16,
              prefill_fresh_kv) with seeded random weights, batch 2 x
              4608 prompt tokens: generate 16 under dfu and 4 under
-             memcopy (every attention kernel call there also held to its
-             plain version), byte/migration/reuse counts and kernel
-             launches asserted, every flash launch on the wgmma path;
+             memcopy, byte/migration/reuse counts and kernel launches
+             asserted, every flash launch on the wgmma path.  Each decode
+             loop is the Server's warm-up step, then replays of its one
+             captured CUDA graph (the counterpart of the reference's
+             jitted step): the replays counted; one more replay under
+             sync debug mode "error" (no host sync) and one under the
+             profiler, its gemm.cu, flash and decode kernels by name
+             equal to the counters' amounts per replay, the replayed
+             step's wall, device time and idle share; the eager check:
+             the same tokens with Server._decode_step called from Python
+             at host positions, bit for bit, every attention kernel call
+             there also held to its plain version;
              (d) launch/serve.py's streams path: 2 worker threads over
              the shared weights, each stream's 8 tokens equal the dfu
              run's first 8; then, at the same widths over 2 layers,
@@ -107,8 +116,9 @@ order:
              way; tokens equal across policies; gemm, flash and decode
              launches per forward and step (granite: 193 gemm, 24 flash
              all on wgmma at D 64, 24 decode; mamba2: 97 gemm, no
-             attention); every attention call of granite's memcopy run
-             against its plain version; the tokens each MoE layer drops
+             attention); the captured step's checks and the eager check
+             as in 8 (every attention call of granite's eager check
+             against its plain version); the tokens each MoE layer drops
              to capacity at prefill logged; (c) moonshot-v1-16b-a3b at
              full width over 12 of its 48 layers (D 128, MHA), batch 2 x
              2048, dfu; (d) jamba-1.5-large-398b reduced, one period of
@@ -128,8 +138,8 @@ order:
              memcopy 4x each way, tokens equal; 65 gemm launches at the
              prefill and 33 per step, 12 flash (encoder, decoder self
              and cross attention, all wgmma, non-causal at Tk 1500) and
-             4 decode per step; every attention call of the memcopy run
-             against its plain version; the encoder's and the cross
+             4 decode per step; the captured step's checks and the eager
+             check as in 8; the encoder's and the cross
              attention's flash calls on their real inputs per row,
              beside a control that must fail (the plain version with the
              TPU kernel's 36 padded keys live).  (b) pixtral-12b at full
@@ -207,7 +217,9 @@ order:
              on mamba2-1.3b at full width and depth with a float32 cache:
              tokens bit for bit across dfu, memcopy and pinned, each
              policy's bytes, migrations and reuses, 97 gemm.cu launches
-             per forward; (e) train_100m at its widths (8 x 256, n_micro
+             per forward, 30 replays per Server, the tokens bit for bit
+             the eager step's, the captured step's checks as in 8; (e)
+             train_100m at its widths (8 x 256, n_micro
              2, remat dots), steps cut from 300 to 150 with a checkpoint
              every 50 (the script's time limit): first
              its first step's loss and gradients through the kernels
@@ -229,7 +241,9 @@ train phase's two fits, the mesh phase's a2a run, and the apps phase's
 card runs of its five twins (quickstart, must_lsms's four policies,
 parsec_dft, serve_offload's three policies, train_100m's fit), each with
 the counts set to 0 just before it.
-The cross-checks', the mesh phase's scatter comparison, the profiles',
+The eager checks', the replay checks', the cross-checks', the mesh
+phase's scatter comparison (whose decode steps stay eager), the
+profiles',
 the gradient checks', the restart's, the remat steps', the plain and
 witness fits', the apps phase's kernel checks' and its CPU quickstart's
 launches are not among them.  Every mismatch or missing
@@ -246,6 +260,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1854,13 +1869,36 @@ def phase_venue(dev) -> dict:
 CROSS_LAYERS = 2
 
 
-def generate_keeping(model, params, policy: str, n: int, prompt, dev,
-                     max_len: int = SERVE_LEN, extra=None, start=None):
-    """Server.generate under ``policy`` (with the family's ``extra``
-    inputs), keeping the last-position logits of every forward it runs
-    (the prefill, then each decode step).  With ``start``, the prefill
-    then ``decode(start_pos=start)`` instead of ``generate``'s decode
-    from the prompt's length."""
+def serve_run(model, params, policy: str, n: int, prompt, dev,
+              max_len: int = SERVE_LEN, extra=None, start=None,
+              cache_dtype=None):
+    """``n`` tokens through the serving loop as a user runs it: a Server
+    under ``policy``, ``prefill`` (with the family's ``extra`` inputs),
+    then ``decode`` of n - 1 tokens from ``start`` (default the prompt's
+    length, as ``generate``), whose steps on the card are the warm-up and
+    then replays of one captured graph.  Returns (server, tokens (B, n),
+    the position after the last step)."""
+    import torch
+    from repro_torch.configs.base import torch_dtype
+    from repro_torch.train import Server, ServeConfig
+    srv = Server(model, params, ServeConfig(
+        max_len=max_len, offload_policy=policy,
+        cache_dtype=cache_dtype or torch_dtype(model.cfg.dtype)),
+        device=dev)
+    start = prompt.shape[1] if start is None else start
+    tok, cache = srv.prefill(prompt, extra)
+    gen, cache = srv.decode(tok, cache, start, n - 1)
+    del cache
+    return srv, torch.cat([tok, gen], dim=1), start + n - 1
+
+
+def eager_run(model, params, n: int, prompt, dev, max_len: int = SERVE_LEN,
+              extra=None, start=None, cache_dtype=None):
+    """The same ``n`` tokens with the step run from Python: a dfu Server's
+    ``prefill``, then n - 1 calls of ``Server._decode_step`` at host
+    positions (the step the graph captures, uncaptured), keeping the
+    last-position logits of every forward.  Returns (tokens (B, n), the
+    logits (B, n, vocab))."""
     import torch
     from repro_torch.configs.base import torch_dtype
     from repro_torch.train import Server, ServeConfig
@@ -1874,18 +1912,148 @@ def generate_keeping(model, params, policy: str, n: int, prompt, dev,
     model.forward = keeping
     try:
         srv = Server(model, params, ServeConfig(
-            max_len=max_len, offload_policy=policy,
-            cache_dtype=torch_dtype(model.cfg.dtype)), device=dev)
-        if start is None:
-            out = srv.generate(prompt, n, extra)
-        else:
-            tok, cache = srv.prefill(prompt, extra)
-            gen, cache = srv.decode(tok, cache, start, n - 1)
-            out = torch.cat([tok, gen], dim=1)
-            del cache
+            max_len=max_len, offload_policy="dfu",
+            cache_dtype=cache_dtype or torch_dtype(model.cfg.dtype)),
+            device=dev)
+        start = prompt.shape[1] if start is None else start
+        tok, cache = srv.prefill(prompt, extra)
+        outs = [tok]
+        with torch.no_grad():
+            for i in range(n - 1):
+                tok, cache = srv._decode_step(tok, cache, start + i)
+                outs.append(tok)
+        del cache
     finally:
         model.forward = forward
-    return srv, out, torch.stack(kept, dim=1)
+    return torch.cat(outs, dim=1), torch.stack(kept, dim=1)
+
+
+#: profiler kernel names (demangled) of the decode step's kernels, by the
+#: counter that counts their launches
+STEP_KERNELS = {
+    "gemm": r"\b(tc|skinny_dot|skinny_strip|dmma_f64|simt_f32)_kernel\b",
+    "gemm_reduce": r"\bsplitk_reduce_kernel\b",
+    "flash_attention": r"\bflash(_wgmma)?_kernel\b",
+    "decode_attention": r"\bdecode_kernel\b",
+}
+
+
+def record_counts(record) -> dict:
+    """The launches one replay counts, by STEP_KERNELS' names, from a
+    capture's record (``kernels.compat.recording``)."""
+    from repro_torch.kernels import attention, decode_attention, gemm
+    where = {id(vars(gemm)): {"launches": "gemm",
+                              "reduce_launches": "gemm_reduce"},
+             id(vars(attention)): {"launches": "flash_attention"},
+             id(vars(decode_attention)): {"launches": "decode_attention"}}
+    out = dict.fromkeys(STEP_KERNELS, 0)
+    for counters, moves in record:
+        for name, n in moves.items():
+            key = where.get(id(counters), {}).get(name)
+            if key is not None:
+                out[key] += n
+    return out
+
+
+#: the profiled replay's mark (a record_function range), and the idle
+#: gap before it that sets its device events apart from the replay
+#: before, whatever the skew between the trace's host and device clocks
+REPLAY_MARK, MARK_GAP_S = "chip_smoke.replay", 0.005
+
+
+def marked_events(prof) -> list:
+    """device_events of the kernels, copies and memsets that started
+    after the REPLAY_MARK range opened, less half of MARK_GAP_S (the
+    mark's own device-side annotation left out)."""
+    from torch.autograd import DeviceType
+    mark = next(e for e in prof.events()
+                if e.name == REPLAY_MARK and e.device_type == DeviceType.CPU)
+    after = mark.time_range.start - MARK_GAP_S * 1e6 / 2
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == DeviceType.CUDA and e.name != REPLAY_MARK
+            and e.time_range.start >= after]
+
+
+def replay_checks(srv, tok, pos: int, where: str, phase: str,
+                  reps: int = 5) -> dict:
+    """A Server whose decode step is captured, after its run: one more
+    replay at ``pos`` under ``set_sync_debug_mode("error")`` (a replay
+    makes no host sync); two replays under torch.profiler, the second's
+    kernels (marked_events) counted by name against the capture's record
+    (the counters' amounts per replay), its wall, device time and idle
+    share; then ``reps`` replays by the host clock, and ``reps`` eager
+    steps (``Server._decode_step`` at the host position, on the same
+    buffers) beside them.  These steps are not the main path's launches.
+    Returns the replayed step's wall ms (unprofiled), device ms and idle
+    share, and the eager step's wall ms."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    g = srv._graph
+    if g is None:
+        raise AssertionError(f"{where}: the Server captured no step")
+    want = record_counts(g.record)
+    tok = tok.to(srv.device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        srv._step(tok, g.cache, pos)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            # a trace can miss the kernels at its very start: the first
+            # replay only opens the window, the marked one is counted
+            srv._step(tok, g.cache, pos)
+            torch.cuda.synchronize()
+            time.sleep(MARK_GAP_S)
+            with record_function(REPLAY_MARK):
+                t0 = time.perf_counter()
+                srv._step(tok, g.cache, pos)
+                torch.cuda.synchronize()
+                prof_wall = (time.perf_counter() - t0) * 1e3
+        events = marked_events(prof)
+        seen = {name: sum(1 for ev, _ in events if re.search(rx, ev))
+                for name, rx in STEP_KERNELS.items()}
+        if seen == want:
+            break
+        # fewer kernels than the record is taken again in a fresh
+        # profile (the card's profiler once recorded no event at all,
+        # device_ms); more is never the profiler's doing
+        other = {}
+        for ev, _ in events:
+            if not any(re.search(rx, ev) for rx in STEP_KERNELS.values()):
+                other[ev[:60]] = other.get(ev[:60], 0) + 1
+        if attempt == PROFILE_TRIES or any(seen[k] > want[k] for k in want):
+            raise AssertionError(f"{where}: a profiled replay ran {seen} "
+                                 f"kernels, the capture's record counts "
+                                 f"{want}; its other device events {other}")
+        log(phase, f"{where}: profile try {attempt} recorded {seen} "
+                   f"kernels of the record's {want} (other device events "
+                   f"{other}); profiled again")
+    dev_ms = sum(us for _, us in events) / 1e3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        srv._step(tok, g.cache, pos)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / reps
+    idle = max(0.0, 1 - dev_ms / wall)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            srv._decode_step(tok, g.cache, pos)
+        torch.cuda.synchronize()
+    eager = (time.perf_counter() - t0) * 1e3 / reps
+    log(phase, f"{where}: replayed decode step: wall {wall:.2f} ms (mean "
+               f"of {reps}; {prof_wall:.2f} under the profiler), device "
+               f"{dev_ms:.2f} ms, idle share {idle:.3f}; the eager step "
+               f"on the same buffers {eager:.2f} ms (mean of {reps}); no "
+               f"host sync in a replay; its kernels by name {seen} = the "
+               f"capture's record per replay; {srv.replays} replays in all, "
+               f"1 capture")
+    return dict(wall=wall, device=dev_ms, idle=idle, eager=eager)
 
 
 def cross_check(model, params, prompt, out, cached, dev,
@@ -2011,18 +2179,33 @@ def serve_streams_check(model, params, prompt, out, alone, n_layers: int,
     from repro_torch.core.residency import SharedDevicePool
     from repro_torch.kernels import attention
     from repro_torch.launch.serve import serve_streams
-    from repro_torch.train import ServeConfig
+    from repro_torch.train import Server, ServeConfig
     pool = SharedDevicePool(STREAMS * SERVE_CACHE_BYTES + (1 << 30),
                             name="serve")
+    # each stream's Server captures its own step, in its own thread
+    real_capture, captured = Server._capture, []
+
+    def capture(self, tok, cache):
+        graph = real_capture(self, tok, cache)
+        captured.append(threading.current_thread().name)
+        return graph
+
+    Server._capture = capture
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    results = serve_streams(model, params, ServeConfig(
-        max_len=SERVE_LEN, offload_policy="dfu"), prompt, STREAM_GEN,
-        STREAMS, pool, device=dev)
+    try:
+        results = serve_streams(model, params, ServeConfig(
+            max_len=SERVE_LEN, offload_policy="dfu"), prompt, STREAM_GEN,
+            STREAMS, pool, device=dev)
+    finally:
+        Server._capture = real_capture
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    if len(set(captured)) != STREAMS or len(captured) != STREAMS:
+        raise AssertionError(f"serve streams: captures in threads "
+                             f"{captured}, want one in each of {STREAMS}")
     got = counts()
     peak = torch.cuda.max_memory_allocated()
     for i, (toks, st, row, _) in enumerate(results):
@@ -2069,7 +2252,8 @@ def serve_streams_check(model, params, prompt, out, alone, n_layers: int,
                  f"stream's {one_wall:.2f} over prefill + decode "
                  f"({tokens / wall / one_wall:.3f}x); launches {got}; peak "
                  f"device memory {peak / 1e9:.2f} GB; pool counts all 0 "
-                 f"(the cache charges no pool)")
+                 f"(the cache charges no pool); each stream captured its "
+                 f"step in its own thread ({captured})")
     for line in pool.report().splitlines():
         log("serve", f"(d) {line}")
     return got
@@ -2289,17 +2473,24 @@ def serve_policies(model, params, prompt, *, n_dfu: int, n_memcopy: int,
                    phase: str = "serve_moe_ssm", extra=None, start=None,
                    want_launches=None) -> tuple:
     """One model through the serving loop: dfu generating ``n_dfu`` tokens,
-    then, if ``n_memcopy``, memcopy generating that many with every
-    attention kernel call held to its plain version.  Asserts the bytes,
-    migrations and reuses of each policy, tokens equal across them, the
-    gemm, flash and decode launches per forward and step, every bf16 flash
-    launch on the wgmma path, and no decode cache copy; logs the times and
-    the (token, choice) pairs each MoE layer drops to its capacity at
-    prefill.  ``extra`` and ``start`` go to generate_keeping (the family's
-    stub inputs; a VLM's decode from P + T); ``want_launches(n)`` gives
-    the (flash, decode, gemm) launches of a run of n tokens where the
+    then, if ``n_memcopy``, memcopy generating that many; each decode loop
+    is the warm-up step and then replays of the Server's captured step.
+    Asserts the bytes, migrations and reuses of each policy, the replays,
+    tokens equal across them, the gemm, flash and decode launches per
+    forward and step, every bf16 flash launch on the wgmma path, and no
+    decode cache copy; then the dfu Server's replay checks (no host sync,
+    a profiled replay's kernels against the capture's record, the step's
+    wall, device time and idle share), and the eager check: the same
+    n_dfu tokens with ``Server._decode_step`` called from Python at host
+    positions, bit for bit the replays' tokens, with every attention
+    kernel call held to its plain version.  Logs the times and the
+    (token, choice) pairs each MoE layer drops to its capacity at
+    prefill.  ``extra`` and ``start`` go to serve_run (the family's stub
+    inputs; a VLM's decode from P + T); ``want_launches(n)`` gives the
+    (flash, decode, gemm) launches of a run of n tokens where the
     decoder-only count (one forward's, n times) does not apply.  Returns
-    (launches of both runs, dfu's tokens, its ServeStats)."""
+    (launches of the dfu and memcopy runs, dfu's tokens, its
+    ServeStats)."""
     import torch
     from repro_torch.kernels import attention, decode_attention, gemm
     from repro_torch.models import moe
@@ -2333,6 +2524,12 @@ def serve_policies(model, params, prompt, *, n_dfu: int, n_memcopy: int,
                                  f"the cache {decode_attention.copies} "
                                  f"times; its views must go in uncopied")
 
+    def replayed(run: str, srv, n: int) -> None:
+        # the decode loop's first step warms up, the rest replay
+        if srv.replays != max(0, n - 2):
+            raise AssertionError(f"{where} {run}: {srv.replays} replays "
+                                 f"of the captured step, want {n - 2}")
+
     # the prefill's drops per MoE layer, kept on the card until the end
     real_dispatch, drops = moe.dispatch, []
 
@@ -2347,8 +2544,8 @@ def serve_policies(model, params, prompt, *, n_dfu: int, n_memcopy: int,
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     try:
-        srv, out, _ = generate_keeping(model, params, "dfu", n_dfu, prompt,
-                                       dev, max_len, extra, start)
+        srv, out, pos = serve_run(model, params, "dfu", n_dfu, prompt, dev,
+                                  max_len, extra, start)
     finally:
         moe.dispatch = real_dispatch
     got = counts()
@@ -2364,6 +2561,7 @@ def serve_policies(model, params, prompt, *, n_dfu: int, n_memcopy: int,
                              f"reuses) {have} != "
                              f"{(want_bytes, 0, 1, n_dfu - 1)}")
     expect("dfu", got, n_dfu)
+    replayed("dfu", srv, n_dfu)
     if tuple(out.shape) != (prompt.shape[0], n_dfu) or not bool(
             ((out >= 0) & (out < cfg.vocab)).all()):
         raise AssertionError(f"{where} dfu: tokens {out}")
@@ -2375,28 +2573,52 @@ def serve_policies(model, params, prompt, *, n_dfu: int, n_memcopy: int,
     steps = n_dfu - 1
     log(phase, f"{where} dfu generate({tuple(prompt.shape)}, {n_dfu}): "
                f"prefill {st.prefill_s:.3f} s, decode {st.decode_s:.3f} s "
-               f"for {steps} steps ({st.decode_s / steps * 1e3:.1f} ms per "
-               f"step, {st.tokens / st.decode_s:.2f} tokens/s); h->d "
+               f"for {steps} steps, the warm-up and the capture among them "
+               f"({st.decode_s / steps * 1e3:.1f} ms per step, "
+               f"{st.tokens / st.decode_s:.2f} tokens/s); h->d "
                f"{st.bytes_host_to_dev} B, d->h {st.bytes_dev_to_host} B, "
                f"migrations {st.migrations}, reuses {st.cache_reuses}; "
-               f"launches {got} ((flash, decode, gemm) {wanted(n_dfu)}, "
-               f"{gemm.reduce_launches} split-K reductions; flash by path "
-               f"{flash_paths}, {copies[0]} operand copies; decode "
-               f"{copies[1]} cache copies); peak device memory "
-               f"{peak / 1e9:.2f} GB")
+               f"{srv.replays} replays; launches {got} ((flash, decode, "
+               f"gemm) {wanted(n_dfu)}, {gemm.reduce_launches} split-K "
+               f"reductions; flash by path {flash_paths}, {copies[0]} "
+               f"operand copies; decode {copies[1]} cache copies); peak "
+               f"device memory {peak / 1e9:.2f} GB")
+    if n_dfu > 2:
+        STEP_TIMES[where] = replay_checks(srv, out[:, -1:], pos, where,
+                                          phase)
     del srv
-    if not n_memcopy:
-        return launched, out, st
-    # memcopy: the state round-trips around the prefill and every step;
-    # each attention kernel call is also computed by its plain version
+    # the eager check: the step run from Python, each attention kernel
+    # call also computed by its plain version
     worst = {}
     restore = checked_attention(worst)
     reset_counts()
     try:
-        mc, out_mc, _ = generate_keeping(model, params, "memcopy", n_memcopy,
-                                         prompt, dev, max_len, extra, start)
+        eager, _ = eager_run(model, params, n_dfu, prompt, dev, max_len,
+                             extra, start)
     finally:
         restore()
+    expect("eager check", counts(), n_dfu)
+    if not torch.equal(eager, out):
+        raise AssertionError(f"{where}: the replayed steps' tokens "
+                             f"{out.tolist()} != the eager step's "
+                             f"{eager.tolist()}")
+    kernels = {"flash_attention", "decode_attention"} if attn_layers else set()
+    if set(worst) != kernels or max(worst.values(), default=0.0) > ATTN_TOL:
+        raise AssertionError(f"{where} eager check: kernels vs plain in the "
+                             f"path {worst} (tol {ATTN_TOL})")
+    log(phase, f"{where} eager check: {n_dfu - 1} steps of "
+               f"Server._decode_step at host positions give the replays' "
+               f"tokens bit for bit; every attention call vs its plain "
+               f"version on the same inputs: "
+               + (", ".join(f"{k} {v:.3e}" for k, v in sorted(worst.items()))
+                  or "none (attention-free)") + f" (tol {ATTN_TOL:g})")
+    if not n_memcopy:
+        return launched, out, st
+    # memcopy: the state round-trips around the prefill and every step,
+    # through the captured step's device buffers
+    reset_counts()
+    mc, out_mc, _ = serve_run(model, params, "memcopy", n_memcopy, prompt,
+                              dev, max_len, extra, start)
     got = counts()
     add(got)
     st_mc = mc.stats
@@ -2408,39 +2630,32 @@ def serve_policies(model, params, prompt, *, n_dfu: int, n_memcopy: int,
         raise AssertionError(f"{where} memcopy tokens {out_mc.tolist()} != "
                              f"dfu's {out[:, :n_memcopy].tolist()}")
     expect("memcopy", got, n_memcopy)
-    kernels = {"flash_attention", "decode_attention"} if attn_layers else set()
-    if set(worst) != kernels or max(worst.values(), default=0.0) > ATTN_TOL:
-        raise AssertionError(f"{where} memcopy: kernels vs plain in the path "
-                             f"{worst} (tol {ATTN_TOL})")
+    replayed("memcopy", mc, n_memcopy)
     log(phase, f"{where} memcopy generate(.., {n_memcopy}): prefill "
                f"{st_mc.prefill_s:.3f} s, decode {st_mc.decode_s:.3f} s for "
-               f"{n_memcopy - 1} steps (each with the plain versions beside "
-               f"the kernels); h->d {st_mc.bytes_host_to_dev} B, d->h "
+               f"{n_memcopy - 1} steps ({mc.replays} replays); h->d "
+               f"{st_mc.bytes_host_to_dev} B, d->h "
                f"{st_mc.bytes_dev_to_host} B ({n_memcopy} x the state); "
-               f"tokens equal dfu's first {n_memcopy}; every attention call "
-               f"vs its plain version on the same inputs: "
-               + (", ".join(f"{k} {v:.3e}" for k, v in sorted(worst.items()))
-                  or "none (attention-free)")
-               + f" (tol {ATTN_TOL:g}); launches {got}")
+               f"tokens equal dfu's first {n_memcopy}; launches {got}")
     return launched, out, st
 
 
 def serve_cross_check(cfg, prompt, n: int, dev, where: str,
                       phase: str = "serve_moe_ssm", extra=None,
                       start=None) -> None:
-    """The cached steps against a forward without a cache, at full width
-    over CROSS_LAYERS layers (cross_check), with their flash and decode
-    launches asserted; they are not counted as the main path's.
-    ``extra`` and ``start`` as generate_keeping's (a VLM's patches, its
-    decode from P + T)."""
+    """The cached steps (eager_run's, which keeps every step's logits)
+    against a forward without a cache, at full width over CROSS_LAYERS
+    layers (cross_check), with their flash and decode launches asserted;
+    they are not counted as the main path's.  ``extra`` and ``start`` as
+    eager_run's (a VLM's patches, its decode from P + T)."""
     import dataclasses
     import torch
     small = dataclasses.replace(cfg, n_layers=CROSS_LAYERS)
     model, params = serve_model(small, dev, phase)
     reset_counts()
-    _, out, cached = generate_keeping(
-        model, params, "dfu", n, prompt, dev,
-        (start or prompt.shape[1]) + n, extra=extra, start=start)
+    out, cached = eager_run(model, params, n, prompt, dev,
+                            (start or prompt.shape[1]) + n, extra=extra,
+                            start=start)
     cut = cross_check(model, params, prompt, out, cached, dev, where, extra)
     got = counts()
     attn = sum(small.is_attn_layer(i) for i in range(small.n_layers))
@@ -4645,9 +4860,24 @@ def apps_serve(card: str) -> dict:
             "memcopy": (SO_GEN * state, SO_GEN * state, 0, 0,
                         steps * SO_BATCH),
             "pinned": (0, 0, steps, 0, steps * SO_BATCH)}
+    made, real_server = [], serve_offload.Server
+
+    class Recorded(real_server):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            made.append(self)
+
     reset_counts()
-    out = serve_offload.main(["--no-reduced"])
+    serve_offload.Server = Recorded
+    try:
+        out = serve_offload.main(["--no-reduced"])
+    finally:
+        serve_offload.Server = real_server
     launched = counts()
+    if [srv.replays for srv in made] != [steps - 1] * len(out):
+        raise AssertionError(f"apps (d): replays per Server "
+                             f"{[srv.replays for srv in made]}, want "
+                             f"{steps - 1} each (a warm-up, then replays)")
     for policy, (tokens, st) in out.items():
         have = (st.bytes_host_to_dev, st.bytes_dev_to_host, st.cache_reuses,
                 st.migrations, st.tokens)
@@ -4675,7 +4905,24 @@ def apps_serve(card: str) -> dict:
     log("apps", f"(d) tokens {tuple(tokens.shape)} equal under "
                 f"{sorted(out)}; the state {state} B (float32 ssm_h and "
                 f"conv_state); launches {launched} ({per_forward} per "
-                f"forward)")
+                f"forward); {steps - 1} replays per Server")
+    # the replays against the step run from Python, then the last
+    # Server's replay checks
+    srv = made[-1]
+    prompt = torch.randint(0, cfg.vocab, (SO_BATCH, serve_offload.PROMPT),
+                           generator=torch.Generator().manual_seed(1))
+    reset_counts()
+    eager, _ = eager_run(srv.model, srv.params, SO_GEN, prompt, srv.device,
+                         SO_LEN, cache_dtype=torch.float32)
+    if not torch.equal(eager, tokens):
+        raise AssertionError(f"apps (d): the replays' tokens differ from "
+                             f"the eager step's")
+    log("apps", f"(d) eager check: {steps} steps of Server._decode_step "
+                f"at host positions give the replays' tokens bit for bit")
+    STEP_TIMES["apps (d) mamba2-1.3b, float32 state"] = replay_checks(
+        srv, tokens[:, -1:], serve_offload.PROMPT + SO_GEN - 1,
+        f"(d) mamba2-1.3b {srv.scfg.offload_policy}", "apps")
+    del made, srv
     return launched
 
 
@@ -4857,6 +5104,9 @@ def phase_apps(dev) -> dict:
 #: device times (ms) of whole steps that the serve and train phases
 #: profile, for the mesh phase's roofline (e)
 MEASURED: dict = {}
+#: each served model's replayed decode step: wall ms, device ms, idle
+#: share (replay_checks), summed up at the end
+STEP_TIMES: dict = {}
 
 
 def main() -> int:
@@ -4916,6 +5166,10 @@ def main() -> int:
         if row["launches"] == 0:
             raise AssertionError(f"{name} kernel never launched on the "
                                  f"main path")
+    for where, t in STEP_TIMES.items():
+        log("done", f"{where}: replayed decode step wall {t['wall']:.2f} "
+                    f"ms, device {t['device']:.2f} ms, idle share "
+                    f"{t['idle']:.3f}; eager step {t['eager']:.2f} ms")
     log("done", f"peak device memory "
                 f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     keys = ("name", "route", "source", "replaces", "launches",

@@ -262,11 +262,8 @@ def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     pl = plan(q, k, v)
     q, k, v = (x.contiguous() if c else x for x, c in zip((q, k, v), pl.copy))
-    global launches, copies
-    with compat.COUNT_LOCK:
-        copies += sum(pl.copy)
-        launches += 1
-        launches_by_path[pl.path] += 1
+    compat.count(globals(), copies=sum(pl.copy), launches=1)
+    compat.count(launches_by_path, **{pl.path: 1})
     rc = _entry(pl.path)(
         CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), b, hq, hkv, tq, tk, d, strides(q, (0, 1, 2)),

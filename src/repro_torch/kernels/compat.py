@@ -16,6 +16,7 @@ its library, and that request compiles every source at once, one
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -25,7 +26,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterator, List, MutableMapping
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -44,6 +45,47 @@ _LOCK = threading.Lock()
 #: guards the wrappers' launch counters (``gemm.launches`` and the
 #: rest), which worker threads of one process update concurrently
 COUNT_LOCK = threading.Lock()
+
+#: per thread: the record of the stream capture under way, else None
+_CAPTURE = threading.local()
+
+
+def count(counters: MutableMapping[str, int], **moves: int) -> None:
+    """Add ``moves`` to the named launch counters of ``counters`` (a
+    kernel module's ``globals()``, or a dict of counters such as
+    ``attention.launches_by_path``) under :data:`COUNT_LOCK`.  While this
+    thread captures a CUDA graph (:func:`recording`) nothing launches, so
+    the moves go into the capture's record instead, and every replay of
+    the graph adds them (:func:`replayed`)."""
+    record = getattr(_CAPTURE, "record", None)
+    if record is not None:
+        record.append((counters, moves))
+        return
+    with COUNT_LOCK:
+        for name, n in moves.items():
+            counters[name] += n
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[List]:
+    """Collect this thread's counter moves for the block's duration, a
+    stream capture's: yields the record that :func:`replayed` adds once
+    per replay.  Other threads keep counting their own launches."""
+    prev = getattr(_CAPTURE, "record", None)
+    _CAPTURE.record = record = []
+    try:
+        yield record
+    finally:
+        _CAPTURE.record = prev
+
+
+def replayed(record: List) -> None:
+    """Count one replay of a captured graph: every move of its record,
+    under :data:`COUNT_LOCK`."""
+    with COUNT_LOCK:
+        for counters, moves in record:
+            for name, n in moves.items():
+                counters[name] += n
 
 
 class KernelBuildError(RuntimeError):

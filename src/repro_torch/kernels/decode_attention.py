@@ -118,13 +118,11 @@ def _copy_ready(x: torch.Tensor) -> torch.Tensor:
     """``x`` (k or v) itself when the kernel's 16-byte copies can read it
     (a unit stride on D, an aligned base, b, h, t strides of whole 16
     bytes), else a contiguous copy, counted in :data:`copies`."""
-    global copies
     es = x.element_size()
     if (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
             and all(x.stride(i) * es % 16 == 0 for i in range(3))):
         return x
-    with compat.COUNT_LOCK:
-        copies += 1
+    compat.count(globals(), copies=1)
     return x.contiguous()
 
 
@@ -207,7 +205,6 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"q on {q.device}")
     else:
         n = _live(n, s_len)
-    global launches, memsets
     q, k, v = unit_last(q), _copy_ready(k), _copy_ready(v)
     p = plan(b, hkv, s_len, d, n)
     sc = float(scale if scale is not None else 1.0 / math.sqrt(d))
@@ -216,9 +213,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        device=q.device)
     out = torch.empty((b, hq, 1, d), dtype=q.dtype, device=q.device)
     tickets = torch.zeros(b * hkv, dtype=torch.int32, device=q.device)
-    with compat.COUNT_LOCK:
-        memsets += 1
-        launches += 1
+    compat.count(globals(), memsets=1, launches=1)
     rc = _entry()(
         CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), part.data_ptr(), tickets.data_ptr(),

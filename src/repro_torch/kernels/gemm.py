@@ -240,10 +240,7 @@ def _gemm(a: torch.Tensor, b: torch.Tensor, *,
     if p.splits > 1:
         work = torch.empty(p.splits * batch * m * n, dtype=torch.float32,
                            device=a.device)
-    global launches, reduce_launches
-    with compat.COUNT_LOCK:
-        launches += 1
-        reduce_launches += p.splits > 1
+    compat.count(globals(), launches=1, reduce_launches=int(p.splits > 1))
     sa = a.stride(0) if batched else 0
     sb = b.stride(0) if batched else 0
     sc = out.stride(0) if batched else 0

@@ -29,7 +29,7 @@ planes) runs on the gemm kernel, which accumulates float64 in float64.
 from __future__ import annotations
 
 import functools
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -135,15 +135,17 @@ def syrk(a: torch.Tensor, *, uplo: str = "L", trans: str = "N"
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0, softcap: float = 0.0,
-              scale: Optional[float] = None, kv_len: Optional[int] = None,
+              scale: Optional[float] = None,
+              kv_len: Union[int, torch.Tensor, None] = None,
               chunk_q: int = 0) -> torch.Tensor:
     """Attention entry point for the model stack, with the branches of
     ``repro/kernels/ops.py:111-132`` in the same order.  The reference's
     ``use_pallas()`` is the kernel wrapper here, so on the CPU the same
     branch runs that wrapper's plain version:
 
-    * one token (Tq 1) against a cache (``kv_len`` set), causal, no window:
-      the decode kernel;
+    * one token (Tq 1) against a cache (``kv_len`` set: a host integer,
+      or a one-element int32 tensor on the device, as a captured decode
+      step passes it), causal, no window: the decode kernel;
     * Tq >= 8 with no ``kv_len`` (a forward without a cache, or a prefill
       that attends over its fresh keys): the flash kernel;
     * else the query-chunked or the full plain formulation, as the

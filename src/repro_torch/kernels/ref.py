@@ -12,7 +12,7 @@ interceptor (``repro_torch.core.intercept``).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -79,7 +79,8 @@ NEG_INF = -1e30
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0, softcap: float = 0.0,
-              scale: Optional[float] = None, kv_len: Optional[int] = None,
+              scale: Optional[float] = None,
+              kv_len: Union[int, torch.Tensor, None] = None,
               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Attention in float32, ``repro/kernels/ref.py:44-90``.  q is
     [B, Hq, Tq, D], k and v [B, Hkv, Tk, D] with Hq a multiple of Hkv
@@ -87,7 +88,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     then masked: keys at or past ``kv_len`` (default Tk), and with
     ``causal`` keys after the query, with ``window`` keys ``window`` or
     more behind it.  Queries sit right-aligned at positions
-    ``kv_len - Tq .. kv_len - 1``."""
+    ``kv_len - Tq .. kv_len - 1``.  ``kv_len`` may be a one-element
+    integer tensor on q's device, which the masks read there."""
     b, hq, tq, d = q.shape
     hkv, tk = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -98,7 +100,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     logits = torch_matmul(qf, kf.mT) * s
     if softcap > 0.0:
         logits = torch.tanh(logits / softcap) * softcap
-    live = tk if kv_len is None else int(kv_len)
+    if kv_len is None:
+        live = tk
+    elif isinstance(kv_len, torch.Tensor):
+        live = kv_len.reshape(1)
+    else:
+        live = int(kv_len)
     qpos = torch.arange(tq, device=q.device)[:, None] + (live - tq)
     kpos = torch.arange(tk, device=q.device)[None, :]
     mask = kpos < live

@@ -106,9 +106,7 @@ def fused(a: torch.Tensor, b: torch.Tensor, scheme: str, *,
     splits = splits_for(m, n, k)
     work = torch.empty(2 * splits * m * n, dtype=torch.float64,
                        device=a.device)
-    global launches
-    with compat.COUNT_LOCK:
-        launches += 2
+    compat.count(globals(), launches=2)
     rc = _fn("repro_split_gemm", _GEMM_ARGS)(
         _SCHEMES[scheme], a.data_ptr(), b.data_ptr(), out.data_ptr(),
         work.data_ptr(), m, n, k, a.stride(0), a.stride(1), b.stride(0),

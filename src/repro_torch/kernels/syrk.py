@@ -180,9 +180,7 @@ def syrk(a: torch.Tensor, *, uplo: str = "L",
     work = (torch.empty(batch * p.blocks * p.edge * p.edge,
                         dtype=torch.float64, device=a.device)
             if p.splits > 1 else None)
-    global launches
-    with compat.COUNT_LOCK:
-        launches += 1
+    compat.count(globals(), launches=1)
     rc = _entry()(CODES[a.dtype], a.data_ptr(), out.data_ptr(), n, k,
                   a3.stride(1), c3.stride(1), batch, a3.stride(0),
                   c3.stride(0), int(trans == "T"), int(uplo == "L"),

@@ -105,7 +105,7 @@ def encode(params: Params, cfg: ModelConfig,
 
 def _dec_layer_fwd(p, cfg: ModelConfig, x: torch.Tensor,
                    positions: torch.Tensor, enc: Optional[torch.Tensor],
-                   cache, cache_pos: Optional[int]):
+                   cache, cache_pos: Optional[L.Pos]):
     """One decoder layer; returns (x, this layer's cross K/V)."""
     out, _ = L.attention_fwd(p["attn"], cfg, _norm(x, p["ln1"]), positions,
                              cache=cache[0] if cache is not None else None,
@@ -124,19 +124,19 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             frames: Optional[torch.Tensor] = None,
             enc_out: Optional[torch.Tensor] = None,
             cache: Optional[Tuple] = None,
-            cache_pos: Optional[int] = None,
+            cache_pos: Optional[L.Pos] = None,
             last_only: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Tuple]]:
     """The decoder's forward: (logits (B, T, V) float32, aux 0, new
     cache).  Give ``frames`` (training, prefill) or a ``cache`` holding
-    the cross K/V (decode).  ``cache_pos`` is a host integer."""
+    the cross K/V (decode).  ``cache_pos`` is a host integer or a
+    one-element int32 tensor on the model's device (a captured decode
+    step's position, never read on the host)."""
     dtype = torch_dtype(cfg.dtype)
     if enc_out is None and frames is not None:
         enc_out = encode(params, cfg, frames)
-    start = int(cache_pos) if cache_pos is not None else 0
     x = L.embed_fwd(params["embed"], cfg, tokens, dtype)
-    positions = torch.arange(start, start + tokens.shape[1],
-                             dtype=torch.int32, device=x.device)
+    positions = L.positions_from(cache_pos, tokens.shape[1], x.device)
     x = x + params["pos_dec"][positions].to(dtype)
     fresh = []
     for g in range(cfg.n_layers):

@@ -25,8 +25,11 @@ numerics:
   (``Model.init(..., master=True)``) take the reference's casts and its
   gradients;
 * the decode-cache write (``dynamic_update_slice``, ``:128-131``) is an
-  in-place slice write into the caller's cache tensors, which come back
-  as the new cache;
+  in-place write into the caller's cache tensors, which come back as the
+  new cache: a slice write at a host integer ``cache_pos``, an
+  ``index_copy_`` at a one-element int32 tensor on the cache's device
+  (the position of a captured decode step, never read on the host; the
+  decode kernel then reads ``kv_len`` there too);
 * the logit soft-cap runs in place on the float32 logits, so the
   (B, T, vocab) prefill logits exist once, not three times (training
   takes the out-of-place form, whose tanh autograd keeps);
@@ -35,8 +38,9 @@ numerics:
 """
 from __future__ import annotations
 
+import functools
 import itertools
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -48,6 +52,22 @@ from repro_torch.models.sharding import (embedding, merge_last, shard,
 
 #: rows generated at a time by :func:`dense_init` (bounds its float32 temp)
 _INIT_ROWS = 8192
+
+#: a cache position: a host integer, or a one-element int32 tensor on the
+#: model's device (a captured decode step's)
+Pos = Union[int, torch.Tensor]
+
+
+def positions_from(cache_pos: Optional[Pos], t: int,
+                   device) -> torch.Tensor:
+    """The int32 positions ``cache_pos .. cache_pos + t - 1`` (from 0
+    without a cache position), on ``device``; a tensor position is never
+    read on the host."""
+    if isinstance(cache_pos, torch.Tensor):
+        return cache_pos.reshape(1).to(torch.int32) + torch.arange(
+            t, dtype=torch.int32, device=device)
+    start = int(cache_pos) if cache_pos is not None else 0
+    return torch.arange(start, start + t, dtype=torch.int32, device=device)
 
 
 class Params(nn.Module):
@@ -128,10 +148,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     computed in float32 as the reference computes them."""
     d = x.shape[-1]
     half = d // 2
-    step = (torch.log(torch.tensor(theta, dtype=torch.float32))
-            / half).to(x.device)
     freqs = torch.exp(-torch.arange(half, dtype=torch.float32,
-                                    device=x.device) * step)
+                                    device=x.device) * _rope_step(theta, half))
     if positions.dim() == 1:
         ang = positions.float()[:, None] * freqs[None, :]  # (T, half)
     else:
@@ -140,6 +158,15 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_step(theta: float, half: int) -> float:
+    """log(theta) / half, computed in float32 on the CPU and given to the
+    device as a scalar: no host-to-device copy in the forward, which a
+    captured step could not hold."""
+    step = torch.log(torch.tensor(theta, dtype=torch.float32)) / half
+    return float(step)
 
 
 # ----------------------------------------------------------------------- #
@@ -169,14 +196,15 @@ def attention_fwd(p, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, *, window: int = 0,
                   causal: bool = True,
                   cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                  cache_pos: Optional[int] = None,
+                  cache_pos: Optional[Pos] = None,
                   kv_override: Optional[Tuple[torch.Tensor,
                                               torch.Tensor]] = None,
                   ) -> Tuple[torch.Tensor, Optional[Tuple]]:
     """Self- (or cross-) attention with an optional decode cache.
 
     cache: (k_cache, v_cache) each (B, Hkv, S, D), written in place at
-    ``cache_pos`` and returned as the new cache.  kv_override: a
+    ``cache_pos`` (a host integer or a one-element int32 device tensor)
+    and returned as the new cache.  kv_override: a
     precomputed (k, v) for cross-attention (:func:`cross_kv`); q then
     takes no rope, as in the reference."""
     t = x.shape[1]
@@ -207,14 +235,22 @@ def attention_fwd(p, cfg: ModelConfig, x: torch.Tensor,
                      and kv_override is None)
     if cache is not None:
         kc, vc = cache
-        pos = int(cache_pos) if cache_pos is not None else 0
-        kc[:, :, pos:pos + t] = k
-        vc[:, :, pos:pos + t] = v
+        if isinstance(cache_pos, torch.Tensor):
+            at = positions_from(cache_pos, t, kc.device)
+            slots = at.long()
+            kc.index_copy_(2, slots, k.to(kc.dtype))
+            vc.index_copy_(2, slots, v.to(vc.dtype))
+            end = at[-1:] + 1
+        else:
+            pos = int(cache_pos) if cache_pos is not None else 0
+            kc[:, :, pos:pos + t] = k
+            vc[:, :, pos:pos + t] = v
+            end = pos + t
         new_cache = (kc, vc)
         if not fresh_prefill:
             # from-scratch prefill attends over the fresh k/v instead
             k, v = kc, vc
-            kv_len = pos + t
+            kv_len = end
 
     chunk_q = cfg.attn_chunk_q if ((cache is None or fresh_prefill)
                                    and causal and window == 0) else 0

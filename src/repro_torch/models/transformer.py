@@ -101,7 +101,8 @@ def _ssd_fwd(p, cfg: ModelConfig, h: torch.Tensor, cache):
 
 def _block_fwd(p, cfg: ModelConfig, x: torch.Tensor,
                positions: torch.Tensor, pos: int, *, cache=None,
-               cache_pos: Optional[int] = None, moe_impl: str = "scatter"):
+               cache_pos: Optional[L.Pos] = None,
+               moe_impl: str = "scatter"):
     """One layer; returns (x, aux, new_cache)."""
     h = L.rms_norm(x, p["ln1"], cfg.rms_eps, cfg.norm_offset)
     if cfg.is_attn_layer(pos):
@@ -170,12 +171,15 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
             patch_embeds: Optional[torch.Tensor] = None,
             cache: Optional[Tuple] = None,
-            cache_pos: Optional[int] = None,
+            cache_pos: Optional[L.Pos] = None,
             moe_impl: str = "scatter",
             last_only: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Tuple]]:
     """tokens: (B, T) -> (logits (B, T, V) float32, aux_loss, new_cache).
-    ``cache_pos`` is a host integer: where this call's tokens start.
+    ``cache_pos`` is where this call's tokens start: a host integer, or
+    a one-element int32 tensor on the model's device, as the reference
+    takes a traced ``jnp.int32`` (a captured decode step's position,
+    never read on the host).
     ``aux_loss`` is the MoE layers' router loss, summed over layers.
     ``patch_embeds`` (B, P, d), a VLM's stub frontend output, go before
     the tokens; the logits then cover the T text positions only."""
@@ -189,9 +193,7 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                       dim=1)
     t = x.shape[1]
     if positions is None:
-        start = int(cache_pos) if cache_pos is not None else 0
-        positions = torch.arange(start, start + t, dtype=torch.int32,
-                                 device=x.device)
+        positions = L.positions_from(cache_pos, t, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     n_groups = cfg.n_layers // period
     for g in range(n_groups):

@@ -23,8 +23,29 @@ simulated tiers.  Its calls run under that device's tier mapping
 (``memspace.installed``), never under the process-wide probe.  Greedy
 decoding is ``torch.argmax`` (the first maximum, as ``jnp.argmax``);
 temperature sampling draws from a ``torch.Generator`` seeded with
-``ServeConfig.seed``, so its draws differ from JAX's by construction.
-Steps run eagerly: no jit counterpart, no CUDA graphs yet.  ``prefill``
+``ServeConfig.seed`` (``torch.multinomial``'s one-sample draw, written
+out: exponential noise, then the argmax of probs / noise), so its draws
+differ from JAX's by construction.
+
+The decode step is the counterpart of the reference's
+``jax.jit(self._decode_step)`` (``serve.py:76``).  On the card it is one
+``torch.cuda.CUDAGraph`` per Server: the Server's first decode step runs
+eagerly on a side stream (the warm-up: it loads every kernel the step
+launches, and it is a real step, counted as such), the second captures
+the step and replays the capture, every later one replays it.  The
+capture's static buffers are the input token, the position (a
+one-element int32 tensor, which the model reads on the device, as the
+reference traces a ``jnp.int32``), the cache's device-tier tensors and
+the output token.  Placement keeps its meaning: under ``dfu`` the cache
+migrates once into the buffers the graph captures, ``pinned`` is born
+there, and ``memcopy`` copies the host cache into them and back out
+around every step (they stay allocated between steps).  A decode on
+another cache of the same shapes copies it into the captured buffers on
+the card; other shapes warm up and capture anew.  The launch counters
+(``gemm.launches`` and the rest) count each replay as the captured step's
+launches (``kernels.compat.recording``).  A capture fails loudly: no
+eager fallback exists on the card.  The CPU (``device="cpu"``) runs
+every step eagerly with a host-integer position.  ``prefill``
 and ``generate`` take the reference's ``extra`` inputs: an enc-dec
 model's ``frames``, a VLM's ``patch_embeds``.  ``generate`` keeps the
 reference's decode start, ``prompt.shape[1]`` (``serve.py:160``), which
@@ -42,6 +63,7 @@ import torch
 
 from repro_torch.core import memspace
 from repro_torch.core.memspace import DEVICE, HOST
+from repro_torch.kernels import compat
 from repro_torch.models.registry import Model
 
 
@@ -88,6 +110,42 @@ def _tree_put(tree, tier: str) -> Tuple[Any, int]:
     return memspace.put(tree, tier, check=False), memspace.nbytes(tree)
 
 
+def _same(a, b) -> bool:
+    """The two trees hold the very same tensors (by storage and view)."""
+    la, lb = _leaves(a), _leaves(b)
+    return len(la) == len(lb) and all(
+        memspace.buffer_key(x) == memspace.buffer_key(y)
+        for x, y in zip(la, lb))
+
+
+def _fits(a, b) -> bool:
+    """Tree ``b`` can be copied into tree ``a``: leaf for leaf the same
+    shape and dtype."""
+    la, lb = _leaves(a), _leaves(b)
+    return len(la) == len(lb) and all(
+        (x.shape, x.dtype) == (y.shape, y.dtype) for x, y in zip(la, lb))
+
+
+def _copy_tree(dst, src) -> int:
+    """Copy tree ``src`` into tree ``dst`` leaf for leaf; returns the
+    bytes copied."""
+    moved = 0
+    for d, s in zip(_leaves(dst), _leaves(src)):
+        d.copy_(s)
+        moved += memspace.nbytes(s)
+    return moved
+
+
+@dataclasses.dataclass
+class _Captured:
+    """One captured decode step and its static buffers."""
+    graph: Any                  # torch.cuda.CUDAGraph
+    tok: torch.Tensor           # input token (B, 1)
+    cache: Any                  # the cache's device-tier tensors
+    out: torch.Tensor           # output token (B, 1), rewritten per replay
+    record: list                # launch counter moves of one replay
+
+
 class Server:
     """Batched greedy/temperature decoding over one model replica."""
 
@@ -101,22 +159,100 @@ class Server:
         self.stats = ServeStats()
         self._gen = torch.Generator(device=self.device).manual_seed(
             scfg.seed)
+        #: the card's decode step: its side stream, the position buffer
+        #: (set by the warm-up), the capture, and the replays run so far
+        self._stream = None
+        self._pos: Optional[torch.Tensor] = None
+        self._graph: Optional[_Captured] = None
+        self.replays = 0
 
     # ------------------------------------------------------------------ #
     def _sync(self) -> None:
+        # the Server's own stream only: another thread's Server may be
+        # capturing its step meanwhile
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
 
-    def _decode_step(self, tok, cache, pos: int):
+    def _decode_step(self, tok, cache, pos):
+        """One token for every row: the forward at ``pos`` (a host
+        integer, or the one-element int32 device tensor of the captured
+        step) and its sampling; returns (next token (B, 1), cache)."""
         logits, _, cache = self.model.forward(self.params, tok, cache=cache,
                                               cache_pos=pos)
         logits = logits[:, -1, :]
         if self.scfg.temperature > 0:
             probs = torch.softmax(logits / self.scfg.temperature, dim=-1)
-            tok = torch.multinomial(probs, 1, generator=self._gen)
+            noise = torch.empty_like(probs).exponential_(
+                1.0, generator=self._gen)
+            tok = torch.argmax(probs / noise, dim=-1, keepdim=True)
         else:
             tok = torch.argmax(logits, dim=-1)[:, None]
         return tok, cache
+
+    def _step(self, tok, cache, pos: int):
+        """One decode step on the card: warm up (eager, the Server's first
+        step), capture and replay (the second), or replay.  Returns
+        (token, cache) like :meth:`_decode_step`; the cache is the
+        graph's device buffers."""
+        g = self._graph
+        if g is not None and not _same(g.cache, cache):
+            if _fits(g.cache, cache):
+                _copy_tree(g.cache, cache)
+                cache = g.cache
+            else:       # other shapes: warm up and capture anew
+                g = self._graph = None
+                self._pos = None
+        current = torch.cuda.current_stream(self.device)
+        if self._pos is None:
+            self._stream = torch.cuda.Stream(self.device)
+            self._pos = torch.full((1,), pos, dtype=torch.int32,
+                                   device=self.device)
+            self._stream.wait_stream(current)
+            with torch.cuda.stream(self._stream):
+                tok, cache = self._decode_step(tok, cache, self._pos)
+            current.wait_stream(self._stream)
+            return tok, cache
+        if g is None:
+            g = self._graph = self._capture(tok, cache)
+        self._pos.fill_(pos)
+        g.tok.copy_(tok)
+        g.graph.replay()
+        compat.replayed(g.record)
+        self.replays += 1
+        return g.out.clone(), g.cache
+
+    def _capture(self, tok, cache) -> _Captured:
+        """Capture :meth:`_decode_step` on the side stream, in this
+        thread's own capture mode (``thread_local``: concurrent streams'
+        Servers capture in their own threads), with the sampling
+        generator registered.  Nothing runs until the first replay; the
+        counters' moves go into the capture's record."""
+        graph = torch.cuda.CUDAGraph()
+        if self.scfg.temperature > 0:
+            graph.register_generator_state(self._gen)
+        static_tok = torch.empty_like(tok)
+        self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._stream), compat.recording() as record:
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                out, cache = self._decode_step(static_tok, cache, self._pos)
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass        # the capture was already invalidated
+                raise
+            graph.capture_end()
+        torch.cuda.current_stream(self.device).wait_stream(self._stream)
+        return _Captured(graph, static_tok, cache, out, record)
+
+    def _to_device(self, cache) -> Tuple[Any, int]:
+        """memcopy's move toward the device: into the captured buffers
+        when the graph has them, else a fresh copy."""
+        g = self._graph
+        if g is None or not _fits(g.cache, cache):
+            return _tree_put(cache, DEVICE)
+        return g.cache, _copy_tree(g.cache, cache)
 
     # ------------------------------------------------------------------ #
     def prefill(self, tokens: torch.Tensor, extra: Optional[Dict] = None
@@ -159,6 +295,8 @@ class Server:
                n_tokens: int) -> Tuple[torch.Tensor, Any]:
         """Generate ``n_tokens``; cache placement per the policy."""
         policy = self.scfg.offload_policy
+        card = self.device.type == "cuda"
+        step = self._step if card else self._decode_step
         outs = []
         with memspace.installed(self.space), torch.no_grad():
             tok = tok.to(self.device)
@@ -175,9 +313,10 @@ class Server:
                     else:
                         self.stats.cache_reuses += 1
                 elif policy == "memcopy":
-                    cache, moved = _tree_put(cache, DEVICE)
+                    cache, moved = (self._to_device(cache) if card
+                                    else _tree_put(cache, DEVICE))
                     self.stats.bytes_host_to_dev += moved
-                tok, cache = self._decode_step(tok, cache, pos)
+                tok, cache = step(tok, cache, pos)
                 if policy == "memcopy":
                     cache, moved = _tree_put(cache, HOST)
                     self.stats.bytes_dev_to_host += moved
