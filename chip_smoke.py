@@ -53,8 +53,12 @@ order:
 5. solvers — one DFU session with lapack=True, lapack_nb 256: (a) the
              LSMS loop again, its LU now the tier's blocked getrf/getrs
              spans (span counts, panels, residual, energy against the
-             native LU's, G moved once per atom; each span's time split
-             into panels, zgemm and ztrsm, beside cuSOLVER's); (b)
+             native LU's, G moved once per atom; the first getrf
+             captures a graph per bucket of its 27 panel heights (8),
+             the three later ones replay all 27; each span's time split
+             into panels, zgemm and ztrsm, the first apart from the
+             replayed, beside cuSOLVER's; one replayed panel bit for bit
+             the column loop run from Python); (b)
              torch.linalg.solve and cholesky + cholesky_solve in float64
              at n 6912 (backward error), eigh at n 2400 (residual,
              orthogonality, eigenvalues); (c) the session's trace
@@ -161,15 +165,22 @@ order:
              its own inputs per row against plain.  (a) whisper-tiny at
              full width and depth, batch 8 x 448 tokens with 1500
              frames, 24 AdamW steps on float32 masters (each use cast to
-             bf16), under deterministic algorithms: 3 gemm launches per
-             forward product per step (the forward, dA, dB), 12 flash
-             per step, the loss falling; a restart from the step-12
-             checkpoint bit for bit the uninterrupted run; one step
-             under remat dots (gemm 3 x, flash 2 x) and full (gemm 4 x,
-             flash 2 x); a profiled step; the host's cost per call of
-             the autograd operators.  (b) qwen1.5-4b at full width over
+             bf16), under deterministic algorithms, the first the
+             Trainer's eager warm-up and the 23 others replays of its
+             captured step: 3 gemm launches per forward product per
+             step (the forward, dA, dB), 12 flash per step, per replay
+             from the capture's record, the loss falling; a restart
+             from the step-12 checkpoint (a new Trainer, its own
+             capture) bit for bit the uninterrupted run; one step under
+             remat dots (gemm 3 x, flash 2 x) and full (gemm 4 x, flash
+             2 x), eager and as 3 captured steps; a replayed step under
+             sync debug mode "error", profiled (kernels by name = the
+             record; wall, device time, idle share) and against the same
+             step eager; the host's cost per call of the autograd
+             operators.  (b) qwen1.5-4b at full width over
              4 of its 40 layers, batch 4 x 1024, 5 steps at the
-             reference's TrainConfig (lr 3e-4, warmup 20): launches, a
+             reference's TrainConfig (lr 3e-4, warmup 20), 4 of them
+             replays: launches, a
              finite falling loss, peak memory, each step's loss within
              1e-2 of the same fit forced plain; the witness fits at
              warmup 1, on the kernels and plain.  The main-path runs of
@@ -220,16 +231,17 @@ order:
              per forward, 30 replays per Server, the tokens bit for bit
              the eager step's, the captured step's checks as in 8; (e)
              train_100m at its widths (8 x 256, n_micro
-             2, remat dots), steps cut from 300 to 150 with a checkpoint
-             every 50 (the script's time limit): first
+             2, remat dots), its own 300 steps with a checkpoint every
+             100: first
              its first step's loss and gradients through the kernels
              against the plain step at float32 tolerances, with the
              transposed-dB control, and gemm.cu's and flash's FMA paths
              at the model's shapes; then the twin's main: 3 gemm.cu
              launches per product per microbatch, flash twice per layer
-             per microbatch all on the FMA path, a finite falling loss,
-             checkpoints 50, 100, 150, the last restored bit for bit; a
-             profiled training step.  Meanwhile CPU processes replay
+             per microbatch all on the FMA path, 299 replays of the
+             captured step, a finite falling loss, checkpoints 100, 200,
+             300, the last restored bit for bit; the replayed step's
+             checks as in 11.  Meanwhile CPU processes replay
              the LSMS and PARSEC production traces on the GH200 and H100
              models; their tables print at the end.
 
@@ -1443,16 +1455,19 @@ def phase_lsms(s, dev, n: int = 6912) -> tuple:
 class SolverClock:
     """Times the solver tier on the card for the ``with`` block: each
     driver call of ``repro_torch.solvers.drivers`` (one span each) and
-    the unblocked panels (``repro_torch.core.lapack._pivot_panel``)
-    inside it, each synchronized before and after, with the bytes the
-    session moved during the span.  ``first`` keeps each driver's first
-    arguments, for the library yardstick on the same inputs."""
+    the unblocked panels inside it (``repro_torch.core.lapack.
+    _factor_panel``: a capture and its replay, or a replay), each
+    synchronized before and after, with the bytes the session moved
+    during the span and the panels captured.  ``first`` keeps the first
+    arguments of each routine, for the library yardstick on the same
+    inputs."""
 
     DRIVERS = ("getrf", "getrs", "gesv", "potrf", "potrs", "syev")
 
     def __init__(self, stats):
         self.stats = stats
         self.spans = []          # (span id, wall s, panels s, moved B)
+        self.captured = {}       # span id -> panels captured in it
         self.first = {}
         self._panel_s = 0.0
         self._saved = []
@@ -1461,7 +1476,7 @@ class SolverClock:
         import torch
         from repro_torch.core import lapack
         from repro_torch.solvers import drivers
-        panel = lapack._pivot_panel
+        panel = lapack._factor_panel
 
         def timed_panel(p):
             torch.cuda.synchronize()
@@ -1469,8 +1484,8 @@ class SolverClock:
             out = panel(p)       # ends with the pivots' copy to the host
             self._panel_s += time.perf_counter() - t0
             return out
-        self._saved = [(lapack, "_pivot_panel", panel)]
-        lapack._pivot_panel = timed_panel
+        self._saved = [(lapack, "_factor_panel", panel)]
+        lapack._factor_panel = timed_panel
         for name in self.DRIVERS:
             fn = getattr(drivers, name)
             self._saved.append((drivers, name, fn))
@@ -1480,17 +1495,22 @@ class SolverClock:
     def _timed(self, name, fn):
         import torch
 
+        from repro_torch.core import lapack
+
         def timed(*args, **kw):
             self.first.setdefault(name, args)
             torch.cuda.synchronize()
             moved0 = self.stats.total_moved_bytes
+            captures0 = lapack.captures
             self._panel_s = 0.0
             t0 = time.perf_counter()
             out = fn(*args, **kw)
             torch.cuda.synchronize()
-            self.spans.append((f"{name}#{len(self.spans)}",
-                               time.perf_counter() - t0, self._panel_s,
+            sid = f"{name}#{len(self.spans)}"
+            self.spans.append((sid, time.perf_counter() - t0,
+                               self._panel_s,
                                self.stats.total_moved_bytes - moved0))
+            self.captured[sid] = lapack.captures - captures0
             return out
         return timed
 
@@ -1553,6 +1573,7 @@ def phase_solvers(dev, lsms_energy: float, n: int = 6912) -> dict:
     import repro_torch
     from repro_torch import OffloadConfig
     from repro_torch.apps import lsms
+    from repro_torch.core import lapack
     from repro_torch.core.trace import Trace
     from repro_torch.kernels import ref
     from repro_torch.memtier import MemTierSimulator
@@ -1569,6 +1590,9 @@ def phase_solvers(dev, lsms_energy: float, n: int = 6912) -> dict:
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, dtype=f64, device=dev)
+    # every panel shape of (a) is captured in (a)'s first getrf
+    lapack.release_graphs()
+    lapack.reset_launches()
     reset_counts()
     with repro_torch.session(cfg, device=dev) as s, \
             SolverClock(s.stats) as clock:
@@ -1601,6 +1625,23 @@ def phase_solvers(dev, lsms_energy: float, n: int = 6912) -> dict:
         if z.bytes_in != atoms * n * n * 16:
             raise AssertionError(f"solvers (a): zgemm moved {z.bytes_in} "
                                  f"B, want G once per atom")
+        # the first getrf captures each panel shape and replays it, every
+        # later getrf of the shape replays them all
+        # (panel heights padded to lapack.BUCKETS per group)
+        getrfs = [sid for sid, _, _, _ in clock.spans
+                  if sid.startswith("getrf")]
+        captured = [clock.captured[sid] for sid in getrfs]
+        graphs = len(lapack._GRAPHS._groups[
+            (SOLVER_NB, torch.complex128, dev)].graphs)
+        if (lapack.captures, lapack.replays) != (graphs, want * panels) \
+                or captured != [graphs] + [0] * (want - 1) \
+                or graphs > lapack.BUCKETS:
+            raise AssertionError(f"solvers (a): panel graphs captured "
+                                 f"{lapack.captures} ({captured} per "
+                                 f"getrf, {graphs} held), replayed "
+                                 f"{lapack.replays}; want at most "
+                                 f"{lapack.BUCKETS} in the first getrf "
+                                 f"and {want * panels} replays")
         log("solvers", f"(a) lsms n={n} through the tier: energy "
                        f"{out['energy']:.12f} (native LU "
                        f"{lsms_energy:.12f}), max_resid "
@@ -1611,7 +1652,11 @@ def phase_solvers(dev, lsms_energy: float, n: int = 6912) -> dict:
         for sid, _, _, moved in clock.spans:
             if sid.startswith("getrf"):
                 w, p, g, t, ng, nt = clock.split(s.trace, sid)
-                log("solvers", f"(a) {sid}: {w:.3f} s = panels {p:.3f} + "
+                how = (f"captures {clock.captured[sid]} panel graphs, "
+                       f"replays {panels}" if clock.captured[sid]
+                       else f"replays {panels}")
+                log("solvers", f"(a) {sid} ({how}): {w:.3f} s = panels "
+                               f"{p:.3f} + "
                                f"zgemm {g:.3f} ({ng} calls) + ztrsm {t:.3f} "
                                f"({nt}) + the rest {w - p - g - t:.3f} "
                                f"(row swaps, copies); moved {moved} B")
@@ -1681,12 +1726,52 @@ def phase_solvers(dev, lsms_energy: float, n: int = 6912) -> dict:
     # the library yardstick on the same inputs, outside the session
     lu_native = wall_s(lambda: torch.linalg.lu_solve(
         *torch.linalg.lu_factor(m_first), tm_first))
-    getrf_w = [wl for sid, wl, _, _ in clock.spans if sid.startswith("getrf")]
+    lu_factor_native = wall_s(lambda: torch.linalg.lu_factor(m_first))
+    getrf_w = [wl for sid, wl, _, _ in clock.spans[:n_a]
+               if sid.startswith("getrf")]
+    getrf_p = [p for sid, _, p, _ in clock.spans[:n_a]
+               if sid.startswith("getrf")]
     getrs_w = [wl for sid, wl, _, _ in clock.spans if sid.startswith("getrs")]
     log("solvers", f"(a) LU of M ({n}, complex128): the tier's getrf "
                    f"{np.mean(getrf_w):.3f} s + getrs {np.mean(getrs_w):.3f} "
                    f"s per solve (mean of {len(getrf_w)}); cuSOLVER "
-                   f"lu_factor + lu_solve {lu_native:.3f} s")
+                   f"lu_factor + lu_solve {lu_native:.3f} s, lu_factor "
+                   f"{lu_factor_native:.3f} s")
+    log("solvers", f"(a) getrf: the first (captures "
+                   f"{captured[0]} panel graphs for its "
+                   f"{panels} panels) "
+                   f"{getrf_w[0]:.3f} s, panels {getrf_p[0]:.3f} s; the "
+                   f"{len(getrf_w) - 1} replayed "
+                   f"{min(getrf_w[1:]):.3f}-{max(getrf_w[1:]):.3f} s (mean "
+                   f"{np.mean(getrf_w[1:]):.3f}), panels "
+                   f"{min(getrf_p[1:]):.3f}-{max(getrf_p[1:]):.3f} s; "
+                   f"cuSOLVER lu_factor {lu_factor_native:.3f} s; {card_line()}")
+    # one replayed panel against the column loop run eagerly, on M's
+    # first panel; the session's close freed its graphs: capture the
+    # panel's bucket again first
+    lapack._factor_panel(m_first[:, :SOLVER_NB].clone())
+    p_graph = m_first[:, :SOLVER_NB].clone()
+    p_eager = p_graph.clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    piv_graph = lapack._factor_panel(p_graph)
+    t_replay = time.perf_counter() - t0
+    piv_eager = torch.empty(SOLVER_NB, dtype=torch.int64, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lapack._pivot_panel(p_eager, piv_eager)
+    piv_eager = piv_eager.tolist()
+    t_eager = time.perf_counter() - t0
+    if piv_graph != piv_eager or not torch.equal(p_graph, p_eager):
+        raise AssertionError(f"solvers (a): a replayed {n} x {SOLVER_NB} "
+                             f"panel differs from the eager column loop's "
+                             f"(max |diff| "
+                             f"{(p_graph - p_eager).abs().max().item():.3e})")
+    log("solvers", f"(a) M's first panel ({n} x {SOLVER_NB}, complex128): "
+                   f"one replay {t_replay * 1e3:.2f} ms, the column loop "
+                   f"from Python {t_eager * 1e3:.2f} ms; factors and pivots "
+                   f"bit for bit")
+    del p_graph, p_eager
     natives = {
         "gesv": wall_s(lambda: torch.linalg.solve(a, b)),
         "potrf": wall_s(lambda: torch.linalg.cholesky(h)),
@@ -1974,30 +2059,26 @@ def marked_events(prof) -> list:
             and e.time_range.start >= after]
 
 
-def replay_checks(srv, tok, pos: int, where: str, phase: str,
-                  reps: int = 5) -> dict:
-    """A Server whose decode step is captured, after its run: one more
-    replay at ``pos`` under ``set_sync_debug_mode("error")`` (a replay
-    makes no host sync); two replays under torch.profiler, the second's
-    kernels (marked_events) counted by name against the capture's record
-    (the counters' amounts per replay), its wall, device time and idle
-    share; then ``reps`` replays by the host clock, and ``reps`` eager
-    steps (``Server._decode_step`` at the host position, on the same
-    buffers) beside them.  These steps are not the main path's launches.
-    Returns the replayed step's wall ms (unprofiled), device ms and idle
-    share, and the eager step's wall ms."""
+def measure_replays(replay, eager, record, where: str, phase: str,
+                    reps: int = 5) -> dict:
+    """A captured step, after its run: one more ``replay()`` under
+    ``set_sync_debug_mode("error")`` (a replay makes no host sync); two
+    replays under torch.profiler, the second's kernels (marked_events)
+    counted by name against the capture's ``record`` (the counters'
+    amounts per replay), its wall, device time and idle share; then
+    ``reps`` replays by the host clock, and ``reps`` ``eager()`` steps
+    (the same step run from Python on the same buffers) beside them.
+    These steps are not the main path's launches.  Returns the replayed
+    step's wall ms (unprofiled), the wall under the profiler, device ms,
+    idle share, the kernels seen, and the eager step's wall ms."""
     import re
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
-    g = srv._graph
-    if g is None:
-        raise AssertionError(f"{where}: the Server captured no step")
-    want = record_counts(g.record)
-    tok = tok.to(srv.device)
+    want = record_counts(record)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        srv._step(tok, g.cache, pos)
+        replay()
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
@@ -2006,12 +2087,12 @@ def replay_checks(srv, tok, pos: int, where: str, phase: str,
                                  ProfilerActivity.CUDA]) as prof:
             # a trace can miss the kernels at its very start: the first
             # replay only opens the window, the marked one is counted
-            srv._step(tok, g.cache, pos)
+            replay()
             torch.cuda.synchronize()
             time.sleep(MARK_GAP_S)
             with record_function(REPLAY_MARK):
                 t0 = time.perf_counter()
-                srv._step(tok, g.cache, pos)
+                replay()
                 torch.cuda.synchronize()
                 prof_wall = (time.perf_counter() - t0) * 1e3
         events = marked_events(prof)
@@ -2036,24 +2117,46 @@ def replay_checks(srv, tok, pos: int, where: str, phase: str,
     dev_ms = sum(us for _, us in events) / 1e3
     t0 = time.perf_counter()
     for _ in range(reps):
-        srv._step(tok, g.cache, pos)
+        replay()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / reps
-    idle = max(0.0, 1 - dev_ms / wall)
-    with torch.no_grad():
-        t0 = time.perf_counter()
-        for _ in range(reps):
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        eager()
+    torch.cuda.synchronize()
+    return dict(wall=wall, prof_wall=prof_wall, device=dev_ms,
+                idle=max(0.0, 1 - dev_ms / wall), seen=seen,
+                eager=(time.perf_counter() - t0) * 1e3 / reps)
+
+
+def replay_checks(srv, tok, pos: int, where: str, phase: str,
+                  reps: int = 5) -> dict:
+    """A Server whose decode step is captured, after its run: the replay
+    at ``pos`` measured and checked by measure_replays against the eager
+    step, ``Server._decode_step`` at the host position on the same
+    buffers.  Returns the replayed step's wall ms (unprofiled), device
+    ms and idle share, and the eager step's wall ms."""
+    import torch
+    g = srv._graph
+    if g is None:
+        raise AssertionError(f"{where}: the Server captured no step")
+    tok = tok.to(srv.device)
+
+    def eager():
+        with torch.no_grad():
             srv._decode_step(tok, g.cache, pos)
-        torch.cuda.synchronize()
-    eager = (time.perf_counter() - t0) * 1e3 / reps
-    log(phase, f"{where}: replayed decode step: wall {wall:.2f} ms (mean "
-               f"of {reps}; {prof_wall:.2f} under the profiler), device "
-               f"{dev_ms:.2f} ms, idle share {idle:.3f}; the eager step "
-               f"on the same buffers {eager:.2f} ms (mean of {reps}); no "
-               f"host sync in a replay; its kernels by name {seen} = the "
-               f"capture's record per replay; {srv.replays} replays in all, "
-               f"1 capture")
-    return dict(wall=wall, device=dev_ms, idle=idle, eager=eager)
+
+    t = measure_replays(lambda: srv._step(tok, g.cache, pos), eager,
+                        g.record, where, phase, reps)
+    log(phase, f"{where}: replayed decode step: wall {t['wall']:.2f} ms "
+               f"(mean of {reps}; {t['prof_wall']:.2f} under the "
+               f"profiler), device {t['device']:.2f} ms, idle share "
+               f"{t['idle']:.3f}; the eager step on the same buffers "
+               f"{t['eager']:.2f} ms (mean of {reps}); no host sync in a "
+               f"replay; its kernels by name {t['seen']} = the capture's "
+               f"record per replay; {srv.replays} replays in all, 1 "
+               f"capture")
+    return {k: t[k] for k in ("wall", "device", "idle", "eager")}
 
 
 def cross_check(model, params, prompt, out, cached, dev,
@@ -3393,8 +3496,9 @@ def fit_counted(trainer, where: str, flash_per_step: int) -> tuple:
     asserts 3 gemm launches per forward product per step (the forward,
     dA and dB: every product's operands both take a gradient here), the
     forward's flash launches per step, all on the wgmma path, and no
-    decode launch; returns (launches, history, wall seconds, peak
-    bytes)."""
+    decode launch; every step after the first a replay of the captured
+    step, whose record counts one step's launches; returns (launches,
+    history, wall seconds, peak bytes)."""
     import torch
     from repro_torch.kernels import attention
     cfg = trainer.model.cfg
@@ -3420,25 +3524,32 @@ def fit_counted(trainer, where: str, flash_per_step: int) -> tuple:
             not losses[-1] < losses[0]:
         raise AssertionError(f"{where}: losses {losses} not finite and "
                              f"falling")
+    replays_counted(trainer, steps, where,
+                    {"gemm": want[0] // steps,
+                     "flash_attention": flash_per_step,
+                     "decode_attention": 0})
     return got, hist, wall, torch.cuda.max_memory_allocated()
 
 
-def remat_counts(trainer, batch, flash_fwd: int, where: str) -> None:
+def remat_counts(trainer, batch, flash_fwd: int, where: str,
+                 extra_fn=None) -> None:
     """One step under remat "dots" and "full" on copies of the trained
     weights: dots saves the 2-D products' outputs (3 gemm launches per
     product, flash again in the recompute), full recomputes the whole
-    forward (4 per product, flash twice).  Not counted as the main
-    path's."""
+    forward (4 per product, flash twice); then a fresh Trainer under each
+    mode, 3 steps: the warm-up, the capture and a replay, each replay
+    counting that step's launches.  Not counted as the main path's."""
     import dataclasses
+    import torch
     from repro_torch.optim import init_compression
-    from repro_torch.train import make_train_step
+    from repro_torch.train import Trainer, make_train_step
     from repro_torch.tree import leaves, unflatten
     products = forward_products(trainer.model.cfg)
     for remat, per_product in (("dots", 3), ("full", 4)):
         params = unflatten(trainer.params, [x.detach().clone() for x in
                                             leaves(trainer.params)])
-        step = make_train_step(trainer.model, dataclasses.replace(
-            trainer.tcfg, remat=remat), trainer.opt)
+        tcfg = dataclasses.replace(trainer.tcfg, remat=remat)
+        step = make_train_step(trainer.model, tcfg, trainer.opt)
         reset_counts()
         _, _, _, met = step(params, trainer.opt.init(params),
                             init_compression(params), batch, 1)
@@ -3451,6 +3562,23 @@ def remat_counts(trainer, batch, flash_fwd: int, where: str) -> None:
                      f"{float(met['loss']):.4f}, launches {got} (gemm "
                      f"{per_product} x {products}, flash 2 x {flash_fwd})")
         del params, step
+        tr = Trainer(trainer.model, trainer.pipe,
+                     dataclasses.replace(tcfg, steps=3, ckpt_every=10 ** 9),
+                     extra_batch_fn=extra_fn, device=trainer.device)
+        reset_counts()
+        hist = tr.fit(verbose=False)
+        got = counts()
+        if (got["gemm"], got["flash_attention"]) != (3 * want[0],
+                                                    3 * want[1]):
+            raise AssertionError(f"{where} remat {remat}, captured: "
+                                 f"launches {got} over 3 steps, want 3 x "
+                                 f"{want}")
+        replays_counted(tr, 3, f"{where} remat={remat}",
+                        {"gemm": want[0], "flash_attention": want[1]})
+        if not all(math.isfinite(h["loss"]) for h in hist):
+            raise AssertionError(f"{where} remat {remat}: losses {hist}")
+        del tr
+        torch.cuda.empty_cache()
 
 
 def restart_check(trainer, ckpt_dir: str, extra_fn, where: str) -> None:
@@ -3470,9 +3598,10 @@ def restart_check(trainer, ckpt_dir: str, extra_fn, where: str) -> None:
         tr = Trainer(trainer.model, trainer.pipe, trainer.tcfg, ckpt_dir=d,
                      extra_batch_fn=extra_fn, device=trainer.device)
         hist = tr.fit(verbose=False)
-    if len(hist) != WT_STEPS - WT_CKPT or tr.step != WT_STEPS:
+    if len(hist) != WT_STEPS - WT_CKPT or tr.step != WT_STEPS or \
+            tr.replays != WT_STEPS - WT_CKPT - 1:
         raise AssertionError(f"{where} restart: ran {len(hist)} steps to "
-                             f"{tr.step}")
+                             f"{tr.step}, {tr.replays} of them replays")
     pairs = list(zip(leaves(tr.params), leaves(trainer.params)))
     same = sum(torch.equal(a, b) for a, b in pairs)
     worst = max((a - b).abs().max().item() for a, b in pairs)
@@ -3486,8 +3615,55 @@ def restart_check(trainer, ckpt_dir: str, extra_fn, where: str) -> None:
         raise AssertionError(f"{where} restart: losses {losses} != the "
                              f"uninterrupted run's {want}")
     log("train", f"{where}: resumed from step {WT_CKPT} alone, ran to step "
-                 f"{WT_STEPS}: all {len(pairs)} weights bit for bit the "
+                 f"{WT_STEPS} (a warm-up, then {tr.replays} replays of its "
+                 f"own capture): all {len(pairs)} weights bit for bit the "
                  f"uninterrupted run's, losses equal")
+
+
+def train_replay_checks(tr, batch, where: str, phase: str,
+                        reps: int = 5) -> dict:
+    """A Trainer whose step is captured, after its fit: the replay
+    measured and checked by measure_replays against the same step run
+    eagerly from Python on the same buffers (``Trainer._update``), which
+    is also profiled once.  These steps train on, outside the main
+    path's counts.  Returns the replayed step's wall ms (unprofiled),
+    device ms and idle share, and the eager step's wall ms and device
+    ms."""
+    g = tr._graph
+    if g is None:
+        raise AssertionError(f"{where}: the Trainer captured no step")
+    batch = {k: v.to(tr.device) for k, v in batch.items()}
+    t = measure_replays(lambda: tr._card_step(batch),
+                        lambda: tr._update(batch), g.record, where, phase,
+                        reps)
+    eager_dev = device_profile(lambda: tr._update(batch),
+                               f"{where}: the same step eager (not "
+                               f"counted)", top=4, phase=phase)
+    log(phase, f"{where}: replayed train step: wall {t['wall']:.2f} ms "
+               f"(mean of {reps}; {t['prof_wall']:.2f} under the "
+               f"profiler), device {t['device']:.2f} ms, idle share "
+               f"{t['idle']:.3f}; the eager step on the same buffers "
+               f"{t['eager']:.2f} ms (mean of {reps}); no host sync in a "
+               f"replay; its kernels by name {t['seen']} = the capture's "
+               f"record per replay; {tr.replays} replays in all, 1 "
+               f"capture; {card_line()}")
+    return dict(wall=t["wall"], device=t["device"], idle=t["idle"],
+                eager=t["eager"], eager_device=eager_dev)
+
+
+def replays_counted(tr, steps: int, where: str, per_step: dict,
+                    phase: str = "train") -> None:
+    """A fresh Trainer's fit of ``steps`` steps: the first eager (the
+    warm-up), every later one a replay; one replay counts ``per_step``
+    launches (by STEP_KERNELS' names) from the capture's record."""
+    got = record_counts(tr._graph.record) if tr._graph else None
+    if tr.replays != steps - 1 or got is None or any(
+            got[k] != n for k, n in per_step.items()):
+        raise AssertionError(f"{where}: {tr.replays} replays of {steps} "
+                             f"steps, a replay counts {got}; want "
+                             f"{steps - 1} and {per_step}")
+    log(phase, f"{where}: {steps} steps = 1 eager warm-up + {tr.replays} replays "
+               f"of one captured step; a replay counts {got}")
 
 
 def phase_train(dev) -> dict:
@@ -3567,15 +3743,10 @@ def phase_train(dev) -> dict:
             log("train", "(a) losses: " + " ".join(
                 f"{h['loss']:.4f}" for h in hist))
             restart_check(tr, d, frames, "(a) whisper-tiny")
-            remat_counts(tr, batch, flash_fwd, "(a) whisper-tiny")
-            from repro_torch.optim import init_compression
-            from repro_torch.train import make_train_step
-            step = make_train_step(model, tcfg, tr.opt)
-            MEASURED["whisper-tiny train step"] = device_profile(
-                lambda: step(tr.params, tr.opt_state,
-                             init_compression(tr.params), batch, WT_STEPS),
-                "(a) whisper-tiny: one training step", top=8,
-                phase="train", host=True)
+            remat_counts(tr, batch, flash_fwd, "(a) whisper-tiny", frames)
+            t = TRAIN_TIMES["whisper-tiny"] = train_replay_checks(
+                tr, batch, "(a) whisper-tiny", "train")
+            MEASURED["whisper-tiny train step"] = t["device"]
         names = sorted({str(w.message).split(" does not have")[0]
                         for w in warned if "deterministic" in
                         str(w.message)})
@@ -3583,7 +3754,7 @@ def phase_train(dev) -> dict:
                      f"{names or 'none warned'}")
     finally:
         torch.use_deterministic_algorithms(False)
-    del tr, batch, step
+    del tr, batch
     torch.cuda.empty_cache()
     dispatch_costs(dev, card)
     # (b) qwen1.5-4b, depth cut, at the reference's TrainConfig
@@ -4657,10 +4828,10 @@ DFT_NGRID, DFT_NSTATES, DFT_SCF, DFT_CHEB = 8192, 256, 12, 10
 #: batch 4 x 16 prompt tokens, 32 generated, max_len 96, float32 cache
 SO_BATCH, SO_GEN, SO_LEN = 4, 32, 96
 #: (e) train_100m at its widths and batch (8 x 256 tokens, n_micro 2, remat
-#: dots), its steps cut from 300 to 150 and its checkpoints from every 100
-#: to every 50: 300 steps (149-176 s at 435-551 ms a step) took the whole
-#: script to 650 s, past the ~600 s it is held to
-T100_STEPS, T100_BATCH, T100_SEQ, T100_CKPT, T100_MICRO = 150, 8, 256, 50, 2
+#: dots), its own 300 steps with a checkpoint every 100: the captured step
+#: replays at its device time, where the eager step's 435-551 ms had cut
+#: the run to 150 steps
+T100_STEPS, T100_BATCH, T100_SEQ, T100_CKPT, T100_MICRO = 300, 8, 256, 100, 2
 #: the float32 gradient check of (e): both sides are IEEE float32 (TF32
 #: refused) and differ only in summation order (gemm.cu's FMA tiles
 #: against cuBLAS, flash's online softmax against the full one): each
@@ -4964,14 +5135,16 @@ def apps_train_kernels(dev, card: str) -> None:
 
 
 def apps_train(dev, card: str) -> dict:
-    """(e) train_100m at its widths, steps cut (T100_STEPS): first the
+    """(e) train_100m at its widths over T100_STEPS steps: first the
     twin's first step through
     the kernels against the same step forced plain (grad_check, float32
     tolerances, flash on its FMA path) with its control, and the kernels
     at the model's shapes; then the twin's main: its launches (gemm.cu 3
     per product per microbatch, flash twice per layer per microbatch
-    under remat dots, all FMA), a finite falling loss, a checkpoint
-    every T100_CKPT steps, the last restored bit for bit."""
+    under remat dots, all FMA), every step after the first a replay, a
+    finite falling loss, a checkpoint every T100_CKPT steps, the last
+    restored bit for bit; then the replayed step's checks
+    (train_replay_checks)."""
     import shutil
     import torch
     from repro_torch.checkpoint import CheckpointStore
@@ -5025,6 +5198,10 @@ def apps_train(dev, card: str) -> dict:
         raise AssertionError(f"{where}: losses {losses[:3]}..{losses[-3:]} "
                              f"({len(losses)}) not finite and falling")
     first_loss(first, hist, where)
+    replays_counted(trainer, T100_STEPS, where,
+                    {"gemm": 3 * products * T100_MICRO,
+                     "flash_attention": 2 * cfg.n_layers * T100_MICRO,
+                     "decode_attention": 0}, phase="apps")
     steps = sorted((p.name for p in ckpt.iterdir()),
                    key=lambda name: int(name.split("_")[1]))
     want_steps = [f"step_{s}" for s in range(T100_CKPT, T100_STEPS + 1,
@@ -5054,14 +5231,9 @@ def apps_train(dev, card: str) -> dict:
                 f"leaves); peak device memory {peak / 1e9:.2f} GB; {card}")
     log("apps", f"{where} losses every 10 steps: " + " ".join(
         f"{x:.4f}" for x in losses[::10]))
-    from repro_torch.train import make_train_step
-    step = make_train_step(model, tcfg, trainer.opt)
-    batch = {k: v.to(dev) for k, v in pipe.global_batch(0).items()}
-    device_profile(lambda: step(trainer.params, trainer.opt_state,
-                                trainer.comp_state, batch, T100_STEPS),
-                   f"{where}: one training step (not counted)", top=8,
-                   phase="apps", host=True)
-    del out, trainer, tree, step, batch
+    TRAIN_TIMES["repro-100m"] = train_replay_checks(
+        trainer, pipe.global_batch(0), where, "apps")
+    del out, trainer, tree
     torch.cuda.empty_cache()
     return launched
 
@@ -5107,6 +5279,9 @@ MEASURED: dict = {}
 #: each served model's replayed decode step: wall ms, device ms, idle
 #: share (replay_checks), summed up at the end
 STEP_TIMES: dict = {}
+#: each trained model's replayed step: wall ms, device ms, idle share,
+#: the eager step's wall and device ms (train_replay_checks)
+TRAIN_TIMES: dict = {}
 
 
 def main() -> int:
@@ -5170,6 +5345,11 @@ def main() -> int:
         log("done", f"{where}: replayed decode step wall {t['wall']:.2f} "
                     f"ms, device {t['device']:.2f} ms, idle share "
                     f"{t['idle']:.3f}; eager step {t['eager']:.2f} ms")
+    for where, t in TRAIN_TIMES.items():
+        log("done", f"{where}: replayed train step wall {t['wall']:.2f} ms, "
+                    f"device {t['device']:.2f} ms, idle share "
+                    f"{t['idle']:.3f}; eager step {t['eager']:.2f} ms "
+                    f"(device {t['eager_device']})")
     log("done", f"peak device memory "
                 f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     keys = ("name", "route", "source", "replaces", "launches",

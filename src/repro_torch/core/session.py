@@ -31,6 +31,8 @@ interpreter shutdown to its ``config.trace_path``.  The legacy
 ``install()``/``uninstall()`` shims (:mod:`repro_torch.core.intercept`,
 :mod:`repro_torch.core.runtime`) open and close implicit sessions on one
 shared stack (:func:`open_legacy`, :func:`close_legacy`).
+The last open session's close frees the solver tier's captured LU panels
+on the card (:func:`repro_torch.core.lapack.release_graphs`).
 
 Sessions are context-local: a worker thread does not inherit the
 sessions its parent opened.  ``with s.scope():`` adopts an open session
@@ -152,6 +154,7 @@ class Session:
             return None
         from repro_torch.core import blas
         from repro_torch.core import intercept as icp
+        from repro_torch.core import lapack
         from repro_torch.core import runtime as rt
         runtime, self.runtime = self.runtime, None
         try:
@@ -166,6 +169,9 @@ class Session:
             with _OPEN_LOCK:
                 if self in _OPEN:
                     _OPEN.remove(self)
+                last = not _OPEN
+            if last:
+                lapack.release_graphs()
             if self.intercept:
                 self._patch_solvers(False)
                 icp.unpatch_symbols()

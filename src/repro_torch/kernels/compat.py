@@ -48,16 +48,32 @@ COUNT_LOCK = threading.Lock()
 
 #: per thread: the record of the stream capture under way, else None
 _CAPTURE = threading.local()
+#: the stream captures under way that other threads may launch into
+#: (autograd's device thread runs a captured backward on the capture's
+#: stream): the stream's handle -> the capture's record
+_BY_STREAM: Dict[int, List] = {}
+
+
+def _stream_record():
+    """The record of the capture under way on this thread's current CUDA
+    stream, if another thread registered it (:func:`recording`)."""
+    import torch
+    if not torch.cuda.is_current_stream_capturing():
+        return None
+    return _BY_STREAM.get(torch.cuda.current_stream().cuda_stream)
 
 
 def count(counters: MutableMapping[str, int], **moves: int) -> None:
     """Add ``moves`` to the named launch counters of ``counters`` (a
     kernel module's ``globals()``, or a dict of counters such as
     ``attention.launches_by_path``) under :data:`COUNT_LOCK`.  While this
-    thread captures a CUDA graph (:func:`recording`) nothing launches, so
-    the moves go into the capture's record instead, and every replay of
-    the graph adds them (:func:`replayed`)."""
+    thread captures a CUDA graph (:func:`recording`), or launches into the
+    stream that another thread captures, nothing launches, so the moves
+    go into the capture's record instead, and every replay of the graph
+    adds them (:func:`replayed`)."""
     record = getattr(_CAPTURE, "record", None)
+    if record is None and _BY_STREAM:
+        record = _stream_record()
     if record is not None:
         record.append((counters, moves))
         return
@@ -66,17 +82,40 @@ def count(counters: MutableMapping[str, int], **moves: int) -> None:
             counters[name] += n
 
 
+def _current_stream_key():
+    """The handle of this thread's current CUDA stream, or None where
+    CUDA has not been initialized (nothing can be captured there)."""
+    import torch
+    if not torch.cuda.is_initialized():
+        return None
+    return torch.cuda.current_stream().cuda_stream
+
+
 @contextlib.contextmanager
 def recording() -> Iterator[List]:
     """Collect this thread's counter moves for the block's duration, a
     stream capture's: yields the record that :func:`replayed` adds once
-    per replay.  Other threads keep counting their own launches."""
+    per replay.  The block's current CUDA stream is the one captured:
+    another thread that launches into it while it captures (autograd's
+    device thread runs a captured backward there) files its moves in
+    the record too.  Other threads keep counting their own launches."""
     prev = getattr(_CAPTURE, "record", None)
     _CAPTURE.record = record = []
+    key = _current_stream_key()
+    if key is not None:
+        with COUNT_LOCK:
+            outer = _BY_STREAM.get(key)
+            _BY_STREAM[key] = record
     try:
         yield record
     finally:
         _CAPTURE.record = prev
+        if key is not None:
+            with COUNT_LOCK:
+                if outer is None:
+                    _BY_STREAM.pop(key, None)
+                else:
+                    _BY_STREAM[key] = outer
 
 
 def replayed(record: List) -> None:

@@ -42,7 +42,9 @@ def _sinusoid(t: int, d: int, device=None) -> torch.Tensor:
     """(t, d) float32: sines of the first half, cosines of the second."""
     pos = torch.arange(t, dtype=torch.float32, device=device)[:, None]
     dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
-    step = torch.log(torch.tensor(10000.0, device=device)) / (d // 2 - 1)
+    # made on the device, not copied there: a captured train step holds
+    # no copy from pageable host memory
+    step = torch.log(torch.full((), 10000.0, device=device)) / (d // 2 - 1)
     inv = torch.exp(-dim * step)
     ang = pos * inv
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

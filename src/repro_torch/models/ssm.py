@@ -84,7 +84,10 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         window = torch.cat([state, xbc], dim=1)          # (B, K-1+T, C)
         new_state = window[:, -(ksize - 1):]
     else:
-        window = F.pad(xbc, (0, 0, ksize - 1, 0))
+        # zeros, then concatenation, as the reference builds it
+        # (``F.pad`` of a sharded DTensor fails on torch 2.11)
+        window = torch.cat([xbc.new_zeros((xbc.shape[0], ksize - 1,
+                                           xbc.shape[2])), xbc], dim=1)
         new_state = None
     out = torch.zeros_like(xbc)
     for i in range(ksize):

@@ -31,13 +31,35 @@ A :class:`Trainer` runs on one device: ``device=None`` is the card
 (``cuda:0``) and raises without CUDA; ``device="cpu"`` runs on the CPU.
 ``TrainConfig.unroll_layers`` (the reference's dry-run cost probe) is
 accepted and ignored: the port's layer stack is always a Python loop.
+
+The step is the counterpart of the reference's
+``jax.jit(make_train_step(...))`` (``loop.py:153``).  On the card a
+``Trainer`` captures it in one ``torch.cuda.CUDAGraph``: the microbatch
+loop, ``torch.autograd.grad`` through the kernels' operators, remat,
+compression, the gradient norm and the in-place AdamW.  Its first step
+runs eagerly on a side stream (the warm-up, a real step), the second
+captures the step and replays the capture, every later one replays it.
+The step count is a 0-d int32 tensor on the device, as the reference
+passes ``jnp.asarray(self.step, jnp.int32)``; the batch is copied into
+static buffers; the parameters, the moments, the optimizer's step and
+the compression residuals are the graph's own buffers, updated in place,
+and ``loss``, ``lr``, ``grad_norm`` its static outputs, read as floats
+after each step.  A batch of other shapes warms up and captures anew; a
+restore copies the checkpoint into the buffers.  The launch counters
+count each replay as the captured step's launches (the backward's
+included, which autograd launches from its own thread:
+``kernels.compat.recording``).  A capture that fails raises: no eager
+fallback exists on the card.  The CPU runs the same step
+(:meth:`Trainer._update`, the same tensor count and in-place state)
+eagerly.  A Python wrapper around the step function sees only the
+warm-up and the capture on the card.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import time
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 from torch.utils import checkpoint as ckpt
@@ -45,6 +67,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.checkpoint import CheckpointStore
 from repro_torch.core import memspace
 from repro_torch.data import TokenPipeline
+from repro_torch.kernels import compat
 from repro_torch.models.registry import Model
 from repro_torch.models.sharding import shard
 from repro_torch.optim import (AdamW, compress_decompress, cosine_schedule,
@@ -97,13 +120,18 @@ def _save_projections(ctx, op, *args, **kwargs):
 
 
 def _remat_wrap(fn: Callable, mode: str) -> Callable:
+    """The microbatch loss under ``mode``'s checkpoint.  The forward draws
+    no random number, so no RNG state is saved for the recompute (reading
+    the card's generator state cannot be captured in a graph)."""
     if mode == "none":
         return fn
     if mode == "full":
-        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
+                                 preserve_rng_state=False)
     if mode == "dots":
         return functools.partial(
             ckpt.checkpoint, fn, use_reentrant=False,
+            preserve_rng_state=False,
             context_fn=functools.partial(
                 ckpt.create_selective_checkpoint_contexts,
                 _save_projections))
@@ -125,15 +153,16 @@ def make_loss(model: Model, tcfg: TrainConfig) -> Callable:
 def make_train_step(model: Model, tcfg: TrainConfig, opt: AdamW,
                     total_steps: Optional[int] = None):
     """The update ``(params, opt_state, comp_state, batch, step) ->
-    (params, opt_state, comp_state, metrics)``.  ``params`` is a tree of
-    float32 leaves that take a gradient; it and ``opt_state`` are
-    updated in place and returned.  ``batch`` holds ``tokens``,
+    (params, opt_state, comp_state, metrics)``.  ``step`` is a host int
+    or a 0-d int32 tensor on the parameters' device.  ``params`` is a
+    tree of float32 leaves that take a gradient; it and ``opt_state``'s
+    moments are updated in place and returned.  ``batch`` holds ``tokens``,
     ``labels`` and the family's stub inputs, on the parameters' device;
     ``metrics`` are 0-d float32 tensors ``loss``, ``lr``, ``grad_norm``."""
     total = total_steps or tcfg.steps
     loss_fn = _remat_wrap(make_loss(model, tcfg), tcfg.remat)
 
-    def train_step(params, opt_state, comp_state, batch: Dict, step: int):
+    def train_step(params, opt_state, comp_state, batch: Dict, step):
         tokens, labels = batch["tokens"], batch["labels"]
         extra = {k: v for k, v in batch.items()
                  if k not in ("tokens", "labels")}
@@ -169,6 +198,21 @@ def make_train_step(model: Model, tcfg: TrainConfig, opt: AdamW,
     return train_step
 
 
+@dataclasses.dataclass
+class _Captured:
+    """One captured train step and its static buffers."""
+    graph: Any                  # torch.cuda.CUDAGraph
+    batch: Dict[str, torch.Tensor]      # the step's inputs
+    metrics: Dict[str, torch.Tensor]    # loss, lr, grad_norm
+    record: list                # launch counter moves of one replay
+
+
+def _fits(static: Dict[str, torch.Tensor], batch: Dict) -> bool:
+    return static.keys() == batch.keys() and all(
+        (static[k].shape, static[k].dtype) == (v.shape, v.dtype)
+        for k, v in batch.items())
+
+
 class Trainer:
     """Host-side orchestration: data, checkpoints, watchdog, restart."""
 
@@ -194,6 +238,15 @@ class Trainer:
         self.step_times: list = []
         self.straggler_events = 0
         self.history: list = []
+        #: the step count as the step reads it, a 0-d int32 tensor on the
+        #: device (the reference's ``jnp.asarray(self.step, jnp.int32)``)
+        self._step_t = torch.zeros((), dtype=torch.int32,
+                                   device=self.device)
+        #: the card's step: its side stream (None until the warm-up of the
+        #: batch's shapes), the capture, the replays so far
+        self._stream = None
+        self._graph: Optional[_Captured] = None
+        self.replays = 0
 
     # ------------------------------------------------------------------ #
     def _state_tree(self) -> Dict:
@@ -204,11 +257,80 @@ class Trainer:
         if self.store is None or self.store.latest_step() is None:
             return False
         tree, manifest = self.store.restore(self._state_tree())
-        self.params = tree["params"]
-        self.opt_state = tree["opt"]
-        self.comp_state = tree["comp"]
+        # the step keeps its state in the Trainer's own tensors (a
+        # captured step's buffers on the card)
+        with torch.no_grad():
+            for dst, src in zip(leaves(self._state_tree()), leaves(tree)):
+                dst.copy_(src)
         self.step = manifest["step"]
         return True
+
+    def _update(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """One step at the step count tensor, its state kept in the
+        Trainer's own tensors: the optimizer's new step count and the
+        new compression residuals are copied back into them, so that a
+        captured step rewrites its own buffers.  The CPU's step, the
+        card's warm-up and the body of its capture."""
+        _, opt_state, comp_state, metrics = self._step_fn(
+            self.params, self.opt_state, self.comp_state, batch,
+            self._step_t)
+        with torch.no_grad():
+            self.opt_state.step.copy_(opt_state.step)
+            for old, new in zip(self.comp_state.residual,
+                                comp_state.residual):
+                if new is not old:
+                    old.copy_(new)
+        return metrics
+
+    def _card_step(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """One step on the card: warm up (eager, on the side stream: the
+        Trainer's first step), capture and replay (the second), or
+        replay.  Returns the step's metrics as device tensors."""
+        g = self._graph
+        if g is not None and not _fits(g.batch, batch):
+            g = self._graph = None      # other shapes: warm up anew
+            self._stream = None
+        current = torch.cuda.current_stream(self.device)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+            self._stream.wait_stream(current)
+            with torch.cuda.stream(self._stream):
+                metrics = self._update(batch)
+            current.wait_stream(self._stream)
+            return metrics
+        if g is None:
+            g = self._graph = self._capture(batch)
+        for k, v in batch.items():
+            g.batch[k].copy_(v)
+        g.graph.replay()
+        compat.replayed(g.record)
+        self.replays += 1
+        return g.metrics
+
+    def _capture(self, batch: Dict) -> _Captured:
+        """Capture :meth:`_update` on the side stream (``thread_local``
+        mode), its inputs copied into static buffers; nothing runs until
+        the first replay.  The counters' moves, the backward's included,
+        go into the capture's record."""
+        graph = torch.cuda.CUDAGraph()
+        static = {k: v.clone() for k, v in batch.items()}
+        # the warm-up's freed blocks go back to the card, where the
+        # graph's own pool can take them
+        torch.cuda.empty_cache()
+        self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._stream), compat.recording() as record:
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                metrics = self._update(static)
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass        # the capture was already invalidated
+                raise
+            graph.capture_end()
+        torch.cuda.current_stream(self.device).wait_stream(self._stream)
+        return _Captured(graph, static, metrics, record)
 
     def _watchdog(self, dt: float) -> None:
         self.step_times.append(dt)
@@ -230,9 +352,11 @@ class Trainer:
                 batch.update(self.extra_batch_fn(self.step))
             batch = {k: v.to(self.device) for k, v in batch.items()}
             t0 = time.perf_counter()
-            (self.params, self.opt_state, self.comp_state,
-             metrics) = self._step_fn(self.params, self.opt_state,
-                                      self.comp_state, batch, self.step)
+            self._step_t.fill_(self.step)
+            if self.device.type == "cuda":
+                metrics = self._card_step(batch)
+            else:
+                metrics = self._update(batch)
             metrics = {k: float(v) for k, v in metrics.items()}
             dt = time.perf_counter() - t0
             self._watchdog(dt)
