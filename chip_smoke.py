@@ -189,16 +189,30 @@ order:
 12. mesh   — the mesh paths, on a (data=1, model=1) DeviceMesh over a
              1-rank NCCL group (a FileStore under build/): (a)
              granite-moe-1b-a400m at full width and depth, batch 2 x
-             4096, under the mesh's axis env with moe_impl="a2a": the
-             dry run's prefill_step, then 8 serve_steps; 2 all-to-alls
-             per MoE layer per forward, 97 gemm launches per forward (the
-             a2a body's router and expert products are torch.matmul and
-             einsum, as the reference's), 24 flash all on wgmma, 24
-             decode per step; the same steps on the scatter plan fed the
-             a2a run's tokens (greedy tokens agree wherever the top-2
+             4096, on plain per-rank blocks under the mesh's axis env
+             with moe_impl="a2a": launch/specs.py's prefill_step, then 8
+             of its decode_steps through one kernels.compat.GraphedStep
+             (a warm-up, then 7 replays of one capture that holds the
+             step's all-to-alls and all-reduces); 2 all-to-alls per MoE
+             layer per forward (per replay from the capture's record),
+             97 gemm launches per forward (the a2a body's router and
+             expert products are torch.matmul and einsum, as the
+             reference's), 24 flash all on wgmma, 24 decode per step;
+             the tokens bit for bit the eager step's (decode_step from
+             Python at host positions, fed the same tokens); the
+             replayed step's checks as in 8 (no host sync, its kernels
+             by name = the record; wall, device time, idle share beside
+             the eager step's wall); the same steps on the scatter plan
+             fed the same tokens (greedy tokens agree wherever the top-2
              margin exceeds 2 max|dlogit|); the first MoE layer's a2a
              output against its scatter output on the real hidden
-             states, at a capacity with no drops, per row; (b)
+             states, at a capacity with no drops, per row; (f) the same
+             model's decode step as the dry run's decode cells compute
+             it, on real DTensors (the parameters placed by
+             param_shardings, the cache by the cache specs), captured
+             and replayed likewise: its tokens bit for bit its eager
+             DTensor step's, and (a)'s wherever (a)'s top-2 margin
+             exceeds 2 max|dlogit|; (b)
              compressed_psum over whisper-tiny's gradient leaves, bit for
              bit compress_decompress with a zero residual; (c) a
              whisper-tiny checkpoint restored with shardings= onto the
@@ -249,13 +263,12 @@ The kernels line's launches are those of the main path's runs: the
 BLAS, LSMS and solvers phases, the venue phase's (a)-(c), every run of
 the runtime phase, the serve phase's dfu, streams and memcopy runs, the
 serve_moe_ssm and serve_encdec_vlm phases' dfu and memcopy runs, the
-train phase's two fits, the mesh phase's a2a run, and the apps phase's
-card runs of its five twins (quickstart, must_lsms's four policies,
+train phase's two fits, the mesh phase's (a) and (f) runs, and the apps
+phase's card runs of its five twins (quickstart, must_lsms's four policies,
 parsec_dft, serve_offload's three policies, train_100m's fit), each with
 the counts set to 0 just before it.
 The eager checks', the replay checks', the cross-checks', the mesh
-phase's scatter comparison (whose decode steps stay eager), the
-profiles',
+phase's scatter comparison, the profiles',
 the gradient checks', the restart's, the remat steps', the plain and
 witness fits', the apps phase's kernel checks' and its CPU quickstart's
 launches are not among them.  Every mismatch or missing
@@ -4424,7 +4437,8 @@ def phase_runtime(dev) -> dict:
 # ----------------------------------------------------------------------- #
 # the mesh phase                                                           #
 # ----------------------------------------------------------------------- #
-#: decode steps after the a2a prefill (build_cell's serve_step each)
+#: decode steps after the a2a prefill (launch/specs.py's decode_step each,
+#: the first the GraphedStep's warm-up, the rest replays of one capture)
 MESH_DECODE = 8
 #: the dry run's cells, each in its own process with its own time limit
 #: (s): the launcher's documented example, and jamba at full width
@@ -4517,16 +4531,128 @@ def _finish(job, phase: str = "mesh") -> str:
     return out
 
 
-def mesh_a2a(dev, mesh, card: str) -> dict:
-    """(a) granite-moe-1b-a400m at full width and depth, batch 2 x 4096,
-    under the 1-rank mesh's axis env: build_cell's prefill_step, then
-    MESH_DECODE serve_steps, with moe_impl="a2a" (the main path; its
-    launches are returned).  Then the same calls on the scatter plan,
-    fed the a2a run's tokens, and one MoE layer's a2a output against its
-    scatter output on the hidden states the a2a prefill gave it."""
-    import dataclasses
+def mesh_graphed(model, params, prompt, cache, mesh, dev,
+                 where: str) -> dict:
+    """The mesh path's main run: launch/specs.py's prefill_step (eager),
+    then MESH_DECODE of its decode_step through one GraphedStep (the
+    first the warm-up, the second captured and replayed, the rest
+    replays), under the mesh's axis env with moe_impl="a2a", the counts
+    set to 0 just before and read just after.  The collectives per
+    replay and the launches per replay are the capture's record's; the
+    collectives of the prefill, the warm-up and the capture are
+    CommDebugMode's (the capture issues none on the card: it records
+    them).  Then the replayed step measured (measure_replays, the eager
+    decode_step at the same host position on the same buffers beside
+    it).  The graph is released before this returns or raises: the
+    process group cannot be destroyed while a graph that captured its
+    collectives lives.  Returns the tokens (B, MESH_DECODE + 1), the
+    launches, the all-to-alls in all and per replay, the record's
+    launches per replay, the replays, the wall s and the replay's
+    timings."""
     import torch
     from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.kernels import compat
+    from repro_torch.launch import specs
+    from repro_torch.models.sharding import axis_env
+    env = specs.axis_env_for(mesh)
+    step = compat.GraphedStep(specs.decode_step(model, "a2a"), dev,
+                              fresh=(1,))
+    pos = torch.zeros(1, dtype=torch.int32, device=dev)
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        compat.collectives.clear()
+        t0 = time.perf_counter()
+        with torch.no_grad(), axis_env(env), CommDebugMode() as comm:
+            tok, cache = specs.prefill_step(model, "a2a")(params, prompt,
+                                                          cache, {})
+            toks = [tok]
+            for i in range(MESH_DECODE):
+                pos.fill_(MS_PROMPT + i)
+                toks.append(step(params, toks[-1][:, None], cache, pos)[0]
+                            .clone())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+        seen = sum(v for k, v in comm.get_comm_counts().items()
+                   if "all_to_all" in str(k))
+        per_replay = {k: v for counters, moves in step.record
+                      if counters is compat.collectives
+                      for k, v in moves.items()}
+        a2a = (seen - per_replay.get("all_to_all_single", 0)
+               + compat.collectives["all_to_all_single"])
+        if step.replays != MESH_DECODE - 1 or step.graph is None:
+            raise AssertionError(f"{where}: {step.replays} replays of "
+                                 f"{MESH_DECODE} decode steps, want "
+                                 f"{MESH_DECODE - 1} after one warm-up")
+        eager_step = specs.decode_step(model, "a2a")
+        at, last = MS_PROMPT + MESH_DECODE, toks[-1][:, None]
+
+        def replay():
+            pos.fill_(at)
+            step(params, last, cache, pos)
+
+        def eager():
+            eager_step(params, last, cache, at)
+
+        with axis_env(env):
+            t = measure_replays(replay, eager, step.record, where, "mesh")
+        return dict(toks=torch.stack([
+            x.full_tensor() if hasattr(x, "full_tensor") else x
+            for x in toks], 1), got=got, a2a=a2a, per_replay=per_replay,
+            per=record_counts(step.record), replays=MESH_DECODE - 1,
+            wall=wall, t=t)
+    finally:
+        step.release()
+
+
+def mesh_eager(model, params, prompt, cache, mesh, impl: str, feed):
+    """The check: the prefill, then MESH_DECODE decode steps run from
+    Python at host positions (the step the graph captures, uncaptured),
+    each fed ``feed``'s token, keeping every forward's last-position
+    logits.  Returns (tokens (B, MESH_DECODE + 1), logits (B,
+    MESH_DECODE + 1, vocab) float32)."""
+    import torch
+    from repro_torch.launch import specs
+    from repro_torch.models.sharding import axis_env
+    forward, kept = model.forward, []
+
+    def keeping(params_, tokens, **kw):
+        logits, aux, cache_ = forward(params_, tokens, **kw)
+        last = logits[:, -1]
+        last = last.full_tensor() if hasattr(last, "full_tensor") else last
+        kept.append(last.float())
+        return logits, aux, cache_
+
+    model.forward = keeping
+    try:
+        with torch.no_grad(), axis_env(specs.axis_env_for(mesh)):
+            tok, cache = specs.prefill_step(model, impl)(params, prompt,
+                                                         cache, {})
+            toks = [tok]
+            step = specs.decode_step(model, impl)
+            for i in range(MESH_DECODE):
+                toks.append(step(params, feed[:, i:i + 1], cache,
+                                 MS_PROMPT + i)[0])
+    finally:
+        model.forward = forward
+    toks = torch.stack([t.full_tensor() if hasattr(t, "full_tensor")
+                        else t for t in toks], 1)
+    return toks, torch.stack(kept, 1)
+
+
+def mesh_a2a(dev, mesh, card: str) -> tuple:
+    """(a) granite-moe-1b-a400m at full width and depth, batch 2 x 4096,
+    on plain per-rank blocks under the 1-rank mesh's axis env, moe_impl
+    "a2a" (the main path, mesh_graphed: the prefill, then MESH_DECODE
+    decode steps from one capture).  Then the eager check (mesh_eager fed
+    the graph's tokens: bit for bit), the replayed step measured against
+    the eager one, the same calls on the scatter plan fed the same
+    tokens, and one MoE layer's a2a output against its scatter output on
+    the hidden states the a2a prefill gave it.  Returns (the launches,
+    the graph's tokens, the eager a2a logits, the parameters)."""
+    import dataclasses
+    import torch
     from repro_torch.kernels import attention
     from repro_torch.launch import specs
     from repro_torch.models import get_config, moe
@@ -4537,6 +4663,54 @@ def mesh_a2a(dev, mesh, card: str) -> dict:
     prompt = torch.randint(0, cfg.vocab, (MS_BATCH, MS_PROMPT),
                            generator=torch.Generator().manual_seed(1)).to(dev)
     env = specs.axis_env_for(mesh)
+    max_len = MS_PROMPT + MESH_DECODE + 1
+
+    def fresh():
+        return model.init_cache(MS_BATCH, max_len, torch.bfloat16, device=dev)
+
+    r = mesh_graphed(model, params, prompt, fresh(), mesh, dev, "mesh (a)")
+    toks, got, a2a, per, t = r["toks"], r["got"], r["a2a"], r["per"], r["t"]
+    per_a2a = r["per_replay"].get("all_to_all_single", 0)
+    n_fwd = MESH_DECODE + 1
+    moe_layers = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    # under a2a the router and expert products are torch.matmul/einsum
+    # (the reference's shard_map body, outside its kernels): q, k, v, o
+    # per attention layer and the vocab head stay on gemm.cu
+    gemm_fwd = 4 * cfg.n_layers + 1
+    want = {"gemm": gemm_fwd * n_fwd, "flash_attention": cfg.n_layers,
+            "decode_attention": cfg.n_layers * MESH_DECODE}
+    if (gemm_fwd != 97 or per_a2a != 2 * moe_layers
+            or a2a != 2 * moe_layers * n_fwd
+            or per["gemm"] != gemm_fwd
+            or per["decode_attention"] != cfg.n_layers
+            or any(got[k] != v for k, v in want.items())):
+        raise AssertionError(f"mesh (a): launches {got}, all-to-alls {a2a} "
+                             f"({per_a2a} per replay), the record's "
+                             f"launches per replay {per}; want {want}, "
+                             f"{2 * moe_layers * n_fwd} ({2 * moe_layers})")
+    if attention.launches_by_path[attention.WGMMA] != cfg.n_layers:
+        raise AssertionError(f"mesh (a): flash by path "
+                             f"{attention.launches_by_path}, all wgmma")
+    if not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError("mesh (a): bad tokens")
+    log("mesh", f"(a) granite-moe a2a on the (data=1, model=1) mesh, plain "
+                f"per-rank blocks: prefill {MS_BATCH} x {MS_PROMPT} + "
+                f"{MESH_DECODE} decode steps (1 warm-up, then "
+                f"{r['replays']} replays of one capture) in "
+                f"{r['wall']:.3f} s; {a2a} all-to-alls = 2 x {moe_layers} "
+                f"MoE layers x {n_fwd} forwards; collectives per replay "
+                f"from the capture's record {r['per_replay']}; launches "
+                f"{got} (gemm {gemm_fwd} per forward, flash all wgmma at D "
+                f"64; per replay {per}); {card}")
+    STEP_TIMES["mesh (a) granite-moe a2a"] = {
+        k: t[k] for k in ("wall", "device", "idle", "eager")}
+    log("mesh", f"(a) replayed decode step: wall {t['wall']:.2f} ms (mean "
+                f"of 5; {t['prof_wall']:.2f} under the profiler), device "
+                f"{t['device']:.2f} ms, idle share {t['idle']:.3f}; the "
+                f"eager step on the same buffers {t['eager']:.2f} ms (mean "
+                f"of 5); no host sync in a replay; its kernels by name "
+                f"{t['seen']} = the record per replay; {card}")
+    # the eager check, fed the graph's tokens; the first MoE layer's input
     real_moe, seen = moe.moe_fwd, []
 
     def keep_first(p, cfg_, x, impl="scatter"):
@@ -4544,69 +4718,24 @@ def mesh_a2a(dev, mesh, card: str) -> dict:
             seen.append((p, x.detach().clone()))
         return real_moe(p, cfg_, x, impl=impl)
 
-    def steps(impl: str, feed=None):
-        """The prefill, then MESH_DECODE decode steps; ``feed`` gives each
-        decode step's input token (default the last argmax)."""
-        cache = model.init_cache(MS_BATCH, MS_PROMPT + MESH_DECODE + 1,
-                                 torch.bfloat16, device=dev)
-        kept, toks = [], []
-        with torch.no_grad(), axis_env(env):
-            logits, _, cache = model.forward(
-                params, prompt, cache=cache, cache_pos=0, moe_impl=impl,
-                last_only=True)
-            for i in range(MESH_DECODE + 1):
-                kept.append(logits[:, -1].float())
-                toks.append(kept[-1].argmax(-1))
-                if i == MESH_DECODE:
-                    break
-                tok = (toks[-1] if feed is None else feed[:, i])[:, None]
-                logits, _, cache = model.forward(
-                    params, tok, cache=cache, cache_pos=MS_PROMPT + i,
-                    moe_impl=impl)
-        del cache
-        return torch.stack(toks, 1), torch.stack(kept, 1)
-
     moe.moe_fwd = keep_first
-    torch.cuda.synchronize()
-    reset_counts()
-    t0 = time.perf_counter()
     try:
-        with CommDebugMode() as comm:
-            toks, logits = steps("a2a")
-        torch.cuda.synchronize()
+        etoks, logits = mesh_eager(model, params, prompt, fresh(), mesh,
+                                   "a2a", toks[:, :MESH_DECODE])
     finally:
         moe.moe_fwd = real_moe
-    wall = time.perf_counter() - t0
-    got = counts()
-    n_fwd = MESH_DECODE + 1
-    moe_layers = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
-    colls = {str(k).split(".")[-1]: v
-             for k, v in comm.get_comm_counts().items()}
-    a2a = sum(v for k, v in colls.items() if "all_to_all" in k)
-    # under a2a the router and expert products are torch.matmul/einsum
-    # (the reference's shard_map body, outside its kernels): q, k, v, o
-    # per attention layer and the vocab head stay on gemm.cu
-    gemm_fwd = 4 * cfg.n_layers + 1
-    want = {"gemm": gemm_fwd * n_fwd, "flash_attention": cfg.n_layers,
-            "decode_attention": cfg.n_layers * MESH_DECODE}
-    if gemm_fwd != 97 or a2a != 2 * moe_layers * n_fwd or any(
-            got[k] != v for k, v in want.items()):
-        raise AssertionError(f"mesh (a): launches {got}, all-to-alls {a2a}; "
-                             f"want {want} and {2 * moe_layers * n_fwd}")
-    if attention.launches_by_path[attention.WGMMA] != cfg.n_layers:
-        raise AssertionError(f"mesh (a): flash by path "
-                             f"{attention.launches_by_path}, all wgmma")
-    if not bool(torch.isfinite(logits).all()) or not bool(
-            ((toks >= 0) & (toks < cfg.vocab)).all()):
-        raise AssertionError("mesh (a): non-finite logits or bad tokens")
-    log("mesh", f"(a) granite-moe a2a on the (data=1, model=1) mesh: "
-                f"prefill {MS_BATCH} x {MS_PROMPT} + {MESH_DECODE} decode "
-                f"steps in {wall:.3f} s; collectives {colls} "
-                f"({a2a} all-to-alls = 2 x {moe_layers} MoE layers x "
-                f"{n_fwd} forwards); launches {got} (gemm {gemm_fwd} per "
-                f"forward, flash all wgmma at D 64); {card}")
+    if not torch.equal(etoks, toks):
+        bad = (etoks != toks).nonzero().tolist()
+        raise AssertionError(f"mesh (a): the replayed tokens differ from "
+                             f"the eager step's at (row, step) {bad}")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("mesh (a): non-finite logits")
+    log("mesh", f"(a) the eager check (decode_step from Python at host "
+                f"positions, fed the same tokens): {toks.numel()} tokens bit "
+                f"for bit the graph's; {card}")
     # the scatter plan on the a2a run's tokens, not counted
-    _, ref = steps("scatter", feed=toks[:, :MESH_DECODE])
+    _, ref = mesh_eager(model, params, prompt, fresh(), mesh, "scatter",
+                        toks[:, :MESH_DECODE])
     delta = (logits - ref).abs().max().item()
     top2 = ref.topk(2, dim=-1).values
     sure = (top2[..., 0] - top2[..., 1]) > 2 * delta
@@ -4634,7 +4763,103 @@ def mesh_a2a(dev, mesh, card: str) -> dict:
     log("mesh", f"(a) first MoE layer on the a2a prefill's hidden states "
                 f"{tuple(x.shape)}, no drops: a2a vs scatter per-row rel "
                 f"err {rel:.3e} (tol {ATTN_TOL}); {card}")
-    del params, model, seen
+    del seen, ref
+    torch.cuda.empty_cache()
+    return got, (model, params, prompt, toks, logits)
+
+
+def mesh_dtensor(dev, mesh, card: str, plain) -> dict:
+    """(f) granite's decode step as build_cell's decode cells compute it,
+    on real DTensors over the mesh: the parameters placed by
+    shardings.param_shardings (specs.place_params), the cache by the
+    cache specs (specs.place_cache), the prompt over data; the main path
+    as (a) (mesh_graphed: the prefill eager, the decode steps from one
+    capture, the counts set to 0 just before).  Its tokens bit for bit
+    its eager DTensor step's fed the same tokens; against (a)'s plain
+    blocks, on the steps whose fed tokens agree, the tokens agree
+    wherever (a)'s top-2 margin exceeds 2 max|dlogit|.  Returns the
+    launches."""
+    import torch
+    from repro_torch.launch import shardings as shd
+    from repro_torch.launch import specs
+    from repro_torch.models.sharding import P
+    model, params, prompt, toks_a, logits_a = plain
+    cfg = model.cfg
+    max_len = MS_PROMPT + MESH_DECODE + 1
+    t0 = time.perf_counter()
+    dparams = specs.place_params(params, mesh, cfg)
+    dprompt = specs._dist(prompt, shd.NamedSharding(mesh, P("data", None)))
+
+    def fresh():
+        return specs.place_cache(model.init_cache(
+            MS_BATCH, max_len, torch.bfloat16, device=dev), max_len, mesh)
+
+    cache = fresh()
+    torch.cuda.synchronize()
+    placed = time.perf_counter() - t0
+    r = mesh_graphed(model, dparams, dprompt, cache, mesh, dev, "mesh (f)")
+    del cache
+    toks, got, a2a, per, t = r["toks"], r["got"], r["a2a"], r["per"], r["t"]
+    per_a2a = r["per_replay"].get("all_to_all_single", 0)
+    n_fwd = MESH_DECODE + 1
+    moe_layers = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    gemm_fwd = 4 * cfg.n_layers + 1
+    want = {"gemm": gemm_fwd * n_fwd, "flash_attention": cfg.n_layers,
+            "decode_attention": cfg.n_layers * MESH_DECODE}
+    if (per_a2a != 2 * moe_layers or a2a != 2 * moe_layers * n_fwd
+            or per["gemm"] != gemm_fwd
+            or per["decode_attention"] != cfg.n_layers
+            or any(got[k] != v for k, v in want.items())):
+        raise AssertionError(f"mesh (f): launches {got}, all-to-alls {a2a} "
+                             f"({per_a2a} per replay), the record's "
+                             f"launches per replay {per}; want {want}, "
+                             f"{2 * moe_layers * n_fwd} ({2 * moe_layers})")
+    log("mesh", f"(f) granite-moe a2a decode step on DTensors over the "
+                f"(data=1, model=1) mesh (placed in {placed:.1f} s): "
+                f"prefill + {MESH_DECODE} decode steps (1 warm-up, then "
+                f"{r['replays']} replays of one capture) in "
+                f"{r['wall']:.3f} s; {a2a} all-to-alls; collectives per "
+                f"replay from the capture's record {r['per_replay']}; "
+                f"launches {got} (per replay {per}); {card}")
+    STEP_TIMES["mesh (f) granite-moe a2a, DTensors"] = {
+        k: t[k] for k in ("wall", "device", "idle", "eager")}
+    log("mesh", f"(f) replayed DTensor decode step: wall {t['wall']:.2f} ms "
+                f"(mean of 5; {t['prof_wall']:.2f} under the profiler), "
+                f"device {t['device']:.2f} ms, idle share {t['idle']:.3f}; "
+                f"the eager DTensor step on the same buffers "
+                f"{t['eager']:.2f} ms (mean of 5); no host sync in a "
+                f"replay; its kernels by name {t['seen']} = the record per "
+                f"replay; {card}")
+    etoks, logits = mesh_eager(model, dparams, dprompt, fresh(), mesh, "a2a",
+                               toks[:, :MESH_DECODE])
+    if not torch.equal(etoks, toks):
+        bad = (etoks != toks).nonzero().tolist()
+        raise AssertionError(f"mesh (f): the replayed tokens differ from "
+                             f"the eager DTensor step's at (row, step) "
+                             f"{bad}")
+    # the forwards whose inputs agree with (a)'s: the prompt, then every
+    # decode step up to the first fed token that differs
+    same = 1
+    while same < MESH_DECODE + 1 and torch.equal(toks[:, same - 1],
+                                                 toks_a[:, same - 1]):
+        same += 1
+    delta = (logits[:, :same] - logits_a[:, :same]).abs().max().item()
+    top2 = logits_a[:, :same].topk(2, dim=-1).values
+    sure = (top2[..., 0] - top2[..., 1]) > 2 * delta
+    agree = toks[:, :same] == toks_a[:, :same]
+    if not bool(agree[sure].all()) or int(sure.sum()) == 0:
+        raise AssertionError(f"mesh (f): DTensor tokens differ from the "
+                             f"plain blocks' at steps with margin > 2 x "
+                             f"{delta:.4f}, or no step has such a margin")
+    log("mesh", f"(f) the eager DTensor check: {toks.numel()} tokens bit for "
+                f"bit the graph's; against (a)'s plain blocks over the "
+                f"{same} forwards fed the same tokens: max|dlogit| "
+                f"{delta:.5f}, tokens agree at all {int(sure.sum())} steps "
+                f"whose top-2 margin exceeds 2 x max|dlogit| "
+                f"({int(agree.sum())} of {agree.numel()} agree in all; "
+                f"{int(torch.equal(toks, toks_a))} = all {toks.numel()} "
+                f"equal); {card}")
+    del dparams, logits
     torch.cuda.empty_cache()
     return got
 
@@ -4761,11 +4986,11 @@ def mesh_roofline(job, card: str) -> None:
 
 
 def phase_mesh(dev) -> dict:
-    """The mesh paths on the card: (a)-(c) on a (data=1, model=1) mesh
-    over a 1-rank NCCL group (a FileStore under build/; no network),
-    while (d) the dry run's two cells and (e)'s counts run on the CPU in
-    processes of their own.  (a) is the main path; its launches are
-    returned."""
+    """The mesh paths on the card: (a), (f), (b) and (c) on a (data=1,
+    model=1) mesh over a 1-rank NCCL group (a FileStore under build/; no
+    network), while (d) the dry run's two cells and (e)'s counts run on
+    the CPU in processes of their own.  (a) and (f) are the main path;
+    their launches are returned."""
     import tempfile
     import torch
     import torch.distributed as dist
@@ -4786,7 +5011,10 @@ def phase_mesh(dev) -> dict:
                 rank=0, world_size=1, device_id=dev)
             try:
                 mesh = make_debug_mesh(1, model=1, device="cuda")
-                launched = mesh_a2a(dev, mesh, card)
+                launched, plain = mesh_a2a(dev, mesh, card)
+                got = mesh_dtensor(dev, mesh, card, plain)
+                launched = {k: v + got[k] for k, v in launched.items()}
+                del plain
                 mesh_psum_restore(dev, mesh, card)
             finally:
                 dist.destroy_process_group()

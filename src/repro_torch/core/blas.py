@@ -100,6 +100,12 @@ def _cache_enabled() -> bool:
     return _CACHE_ON if v is None else v
 
 
+def clear_caches() -> None:
+    """Drop the memoized compute closures.  The port keeps no scalar
+    cache: alpha and beta stay Python numbers (:func:`_scalar`)."""
+    _BOUND.clear()
+
+
 def _hashable(v):
     """Scalar cache key for alpha/beta, or None if uncacheable (tensors)."""
     if isinstance(v, (bool, int, float, complex)):

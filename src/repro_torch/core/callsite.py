@@ -317,6 +317,9 @@ class CallSiteRegistry:
                     prof = self._sites[site] = CallSiteProfile(site)
         return prof
 
+    def get(self, site: str) -> Optional[CallSiteProfile]:
+        return self._sites.get(site)
+
     def top_by_flops(self, n: int = 8) -> List[CallSiteProfile]:
         return sorted(self._sites.values(), key=lambda p: -p.flops)[:n]
 

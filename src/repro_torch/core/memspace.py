@@ -106,6 +106,25 @@ class MemSpace:
     simulated: bool        # True on the CPU: tiers are tags on CPU tensors
     n_devices: int = 1     # logical DEVICE tiers (the tile scheduler's)
 
+    def kind_of(self, tier: str) -> str:
+        """The memory kind behind a logical tier, in JAX's names: on the
+        card ``pinned_host`` for HOST (page-locked CPU memory) and
+        ``device`` for DEVICE; on the simulated tiers one memory backs
+        both, ``device``, as a backend with a single memory kind reports
+        it."""
+        if tier == HOST and not self.simulated:
+            return "pinned_host"
+        return "device"
+
+
+def device_bytes_from_env() -> Optional[int]:
+    """The per-device-tier byte cap (``SCILIB_DEVICE_BYTES``) read
+    through the config boundary (:meth:`repro_torch.core.config.
+    OffloadConfig.from_env`).  The runtime itself takes its config's
+    ``device_bytes``."""
+    from repro_torch.core.config import OffloadConfig
+    return OffloadConfig.from_env().device_bytes
+
 
 def resolve_device(device=None) -> torch.device:
     """The device a session or entry point runs on.  ``None`` means the
@@ -171,6 +190,16 @@ def install(space: MemSpace) -> MemSpace:
 
 def uninstall() -> None:
     _ACTIVE.set(None)
+
+
+def reset() -> None:
+    """Forget this context's mapping, the probed default and every
+    simulated-tier tag."""
+    global _PROBED
+    _ACTIVE.set(None)
+    with _PROBE_LOCK:
+        _PROBED = None
+    _TIERS.clear()
 
 
 @contextlib.contextmanager

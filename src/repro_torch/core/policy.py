@@ -37,6 +37,11 @@ def _put(x: torch.Tensor, tier: str) -> torch.Tensor:
     return memspace.put(x, tier)
 
 
+def memory_kind_of(x: torch.Tensor) -> str:
+    """Logical tier of a buffer (kept under its historical name)."""
+    return memspace.tier_of(x)
+
+
 def host_array(x, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The malloc() analogue: materialize data on the HOST tier.
 

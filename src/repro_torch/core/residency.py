@@ -56,7 +56,8 @@ import weakref
 from typing import Callable, Dict, Hashable, Iterator, List, Optional, Tuple
 
 __all__ = ["Entry", "ResidencyEvent", "ResidencyStore", "SharedDevicePool",
-           "EVICTION_POLICIES", "make_eviction_policy", "default_pool",
+           "EVICTION_POLICIES", "make_eviction_policy",
+           "evict_policy_from_env", "pin_all_from_env", "default_pool",
            "reset_default_pool"]
 
 
@@ -182,6 +183,24 @@ def make_eviction_policy(name: str) -> EvictionPolicy:
     except KeyError:
         raise ValueError(f"unknown eviction policy {name!r}; choose from "
                          f"{sorted(EVICTION_POLICIES)}")
+
+
+def evict_policy_from_env(default: str = "lru") -> str:
+    """The ``SCILIB_EVICT`` knob read through the config boundary
+    (:meth:`repro_torch.core.config.OffloadConfig.from_env`): an unknown
+    value falls back to ``default``.  The runtime itself takes its
+    config's ``evict`` field."""
+    from repro_torch.core.config import OffloadConfig
+    return OffloadConfig.from_env(OffloadConfig(evict=default)).evict
+
+
+def pin_all_from_env() -> bool:
+    """Whether ``SCILIB_PIN`` pins every placement at registration
+    (``never-evict``: residency only grows, caps never evict), read
+    through the config boundary.  The runtime itself takes its config's
+    ``pin`` field."""
+    from repro_torch.core.config import OffloadConfig
+    return OffloadConfig.from_env().pin
 
 
 # --------------------------------------------------------------------- #

@@ -364,6 +364,17 @@ class RuntimeStats:
         return sum(r.bytes_in + r.bytes_out
                    for r in self.per_routine.values())
 
+    def reuse_ratio(self) -> float:
+        hits = sum(r.cache_hits for r in self.per_routine.values())
+        miss = sum(r.cache_misses for r in self.per_routine.values())
+        return hits / max(1, miss)
+
+    def dispatch_hit_ratio(self) -> float:
+        hits = sum(r.dispatch_hits for r in self.per_routine.values())
+        total = hits + sum(r.dispatch_misses
+                           for r in self.per_routine.values())
+        return hits / max(1, total)
+
     def report(self) -> str:
         """The report of ``repro/core/runtime.py``, in the same layout."""
         lines = ["scilib-accel runtime report",

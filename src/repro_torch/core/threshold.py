@@ -55,6 +55,15 @@ def default_threshold() -> float:
     return DEVICE_DEFAULTS.get(detect_device_key(), DEFAULT_THRESHOLD)
 
 
+def threshold_from_env(default: float = DEFAULT_THRESHOLD) -> float:
+    """The ``SCILIB_THRESHOLD`` override read through the config boundary
+    (:meth:`repro_torch.core.config.OffloadConfig.from_env`), else
+    ``default``.  The runtime itself takes its config's ``threshold``."""
+    from repro_torch.core.config import OffloadConfig
+    t = OffloadConfig.from_env().threshold
+    return default if t is None else t
+
+
 def base_routine(routine: str) -> str:
     """Routine family without the precision prefix (``"dsyrk"`` ->
     ``"syrk"``).  Not ``lstrip("sdcz")``: that also eats the base's own

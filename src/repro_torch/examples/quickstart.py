@@ -83,8 +83,8 @@ def main(argv=None) -> dict:
         tier = memspace.tier_of(c)
         space = memspace.active()
         got = counters(s.stats)
-    print(f"\nresult tier: {tier} (device {space.device}"
-          f"{', simulated' if space.simulated else ''})")
+    print(f"\nresult tier: {tier} (memory kind {space.kind_of(tier)}, "
+          f"device {space.device}{', simulated' if space.simulated else ''})")
     print(f"mean buffer reuse: {reuse:.1f}")
     # verify against plain execution (the session is closed: these run
     # through the original, un-intercepted symbols, on the same device)

@@ -16,6 +16,7 @@ its library, and that request compiles every source at once, one
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import hashlib
@@ -26,7 +27,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterator, List, MutableMapping
+from typing import Callable, Dict, Iterator, List, MutableMapping, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -125,6 +126,149 @@ def replayed(record: List) -> None:
         for counters, moves in record:
             for name, n in moves.items():
                 counters[name] += n
+
+
+#: the collectives that captured steps issued, by op name: each replay
+#: adds what ``CommDebugMode`` saw in its capture (:func:`capture`), the
+#: one place a Python-level count of a replay's collectives exists
+collectives: Dict[str, int] = collections.defaultdict(int)
+
+
+def capture(fn: Callable, *args, stream, generators: Sequence = ()):
+    """Capture ``fn(*args)`` in one ``torch.cuda.CUDAGraph`` on ``stream``
+    (a side stream that waits for the current one), in this thread's own
+    capture mode (``thread_local``: other threads keep launching, and may
+    capture steps of their own).  ``generators`` are registered with the
+    graph, so that a replay draws afresh.  Nothing runs until the first
+    replay.  The launch counters' moves go into the capture's record
+    (:func:`recording`); under an initialized process group the
+    collectives ``CommDebugMode`` sees go there too, as moves of
+    :data:`collectives`.  A capture that fails raises.  Returns (graph,
+    ``fn``'s outputs, the record)."""
+    import torch
+    graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
+    comm = None
+    if torch.distributed.is_available() and torch.distributed.is_initialized():
+        from torch.distributed.tensor.debug import CommDebugMode
+        comm = CommDebugMode()
+    current = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream), recording() as record, \
+            (comm or contextlib.nullcontext()):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            out = fn(*args)
+        except BaseException:
+            try:
+                graph.capture_end()
+            except RuntimeError:
+                pass        # the capture was already invalidated
+            raise
+        graph.capture_end()
+    current.wait_stream(stream)
+    if comm is not None and comm.get_total_counts():
+        record.append((collectives, {str(op).split(".")[-1]: n for op, n
+                                     in comm.get_comm_counts().items()}))
+    return graph, out, record
+
+
+def _leaves(tree) -> list:
+    from repro_torch.tree import leaves
+    return leaves(tree)
+
+
+class GraphedStep:
+    """A step function run on the card as ``jax.jit`` runs one: the first
+    call runs ``step`` eagerly on a side stream (the warm-up: it loads the
+    kernels, makes the process group's communicators and fills DTensor's
+    sharding caches; a real step), the second captures it in one CUDA
+    graph (:func:`capture`) and replays the capture, every later call
+    replays it.  The mesh path's decode step is the one such step that
+    no object of its own captures (``Server`` and ``Trainer`` capture
+    theirs through :func:`capture`).
+
+    ``step``'s arguments are trees of tensors (and host values, which
+    must not change after the capture).  The arguments at the indices
+    ``fresh`` are tensors that are new every call (an input token): the
+    capture takes copies of them, and every replay copies the call's
+    values in.  Every other argument is the graph's own (parameters, a
+    cache the step writes in place, the one-element position tensor the
+    caller fills): a call passes the very tensors the capture saw, or
+    tensors of their shapes, which are copied in.  A call returns ``step``'s outputs, on a
+    replay the graph's own output tensors, rewritten by the next replay.
+    Each replay adds the capture's record to the launch counters and to
+    :data:`collectives`.  Nothing in a replay reads the host."""
+
+    def __init__(self, step: Callable, device=None,
+                 fresh: Sequence[int] = ()):
+        import torch
+        self.step = step
+        self.device = torch.device("cuda" if device is None else device)
+        self.fresh = tuple(fresh)
+        self.stream = None
+        self.graph = None
+        self.args: tuple = ()
+        self.out = None
+        self.record: List = []
+        self.replays = 0
+
+    def __call__(self, *args):
+        import torch
+        current = torch.cuda.current_stream(self.device)
+        if self.stream is None:             # the warm-up
+            self.stream = torch.cuda.Stream(self.device)
+            self.stream.wait_stream(current)
+            with torch.cuda.stream(self.stream):
+                out = self.step(*args)
+            current.wait_stream(self.stream)
+            return out
+        if self.graph is None:
+            self.args = tuple(a.clone() if i in self.fresh else a
+                              for i, a in enumerate(args))
+            self.graph, self.out, self.record = capture(
+                self.step, *self.args, stream=self.stream)
+        self._copy_in(args)
+        self.graph.replay()
+        replayed(self.record)
+        self.replays += 1
+        return self.out
+
+    def release(self) -> None:
+        """Free the graph and the buffers it holds.  Call it before the
+        process group whose collectives it captured is destroyed: NCCL
+        keeps a communicator until the graphs that captured it are
+        gone."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph, self.stream, self.args, self.out = None, None, (), None
+        self.record = []
+
+    def _copy_in(self, args) -> None:
+        import torch
+        if len(args) != len(self.args):
+            raise ValueError(f"GraphedStep: {len(args)} arguments, the "
+                             f"capture took {len(self.args)}")
+        for i, (new, old) in enumerate(zip(args, self.args)):
+            src, dst = _leaves(new), _leaves(old)
+            if len(src) != len(dst):
+                raise ValueError(f"GraphedStep: argument {i} has another "
+                                 f"structure than at the capture")
+            for s, d in zip(src, dst):
+                if s is d:
+                    continue
+                if not isinstance(d, torch.Tensor):
+                    if s != d:
+                        raise ValueError(f"GraphedStep: argument {i} holds "
+                                         f"{s!r}, the capture saw {d!r}")
+                    continue
+                if (s.shape, s.dtype) != (d.shape, d.dtype):
+                    raise ValueError(
+                        f"GraphedStep: argument {i} has a tensor "
+                        f"{tuple(s.shape)} {s.dtype} where the capture "
+                        f"had {tuple(d.shape)} {d.dtype}")
+                d.copy_(s)
 
 
 class KernelBuildError(RuntimeError):

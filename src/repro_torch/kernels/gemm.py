@@ -24,6 +24,8 @@ Here both backward products are this kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
+import sys
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -194,7 +196,20 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *,
     CPU tensors it is inert.  Where an operand takes a gradient, the call
     goes through :func:`gemm_grad`; elsewhere it is the launch alone: the
     operator's dispatch adds 23-41 us of host time a call on the H100
-    (``PERF.md``), which a decode step would pay on each product."""
+    (``PERF.md``), which a decode step would pay on each product.  A
+    DTensor operand on the card goes through the operator too, whose
+    sharding rule (:func:`register_sharding_rule`) runs the kernel on
+    each rank's blocks: a DTensor has no memory of its own to hand the
+    kernel.  On the CPU a DTensor takes the plain version, by DTensor's
+    own rules, or the operator where it takes a gradient."""
+    if _is_dtensor(a) or _is_dtensor(b):
+        register_sharding_rule()
+        if a.device.type == "cuda":
+            if out_dtype not in (None, a.dtype):
+                raise TypeError(f"gemm: out_dtype {out_dtype} on DTensors; "
+                                f"the product's output takes the inputs' "
+                                f"dtype")
+            return gemm_grad(a, b, block)
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
         if out_dtype not in (None, a.dtype):
             raise TypeError(f"gemm: out_dtype {out_dtype} has no gradient; "
@@ -298,6 +313,35 @@ def _gemm_backward(ctx, grad: torch.Tensor):
 
 
 gemm_grad.register_autograd(_gemm_backward, setup_context=_gemm_setup)
+
+
+def _is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor, without importing the distributed
+    package where none can exist yet."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+@functools.cache
+def register_sharding_rule() -> None:
+    """DTensor's sharding rule for :func:`gemm_grad`: the rules of a
+    (batched) matrix product, so that the operator runs on each rank's
+    blocks of its operands (a sharded step's products on the card, a
+    sharded training step's everywhere).  Once per process."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.gemm.default)
+    def _gemm_rule(a, b, block):
+        r, s = Replicate(), Shard
+        lead = a.ndim - 2                   # 1 for the batched product
+        out = [([r], [r, r, None]),
+               ([s(lead)], [s(lead), r, None]),
+               ([s(lead + 1)], [r, s(lead + 1), None]),
+               ([Partial()], [s(lead + 1), s(lead), None])]
+        if lead:
+            out.append(([s(0)], [s(0), s(0), None]))
+        return out
 
 
 @gemm_grad.register_fake

@@ -3,7 +3,7 @@
 The counterpart of ``repro/launch/specs.py``.  ``build_cell`` assembles
 everything a dry run needs:
 
-* the step function (train_step / prefill_step / serve_step, the calls
+* the step function (train_step / prefill_step / decode_step, the calls
   of the reference's ``:155-211``);
 * its arguments: parameters, optimizer and compression state, batch and
   cache as DTensors over the mesh, each placed by
@@ -17,6 +17,12 @@ be allocated).  The fake tensors are CPU tensors, so every kernel wrapper
 takes its plain version, as the reference's dry run runs on the CPU
 backend where ``use_pallas()`` is false.
 
+The decode cells' step (:func:`decode_step`) is also the card's sharded
+decode step: ``chip_smoke.py``'s mesh phase places real weights and a
+real cache with :func:`place_params` and :func:`place_cache` and runs it
+through ``kernels.compat.GraphedStep``, the counterpart of the
+reference's ``jax.jit`` of a sharded step (``repro/launch/dryrun.py:93``).
+
 Shape suite: train_4k, prefill_32k, decode_32k, long_500k.
 ``long_500k`` raises ``CellSkipped`` for quadratic-attention
 architectures.  ``build_cell`` also takes a :class:`ShapeCell` of its own
@@ -25,7 +31,6 @@ architectures.  ``build_cell`` also takes a :class:`ShapeCell` of its own
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Any, Callable, Dict, Optional, Union
 
 import torch
@@ -72,28 +77,6 @@ def check_cell(cfg: ModelConfig, shape: ShapeCell) -> None:
 def axis_env_for(mesh) -> AxisEnv:
     return AxisEnv(batch=batch_axes(mesh), model="model",
                    sizes=tuple(mesh_sizes(mesh).items()), mesh=mesh)
-
-
-@functools.cache
-def _register_rules() -> None:
-    """DTensor's sharding rule for the gemm operator that training's
-    products go through (``kernels/gemm.py`` ``gemm_grad``): the rules
-    of a (batched) matrix product, so that the operator runs on each
-    rank's blocks of its operands.  Once per process."""
-    from torch.distributed.tensor import Partial, Replicate, Shard
-    from torch.distributed.tensor.experimental import register_sharding
-
-    @register_sharding(torch.ops.repro_torch.gemm.default)
-    def _gemm_rule(a, b, block):
-        r, s = Replicate(), Shard
-        lead = a.ndim - 2                   # 1 for the batched product
-        out = [([r], [r, r, None]),
-               ([s(lead)], [s(lead), r, None]),
-               ([s(lead + 1)], [r, s(lead + 1), None]),
-               ([Partial()], [s(lead + 1), s(lead), None])]
-        if lead:
-            out.append(([s(0)], [s(0), s(0), None]))
-        return out
 
 
 # ----------------------------------------------------------------------- #
@@ -148,8 +131,16 @@ def _extra_specs(model: Model, b: int, mesh) -> Dict[str, Any]:
 
 def _cache_specs(model: Model, b: int, max_len: int, mesh,
                  *, seq_shard: bool) -> Any:
-    cache = model.init_cache(b, max_len, torch.bfloat16, device="cpu")
+    return place_cache(model.init_cache(b, max_len, torch.bfloat16,
+                                        device="cpu"),
+                       max_len, mesh, seq_shard=seq_shard)
 
+
+def place_cache(cache: Any, max_len: int, mesh, *,
+                seq_shard: bool = False) -> Any:
+    """A decode cache (``Model.init_cache``'s tree, ``max_len`` slots) as
+    DTensors over ``mesh``, each leaf placed by ``shardings.cache_spec``:
+    the fake stand-ins of the dry run, or a real cache on the card."""
     def classify(path, leaf):
         if leaf.dim() == 5:
             kind = "kv" if leaf.shape[3] == max_len else "ssm"
@@ -173,9 +164,16 @@ def param_structs(model: Model, mesh, *, master: bool = True) -> Any:
     the reference's storage) or, with ``master=False``, the serving
     storage of ``models/layers.py``."""
     _need_fake()
-    params = model.init(torch.Generator().manual_seed(0), "cpu",
-                        master=master)
-    shards = leaves(shd.param_shardings(params, mesh, model.cfg))
+    return place_params(model.init(torch.Generator().manual_seed(0), "cpu",
+                                   master=master), mesh, model.cfg)
+
+
+def place_params(params: Any, mesh, cfg: ModelConfig) -> Any:
+    """A parameter tree as DTensors over ``mesh``, each leaf placed by
+    ``param_shardings`` (every rank holds the whole tree and keeps its
+    block): the fake stand-ins of the dry run, or real weights on the
+    card."""
+    shards = leaves(shd.param_shardings(params, mesh, cfg))
     return unflatten(params, [_dist(p, s)
                               for p, s in zip(leaves(params), shards)])
 
@@ -209,6 +207,36 @@ def _greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(shard(logits[:, -1, :], "batch", None), -1).int()
 
 
+def prefill_step(model: Model, moe_impl: str = "scatter") -> Callable:
+    """The prefill cells' step, ``(params, tokens, cache, extra) ->
+    (next token (B,), cache)``: the whole prompt from position 0."""
+    @torch.no_grad()
+    def step(params, tokens, cache, extra_in):
+        logits, _, cache = model.forward(
+            params, tokens, cache=cache, cache_pos=0, moe_impl=moe_impl,
+            last_only=True, **extra_in)
+        return _greedy(logits), cache
+
+    return _implicit(step)
+
+
+def decode_step(model: Model, moe_impl: str = "scatter") -> Callable:
+    """The decode cells' step, ``(params, tok (B, 1), cache, pos) ->
+    (next token (B,), cache)``: one token against the cache, written in
+    place at ``pos``, a host integer or the one-element int32 tensor on
+    the cache's device that a captured step reads there
+    (``kernels.compat.GraphedStep``).  The dry run's decode cells run it
+    on fake DTensors, the card's mesh phase on plain per-rank blocks and
+    on real DTensors."""
+    @torch.no_grad()
+    def step(params, tok, cache, pos):
+        logits, _, cache = model.forward(
+            params, tok, cache=cache, cache_pos=pos, moe_impl=moe_impl)
+        return _greedy(logits), cache
+
+    return _implicit(step)
+
+
 def build_cell(model: Model, arch: str, shape_name: Union[str, ShapeCell],
                mesh, *, remat: str = "dots", n_micro: int = 1,
                zero: bool = False, grad_compress: bool = False,
@@ -217,7 +245,6 @@ def build_cell(model: Model, arch: str, shape_name: Union[str, ShapeCell],
     """Must run under ``FakeTensorMode``, as must the cell's ``fn``.
     ``unroll`` is accepted and ignored: the layer stack is a Python
     loop, so every count is already at full depth."""
-    _register_rules()
     cfg = model.cfg
     shape = (shape_name if isinstance(shape_name, ShapeCell)
              else SHAPES[shape_name])
@@ -257,23 +284,9 @@ def build_cell(model: Model, arch: str, shape_name: Union[str, ShapeCell],
     if shape.kind == "prefill":
         text = model.text_len(t)
         extra = _extra_specs(model, b, mesh)
-
-        @torch.no_grad()
-        def prefill_step(params, tokens, cache, extra_in):
-            logits, _, cache = model.forward(
-                params, tokens, cache=cache, cache_pos=0, moe_impl=moe_impl,
-                last_only=True, **extra_in)
-            return _greedy(logits), cache
-
         args = (pstructs, _batch((b, text), torch.int32, mesh), cache, extra)
-        return Cell(arch, shape, _implicit(prefill_step), args)
+        return Cell(arch, shape, prefill_step(model, moe_impl), args)
 
     # decode: one new token against a full-length cache (its last slot)
-    @torch.no_grad()
-    def serve_step(params, tok, cache, pos):
-        logits, _, cache = model.forward(
-            params, tok, cache=cache, cache_pos=pos, moe_impl=moe_impl)
-        return _greedy(logits), cache
-
     args = (pstructs, _batch((b, 1), torch.int32, mesh), cache, t - 1)
-    return Cell(arch, shape, _implicit(serve_step), args)
+    return Cell(arch, shape, decode_step(model, moe_impl), args)

@@ -47,8 +47,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.kernels import ops
-from repro_torch.models.sharding import (embedding, merge_last, shard,
-                                         split_last)
+from repro_torch.models.sharding import (embedding, index_copy_,
+                                         merge_last, shard, split_last)
 
 #: rows generated at a time by :func:`dense_init` (bounds its float32 temp)
 _INIT_ROWS = 8192
@@ -238,8 +238,8 @@ def attention_fwd(p, cfg: ModelConfig, x: torch.Tensor,
         if isinstance(cache_pos, torch.Tensor):
             at = positions_from(cache_pos, t, kc.device)
             slots = at.long()
-            kc.index_copy_(2, slots, k.to(kc.dtype))
-            vc.index_copy_(2, slots, v.to(vc.dtype))
+            index_copy_(kc, 2, slots, k.to(kc.dtype))
+            index_copy_(vc, 2, slots, v.to(vc.dtype))
             end = at[-1:] + 1
         else:
             pos = int(cache_pos) if cache_pos is not None else 0

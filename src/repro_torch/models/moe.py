@@ -56,8 +56,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init
-from repro_torch.models.sharding import (get_env, is_dtensor, mesh_sizes,
-                                         replicated, shard)
+from repro_torch.models.sharding import (block, get_env, is_dtensor,
+                                         mesh_sizes, replicated, shard,
+                                         unblock)
 
 #: the plans of :func:`moe_fwd`
 IMPLS = ("scatter", "dense", "a2a")
@@ -202,16 +203,6 @@ def _dispatch_local(cfg: ModelConfig, xf: torch.Tensor, weights, idx,
     return buf[:e * cap].view(e, cap, d), dest
 
 
-def _local(x: torch.Tensor, mesh, spec) -> torch.Tensor:
-    """This rank's block of ``x`` under ``spec`` (shard_map's in_specs):
-    a DTensor is redistributed and its local tensor taken; a plain tensor
-    is already this rank's block."""
-    if not is_dtensor(x):
-        return x
-    from repro_torch.models.sharding import placements
-    return x.redistribute(mesh, placements(spec, mesh)).to_local()
-
-
 def moe_fwd_a2a(p, cfg: ModelConfig, x: torch.Tensor, mesh,
                 batch_axes: tuple, model_axis: str = "model"
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -242,9 +233,9 @@ def moe_fwd_a2a(p, cfg: ModelConfig, x: torch.Tensor, mesh,
     bt = batch_axes[0] if len(batch_axes) == 1 else tuple(batch_axes)
     group = mesh.get_group(model_axis)
     ep = P(model_axis, None, None)
-    xl = _local(x, mesh, P(bt, None, None))
-    router = _local(p["router"], mesh, P())
-    wg, wu, wd = (_local(p[w], mesh, ep) for w in ("wg", "wu", "wd"))
+    xl = block(x, mesh, P(bt, None, None))
+    router = block(p["router"], mesh, P())
+    wg, wu, wd = (block(p[w], mesh, ep) for w in ("wg", "wu", "wd"))
 
     bsz, t, d = xl.shape
     n_loc = bsz * t
@@ -279,10 +270,5 @@ def moe_fwd_a2a(p, cfg: ModelConfig, x: torch.Tensor, mesh,
     out = out.reshape(bsz, t, d).to(xl.dtype)
     if not is_dtensor(x):
         return out, aux
-    from torch.distributed.tensor import DTensor
-    from repro_torch.models.sharding import placements
-    return (DTensor.from_local(out, mesh, placements(P(bt, None, None),
-                                                     mesh), run_check=False),
-            DTensor.from_local(aux, mesh, placements(P(), mesh),
-                               run_check=False))
+    return unblock(out, mesh, P(bt, None, None)), unblock(aux, mesh, P())
 

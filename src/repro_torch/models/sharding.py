@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -157,7 +158,11 @@ def replicated(x):
     DTensor: a DTensor is gathered (the collective GSPMD would insert
     before that op) and its local tensor returned; anything else is
     returned as it is.  What comes out is a plain tensor, so the op and
-    what follows it run on each rank's full copy."""
+    what follows it run on each rank's full copy.  Its gradient is taken
+    as replicated: right where every rank computes the same whole result
+    from it and gets the whole cotangent (the MoE scatter plan), wrong
+    where it meets rank-local data (use :func:`block` or
+    :func:`per_shard`'s ``whole`` there)."""
     if not is_dtensor(x):
         return x
     from torch.distributed.tensor import Replicate
@@ -173,17 +178,22 @@ def is_dtensor(x) -> bool:
     return mod is not None and isinstance(x, mod.DTensor)
 
 
-def per_shard(fn, *xs: torch.Tensor, shardable: Sequence[int] = (0, 1)):
-    """``fn(*xs)`` on each rank's local shards, for a function that is
-    independent along the leading dims ``shardable`` (attention: batch
-    and heads): per mesh dim, the inputs keep a ``Shard(i)`` they all
-    share for some ``i`` in ``shardable`` and are gathered on any other
-    (the collective GSPMD would insert); the result carries the first
-    input's placements (each output's, where ``fn`` returns a tuple).
-    Plain tensors go to ``fn`` as they are."""
+def per_shard(fn, *xs: torch.Tensor, shardable: Sequence[int] = (0, 1),
+              **whole: torch.Tensor):
+    """``fn(*xs, **whole)`` on each rank's local shards, for a function
+    that is independent along the leading dims ``shardable`` of ``xs``
+    (attention: batch and heads): per mesh dim, the inputs keep a
+    ``Shard(i)`` they all share for some ``i`` in ``shardable`` and are
+    gathered on any other (the collective GSPMD would insert); the result
+    carries the first input's placements (each output's, where ``fn``
+    returns a tuple).  ``whole`` (the SSD's ``a`` and ``d_skip``) go to
+    every rank whole; each rank's gradient of one is a partial sum over
+    the mesh dims whose ranks split ``xs``, as shard_map's transpose sums
+    an unmapped input's cotangent.  Plain tensors go to ``fn`` as they
+    are."""
     if not is_dtensor(xs[0]):
-        return fn(*xs)
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+        return fn(*xs, **whole)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     mesh = xs[0].device_mesh
     keep = []
     for m in range(mesh.ndim):
@@ -193,10 +203,63 @@ def per_shard(fn, *xs: torch.Tensor, shardable: Sequence[int] = (0, 1)):
               and all(x.shape[p.dim] % mesh.size(m) == 0 for x in xs))
         keep.append(p if ok else Replicate())
     local = [x.redistribute(mesh, keep).to_local() for x in xs]
-    out = fn(*local)
+    split = [Partial() if isinstance(p, Shard) else Replicate() for p in keep]
+    kw = {k: (v.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=split) if is_dtensor(v) else v)
+        for k, v in whole.items()}
+    out = fn(*local, **kw)
     wrap = [DTensor.from_local(y, mesh, keep, run_check=False)
             for y in (out if isinstance(out, tuple) else (out,))]
     return tuple(wrap) if isinstance(out, tuple) else wrap[0]
+
+
+class _ScaleCotangent(torch.autograd.Function):
+    """The identity forward; the backward divides the cotangent by ``n``."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad / ctx.n, None
+
+
+def block(x: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """This rank's block of ``x`` under ``spec``, as ``shard_map`` hands
+    an input to its body (``in_specs``): a DTensor is redistributed to
+    the spec and its local tensor taken; a plain tensor is already this
+    rank's block.  The local tensor's gradient is a partial sum over
+    every mesh dim that ``spec`` leaves unsharded, where shard_map's
+    transpose sums an unmapped input's cotangent: each rank of such a dim
+    holds the whole input but meets its own data.  Its body's results
+    come back through :func:`unblock`."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Partial, Replicate
+    want = placements(spec, mesh)
+    return x.redistribute(mesh, want).to_local(grad_placements=[
+        Partial() if isinstance(p, Replicate) else p for p in want])
+
+
+def unblock(y: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """This rank's block ``y`` as a DTensor placed by ``spec``, as
+    ``shard_map`` returns a result (``out_specs``).  Every rank of a mesh
+    dim that ``spec`` leaves unsharded holds the same value, and each
+    such copy takes its share of the cotangent: the cotangent is divided
+    by the number of copies, as shard_map's transpose divides it, so that
+    the partial sums of :func:`block` count each copy once.  The forward
+    is ``y`` itself."""
+    from torch.distributed.tensor import DTensor
+    sizes = mesh_sizes(mesh)
+    named = {a for entry in spec if entry is not None
+             for a in (entry if isinstance(entry, tuple) else (entry,))}
+    copies = math.prod(n for a, n in sizes.items() if a not in named)
+    if copies > 1 and y.requires_grad:
+        y = _ScaleCotangent.apply(y, copies)
+    return DTensor.from_local(y, mesh, placements(spec, mesh),
+                              run_check=False)
 
 
 def split_last(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -250,6 +313,34 @@ def merge_last(x: torch.Tensor) -> torch.Tensor:
     return DTensor.from_local(out, x.device_mesh, placements,
                               run_check=False, shape=shape,
                               stride=tuple(stride))
+
+
+@functools.cache
+def _index_copy_rule() -> None:
+    """DTensor's sharding rule for ``index_copy_`` (torch 2.11 has none):
+    each rank writes its block, the destination and the source placed
+    alike on every dim but the written one, the index whole.  Once per
+    process."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.aten.index_copy_.default)
+    def _rule(x, dim, index, src):
+        d = dim % x.ndim
+        r = Replicate()
+        return [([r], [r, None, r, r])] + [
+            ([Shard(i)], [Shard(i), None, r, Shard(i)])
+            for i in range(x.ndim) if i != d]
+
+
+def index_copy_(x: torch.Tensor, dim: int, index: torch.Tensor,
+                src: torch.Tensor) -> torch.Tensor:
+    """``x.index_copy_(dim, index, src)``: the decode cache's write at a
+    tensor position.  A DTensor cache is written on each rank's block
+    (:func:`_index_copy_rule`), its written dim unsharded."""
+    if is_dtensor(x):
+        _index_copy_rule()
+    return x.index_copy_(dim, index, src)
 
 
 def _contiguous_stride(shape) -> tuple:

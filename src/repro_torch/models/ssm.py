@@ -38,7 +38,7 @@ from repro_torch.configs.base import ModelConfig, torch_dtype
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import torch_matmul
 from repro_torch.models.layers import dense_init, rms_norm
-from repro_torch.models.sharding import per_shard, replicated, shard
+from repro_torch.models.sharding import per_shard, shard
 
 #: chunk length of the SSD: the intra-chunk work is quadratic in it
 CHUNK = 64
@@ -149,10 +149,10 @@ def _ssd_chunks(xh: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
 def _ssd_core(fn, *xs, a: torch.Tensor, d_skip: torch.Tensor, **kw):
     """``fn`` on each batch shard (``sharding.per_shard``: under a mesh's
     dry run every rank scans its batch rows over all heads; the products
-    of a scan have no DTensor rule); ``a`` and ``d_skip`` whole."""
-    return per_shard(functools.partial(fn, a=replicated(a),
-                                       d_skip=replicated(d_skip), **kw),
-                     *xs, shardable=(0,))
+    of a scan have no DTensor rule); ``a`` and ``d_skip`` whole, their
+    gradients summed over the batch shards."""
+    return per_shard(functools.partial(fn, **kw), *xs, shardable=(0,),
+                     a=a, d_skip=d_skip)
 
 
 def ssd_fwd(p, cfg: ModelConfig, xin: torch.Tensor, chunk: int = CHUNK,

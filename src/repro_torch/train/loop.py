@@ -308,28 +308,16 @@ class Trainer:
         return g.metrics
 
     def _capture(self, batch: Dict) -> _Captured:
-        """Capture :meth:`_update` on the side stream (``thread_local``
-        mode), its inputs copied into static buffers; nothing runs until
-        the first replay.  The counters' moves, the backward's included,
-        go into the capture's record."""
-        graph = torch.cuda.CUDAGraph()
+        """Capture :meth:`_update` on the side stream (``compat.capture``,
+        ``thread_local`` mode), its inputs copied into static buffers;
+        nothing runs until the first replay.  The counters' moves, the
+        backward's included, go into the capture's record."""
         static = {k: v.clone() for k, v in batch.items()}
         # the warm-up's freed blocks go back to the card, where the
         # graph's own pool can take them
         torch.cuda.empty_cache()
-        self._stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(self._stream), compat.recording() as record:
-            graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                metrics = self._update(static)
-            except BaseException:
-                try:
-                    graph.capture_end()
-                except RuntimeError:
-                    pass        # the capture was already invalidated
-                raise
-            graph.capture_end()
-        torch.cuda.current_stream(self.device).wait_stream(self._stream)
+        graph, metrics, record = compat.capture(self._update, static,
+                                                stream=self._stream)
         return _Captured(graph, static, metrics, record)
 
     def _watchdog(self, dt: float) -> None:

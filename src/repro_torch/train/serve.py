@@ -222,28 +222,16 @@ class Server:
         return g.out.clone(), g.cache
 
     def _capture(self, tok, cache) -> _Captured:
-        """Capture :meth:`_decode_step` on the side stream, in this
-        thread's own capture mode (``thread_local``: concurrent streams'
-        Servers capture in their own threads), with the sampling
-        generator registered.  Nothing runs until the first replay; the
-        counters' moves go into the capture's record."""
-        graph = torch.cuda.CUDAGraph()
-        if self.scfg.temperature > 0:
-            graph.register_generator_state(self._gen)
+        """Capture :meth:`_decode_step` on the side stream
+        (``compat.capture``, in this thread's own capture mode:
+        concurrent streams' Servers capture in their own threads), with
+        the sampling generator registered.  Nothing runs until the first
+        replay; the counters' moves go into the capture's record."""
         static_tok = torch.empty_like(tok)
-        self._stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(self._stream), compat.recording() as record:
-            graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                out, cache = self._decode_step(static_tok, cache, self._pos)
-            except BaseException:
-                try:
-                    graph.capture_end()
-                except RuntimeError:
-                    pass        # the capture was already invalidated
-                raise
-            graph.capture_end()
-        torch.cuda.current_stream(self.device).wait_stream(self._stream)
+        graph, (out, cache), record = compat.capture(
+            self._decode_step, static_tok, cache, self._pos,
+            stream=self._stream,
+            generators=(self._gen,) if self.scfg.temperature > 0 else ())
         return _Captured(graph, static_tok, cache, out, record)
 
     def _to_device(self, cache) -> Tuple[Any, int]:

@@ -114,6 +114,15 @@ def test_quickstart_counts_like_the_reference(clean_env, capsys):
         s.sync()
         want = _counters(s.stats)
         reuse = s.runtime.mean_buffer_reuse()
+        tier = jcore.memspace.tier_of(c)
+    # the reference's memory-kind line (examples/quickstart.py:48), its
+    # space on the one-kind simulated tiers the port runs on the CPU
+    live = jcore.memspace.active()
+    one = jcore.memspace.MemSpace(host_kind=live.device_kind,
+                                  device_kind=live.device_kind,
+                                  simulated=True, backend=live.backend)
+    assert (f"result tier: {tier} (memory kind {one.kind_of(tier)}, "
+            f"device cpu, simulated)") in out
     assert got["counters"] == {name: {k: want[name][k] for k in fields}
                                for name, fields in got["counters"].items()}
     assert set(got["counters"]) == {"sgemm", "sgemv"}

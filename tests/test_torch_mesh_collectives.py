@@ -17,6 +17,17 @@ devices share one set of seeded numpy inputs:
    restored with ``shardings=`` onto ``(data=2, model=2)`` (an elastic
    restart is a new job).
 
+The gradients of weights that several ranks hold (the a2a plan's router
+and experts, the SSD's ``a`` and ``d_skip``) are partial sums that the
+port adds over those ranks, as ``shard_map``'s transpose does: job 1
+takes the a2a plan's gradients at ``(data=2, model=4)`` beside the
+reference's ``jax.grad`` (job 2), where each rank holds one expert (the
+reference pairs tokens with the wrong experts where a rank holds two);
+job 3 takes them at ``(data=2, model=2)`` against the dense oracle, with
+the pre-fix control and one ``make_train_step`` step of reduced
+granite-moe; a fourth job of 2 ranks, beside the reference, takes the
+SSD's at ``(data=2, model=1)``.
+
 The BLAS-offload mesh (``make_offload_mesh``) runs in this process over
 a one-rank gloo group, as ``tests/test_multidevice.py:431`` asserts it.
 """
@@ -34,6 +45,7 @@ SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 SEED = 0
 B, T = 4, 8
 RANKS_PSUM = 4
+STEP = 10                   # the train step's count: lr 0.5 x peak
 
 
 def _inputs(path: str) -> None:
@@ -46,6 +58,12 @@ def _inputs(path: str) -> None:
         return (0.2 * rng.standard_normal(shape)).astype(np.float32)
 
     scales = np.array([1.0, 3.0, 0.01, 40.0], np.float32)[:, None, None]
+
+    def small(*shape):          # the model's own init scale
+        return (0.02 * rng.standard_normal(shape)).astype(np.float32)
+
+    # the gradient cases' inputs are drawn after the others, which keep
+    # their values
     np.savez(path, router=w(d, e), wg=w(e, d, ff), wu=w(e, d, ff),
              wd=w(e, ff, d), x=rng.standard_normal((B, T, d)).astype(
                  np.float32),
@@ -53,12 +71,190 @@ def _inputs(path: str) -> None:
                  np.float32),
              table=rng.standard_normal((16, 6)).astype(np.float32),
              tok=rng.integers(0, 16, (8, 5)),
-             tw=rng.standard_normal((8, 5, 6)).astype(np.float32))
+             tw=rng.standard_normal((8, 5, 6)).astype(np.float32),
+             g_router=small(d, e), g_wg=small(e, d, ff),
+             g_wu=small(e, d, ff), g_wd=small(e, ff, d),
+             tokens=rng.integers(0, cfg.vocab, (B, 2 * T)),
+             labels=rng.integers(0, cfg.vocab, (B, 2 * T)),
+             ssd_x=small(B, 4 * T, d),
+             ssd_w=rng.standard_normal((B, 4 * T, d)).astype(np.float32))
 
 
 # --------------------------------------------------------------------- #
 # the gloo jobs                                                          #
 # --------------------------------------------------------------------- #
+WEIGHTS = ("router", "wg", "wu", "wd")
+EXPERT_SPEC = ("model", None, None)
+
+
+def _moe_grads(inp, cfg, mesh, out: dict, tag: str) -> None:
+    """The a2a plan's gradients of ``sum(y**2) + aux`` on DTensors over
+    ``mesh``, whole on every rank: ``grad_{tag}_{name}``."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.models import moe
+    from repro_torch.models.sharding import (AxisEnv, P, axis_env,
+                                             mesh_sizes, placements)
+    env = AxisEnv(batch=("data",), model="model",
+                  sizes=tuple(mesh_sizes(mesh).items()), mesh=mesh)
+    p = {k: distribute_tensor(torch.from_numpy(inp[f"g_{k}"]), mesh,
+                              placements(P() if k == "router"
+                                         else P(*EXPERT_SPEC), mesh),
+                              src_data_rank=None).requires_grad_()
+         for k in WEIGHTS}
+    x = distribute_tensor(torch.from_numpy(inp["x"]), mesh, placements(
+        P("data", None, None), mesh), src_data_rank=None).requires_grad_()
+    with axis_env(env):
+        y, aux = moe.moe_fwd(p, cfg, x, impl="a2a")
+    ((y ** 2).sum() + aux).backward()
+    for k in WEIGHTS:
+        out[f"grad_{tag}_{k}"] = p[k].grad.full_tensor().numpy()
+    out[f"grad_{tag}_x"] = x.grad.full_tensor().numpy()
+
+
+def _oracle_grads(inp, cfg, n_data: int, out: dict, tag: str) -> None:
+    """The dense oracle of the a2a plan's loss on plain tensors: every
+    expert on every token for ``y``, and the aux loss as the plan takes
+    it, the mean over the ``n_data`` batch shards of each shard's
+    (its body computes the aux of its own tokens, then ``pmean``)."""
+    from repro_torch.models import moe
+    p = {k: torch.from_numpy(inp[f"g_{k}"]).requires_grad_()
+         for k in WEIGHTS}
+    x = torch.from_numpy(inp["x"]).requires_grad_()
+    y, _ = moe.moe_fwd(p, cfg, x, impl="dense")
+    aux = sum(moe.moe_fwd(p, cfg, xs, impl="dense")[1]
+              for xs in x.chunk(n_data)) / n_data
+    ((y ** 2).sum() + aux).backward()
+    for k in WEIGHTS:
+        out[f"oracle_{tag}_{k}"] = p[k].grad.numpy()
+    out[f"oracle_{tag}_x"] = x.grad.numpy()
+
+
+def _prefix_control(mesh) -> tuple:
+    """``moe.block`` and ``moe.unblock`` as they were before the sharded
+    gradients were summed: ``to_local()`` with its default gradient
+    placements, ``from_local`` without the cotangent's division."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.sharding import is_dtensor, placements
+
+    def block(x, mesh_, spec):
+        if not is_dtensor(x):
+            return x
+        return x.redistribute(mesh_, placements(spec, mesh_)).to_local()
+
+    def unblock(y, mesh_, spec):
+        return DTensor.from_local(y, mesh_, placements(spec, mesh_),
+                                  run_check=False)
+
+    return block, unblock
+
+
+def _train_step(inp, mesh, out: dict) -> None:
+    """One ``make_train_step`` step of reduced granite-moe with the a2a
+    plan on DTensors over ``mesh`` (parameters and moments placed by
+    ``param_shardings``, the batch over data), and the same step forced
+    plain on this process (the scatter plan, plain tensors), each from
+    the same seeded weights.  No token is dropped in either plan
+    (``capacity_factor=8``), and the router's aux loss is off: the a2a
+    plan's is the mean of its shards' (``_oracle_grads``), the scatter
+    plan's the whole batch's, another function."""
+    import dataclasses
+
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.launch import shardings as shd
+    from repro_torch.launch import specs
+    from repro_torch.models.registry import Model, get_config
+    from repro_torch.models.sharding import P, axis_env, placements
+    from repro_torch.optim import AdamW, init_compression
+    from repro_torch.train.loop import TrainConfig, make_train_step
+    from repro_torch.tree import leaves, unflatten
+    cfg = dataclasses.replace(get_config("granite_moe_1b_a400m").reduced(),
+                              capacity_factor=8.0, router_aux_coef=0.0)
+    model = Model.from_config(cfg)
+    batch = {k: torch.from_numpy(inp[k].astype(np.int32))
+             for k in ("tokens", "labels")}
+    for tag in ("a2a", "plain"):
+        params = model.init(torch.Generator().manual_seed(SEED), "cpu",
+                            master=True)
+        opt = AdamW()
+        step = make_train_step(model, TrainConfig(
+            moe_impl="a2a" if tag == "a2a" else "scatter"), opt,
+            total_steps=100)
+        if tag == "plain":
+            res = step(params, opt.init(params), init_compression(params),
+                       batch, STEP)
+        else:
+            sh = leaves(shd.param_shardings(params, mesh, cfg))
+
+            def place(t, s):
+                return distribute_tensor(t.detach(), mesh, s.placements,
+                                         src_data_rank=None)
+
+            params = unflatten(params, [place(t, s).requires_grad_()
+                                        for t, s in zip(leaves(params), sh)])
+            state = opt.init(params)
+            state = type(state)(
+                step=state.step,
+                mu=[place(torch.zeros(t.shape), s)
+                    for t, s in zip(leaves(params), sh)],
+                nu=[place(torch.zeros(t.shape), s)
+                    for t, s in zip(leaves(params), sh)])
+            dbatch = {k: distribute_tensor(v, mesh, placements(
+                P("data", None), mesh), src_data_rank=None)
+                for k, v in batch.items()}
+            with axis_env(specs.axis_env_for(mesh)):
+                res = specs._implicit(step)(params, state,
+                                            init_compression(params),
+                                            dbatch, STEP)
+        whole = [t.full_tensor() if hasattr(t, "full_tensor") else t
+                 for t in leaves(res[0])]
+        for i, t in enumerate(whole):
+            out[f"step_{tag}_{i}"] = t.detach().numpy()
+        for k, v in res[3].items():
+            v = v.full_tensor() if hasattr(v, "full_tensor") else v
+            out[f"metric_{tag}_{k}"] = v.detach().numpy()
+
+
+def _ssd_grads(inp, mesh, out: dict) -> None:
+    """``ssd_fwd`` of reduced mamba2's first layer on DTensors over
+    ``mesh`` (parameters placed by ``param_spec``, the input over data)
+    and on plain tensors: the gradients of a weighted sum, whole.  The
+    input is at the embedding's scale (0.02): at unit scale some head's
+    decay over a chunk passes float32's range in the masked half of the
+    intra-chunk exponent, whose gradient is then 0 x inf, in the
+    reference's formulation as in the port's."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.launch import shardings as shd
+    from repro_torch.launch import specs
+    from repro_torch.models import ssm
+    from repro_torch.models.registry import get_config
+    from repro_torch.models.sharding import P, axis_env, placements
+    cfg = get_config("mamba2_1_3b").reduced()
+    plain = ssm.init_ssm(torch.Generator().manual_seed(SEED), cfg, "cpu")
+    x, w = (torch.from_numpy(inp[k]) for k in ("ssd_x", "ssd_w"))
+    on = {k: distribute_tensor(v, mesh, shd.NamedSharding(
+        mesh, shd.sanitize(shd.param_spec(("blocks", "0", "ssm", k), v,
+                                          cfg), v.shape, mesh)).placements,
+        src_data_rank=None).requires_grad_() for k, v in plain.items()}
+    batch = placements(P("data", None, None), mesh)
+    xd = distribute_tensor(x, mesh, batch, src_data_rank=None)
+    wd = distribute_tensor(w, mesh, batch, src_data_rank=None)
+    with axis_env(specs.axis_env_for(mesh)):
+        (ssm.ssd_fwd(on, cfg, xd.requires_grad_(), chunk=16) * wd) \
+            .sum().backward()
+    p = {k: v.clone().requires_grad_() for k, v in plain.items()}
+    xp = x.clone().requires_grad_()
+    (ssm.ssd_fwd(p, cfg, xp, chunk=16) * w).sum().backward()
+    for k in plain:
+        out[f"ssd_{k}"] = on[k].grad.full_tensor().numpy()
+        out[f"ssd_plain_{k}"] = p[k].grad.numpy()
+    out["ssd_x"] = xd.grad.full_tensor().numpy()
+    out["ssd_plain_x"] = xp.grad.numpy()
+
+
 def _job(rank: int, world: int, task: str, tmp: str) -> None:
     import dataclasses
 
@@ -110,6 +306,9 @@ def _job(rank: int, world: int, task: str, tmp: str) -> None:
             out[f"aux_{tag}"] = aux.full_tensor().numpy()
             out[f"dense_{tag}"] = moe.moe_fwd(full, cfg, x,
                                               impl="dense")[0].numpy()
+            _moe_grads(inp, cfg, mesh, out, tag)
+            if tag == "cf8":
+                _oracle_grads(inp, cfg, 2, out, tag)
         # two experts per rank: (data=4, model=2)
         qmesh = make_debug_mesh(8, model=2, device="cpu")
         env2 = AxisEnv(batch=("data",), model="model",
@@ -149,6 +348,8 @@ def _job(rank: int, world: int, task: str, tmp: str) -> None:
                                 src_data_rank=None)
               for t, s in zip(leaves(params), shards)]
         CheckpointStore(os.path.join(tmp, "ckpt_port")).save(1, dp)
+    elif task == "two":
+        _ssd_grads(inp, make_debug_mesh(2, model=1, device="cpu"), out)
     else:
         g = torch.from_numpy(inp["g"][rank])
         from repro_torch.optim import compressed_psum
@@ -170,6 +371,19 @@ def _job(rank: int, world: int, task: str, tmp: str) -> None:
                 out[f"{name}_{i}"] = t.full_tensor().detach().numpy()
         for i, t in enumerate(leaves(like)):
             out[f"init_{i}"] = t.detach().numpy()
+        # two experts per rank: the gradients against the dense oracle,
+        # then the pre-fix control, then one train step
+        cfg = dataclasses.replace(get_config("granite_moe_1b_a400m")
+                                  .reduced(), capacity_factor=8.0)
+        _moe_grads(inp, cfg, mesh, out, "m2")
+        _oracle_grads(inp, cfg, 2, out, "m2")
+        fixed = moe.block, moe.unblock
+        moe.block, moe.unblock = _prefix_control(mesh)
+        try:
+            _moe_grads(inp, cfg, mesh, out, "prefix")
+        finally:
+            moe.block, moe.unblock = fixed
+        _train_step(inp, mesh, out)
     if rank == 0:
         np.savez(os.path.join(tmp, f"out_{task}.npz"), **out)
     dist.barrier()
@@ -210,6 +424,18 @@ for tag, cf in (("cf8", 8.0), ("cfdef", base.capacity_factor)):
                                                    impl="a2a"))(p, x)
     out["a2a_" + tag] = np.asarray(y)
     out["aux_" + tag] = np.asarray(aux)
+    # the gradients of sum(y**2) + aux, at the model's weight scale
+    pg = {k: jnp.asarray(inp["g_" + k]) for k in ("router", "wg", "wu", "wd")}
+
+    def loss(pp, xx, cfg=cfg):
+        y, aux = MO.moe_fwd(pp, cfg, xx, impl="a2a")
+        return jnp.sum(jnp.square(y)) + aux
+
+    with mesh, axis_env(env):
+        gp, gx = jax.jit(jax.grad(loss, argnums=(0, 1)))(pg, x)
+    for k in pg:
+        out["grad_%s_%s" % (tag, k)] = np.asarray(gp[k])
+    out["grad_%s_x" % tag] = np.asarray(gx)
 mesh2 = jax.make_mesh((4, 2), ("data", "model"))
 env2 = AxisEnv(batch=("data",), model="model",
                sizes=tuple(mesh2.shape.items()), mesh=mesh2)
@@ -245,9 +471,9 @@ print(json.dumps({"ok": True}))
 """
 
 
-def _spawn(world: int, task: str, tmp: str) -> None:
+def _spawn(world: int, task: str, tmp: str, join: bool = True):
     import torch.multiprocessing as mp
-    mp.spawn(_job, args=(world, task, tmp), nprocs=world, join=True)
+    return mp.spawn(_job, args=(world, task, tmp), nprocs=world, join=join)
 
 
 @pytest.fixture(scope="module")
@@ -258,14 +484,17 @@ def runs(tmp_path_factory):
     env = dict(os.environ)
     env["PYTHONPATH"] = SRC
     env.pop("XLA_FLAGS", None)
+    two = _spawn(2, "two", tmp, join=False)       # beside the reference
     got = subprocess.run([sys.executable, "-c", REFERENCE, tmp], env=env,
                          capture_output=True, text=True, timeout=600)
+    while not two.join():
+        pass
     assert got.returncode == 0, got.stderr[-3000:]
     assert json.loads(got.stdout.strip().splitlines()[-1])["ok"]
     _spawn(4, "four", tmp)
     return {name: dict(np.load(os.path.join(tmp, f"{name}.npz")))
             for name in ("out_eight", "out_reference", "out_four",
-                         "inputs")}
+                         "out_two", "inputs")}
 
 
 # --------------------------------------------------------------------- #
@@ -321,6 +550,85 @@ def test_vocab_parallel_lookup(runs):
     np.testing.assert_allclose(got["embed_grad"], want, rtol=1e-6,
                                atol=1e-6)
     assert list(got["embed_grad_placed"]) == ["P(sum)", "S(0)"]
+
+
+# --------------------------------------------------------------------- #
+# gradients of weights shared across ranks                               #
+# --------------------------------------------------------------------- #
+GRADS = WEIGHTS + ("x",)
+
+
+@pytest.mark.parametrize("tag", ["cf8", "cfdef"])
+@pytest.mark.parametrize("name", GRADS)
+def test_a2a_grads_match_reference(runs, tag, name):
+    """The a2a plan's gradients at (data=2, model=4) equal the reference's
+    ``jax.grad`` of its ``shard_map`` plan on the same mesh shape, with
+    and without drops: each rank's gradient of the router (held by all 8)
+    and of its experts (held by the 2 ranks of its data dim) is a partial
+    sum that the port adds over them, as shard_map's transpose does."""
+    got, ref = runs["out_eight"], runs["out_reference"]
+    np.testing.assert_allclose(got[f"grad_{tag}_{name}"],
+                               ref[f"grad_{tag}_{name}"], rtol=1e-4,
+                               atol=1e-8)
+
+
+@pytest.mark.parametrize("mesh", ["eight", "four"])
+@pytest.mark.parametrize("name", GRADS)
+def test_a2a_grads_match_dense_oracle(runs, mesh, name):
+    """Without drops the a2a plan's gradients equal the dense oracle's
+    (its aux the mean of the batch shards'), at (data=2, model=4) and at
+    (data=2, model=2), where each rank holds two experts."""
+    tag = "cf8" if mesh == "eight" else "m2"
+    got = runs[f"out_{mesh}"]
+    np.testing.assert_allclose(got[f"grad_{tag}_{name}"],
+                               got[f"oracle_{tag}_{name}"], rtol=1e-4,
+                               atol=1e-8)
+
+
+def test_a2a_grads_before_the_fix_miss(runs):
+    """The control: with ``to_local()``'s default gradient placements
+    (each rank's partial gradient taken as the whole) the expert weights'
+    gradients at (data=2, model=2) miss the oracle by more than 10%."""
+    got = runs["out_four"]
+    want = got["oracle_m2_wg"]
+    miss = np.abs(got["grad_prefix_wg"] - want).max() / np.abs(want).max()
+    assert miss > 0.1, miss
+
+
+def test_a2a_train_step_matches_plain(runs):
+    """One ``make_train_step`` step with ``TrainConfig(moe_impl="a2a")``
+    on DTensors at (data=2, model=2) leaves the parameters of the same
+    step forced plain on one process (scatter, no drops) within 1e-5
+    relative (per leaf, in the L2 norm: AdamW's first step divides each
+    gradient by its own size, so an entry whose gradient is within a few
+    float32 roundings of zero moves by up to the step size, lr, on either
+    side), with the same loss and gradient norm."""
+    got = runs["out_four"]
+    n = len([k for k in got if k.startswith("step_plain_")])
+    assert n > 0
+    for i in range(n):
+        a, b = got[f"step_a2a_{i}"], got[f"step_plain_{i}"]
+        assert a.shape == b.shape
+        err = np.linalg.norm(a - b) / np.linalg.norm(b)
+        assert err <= 1e-5, (i, err)
+    for k in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(got[f"metric_a2a_{k}"],
+                                   got[f"metric_plain_{k}"], rtol=1e-5)
+    assert float(got["metric_plain_lr"]) > 0
+
+
+@pytest.mark.parametrize("name", ["in_proj", "conv_w", "conv_b", "a_log",
+                                  "dt_bias", "d_skip", "norm_w", "out_proj",
+                                  "x"])
+def test_ssd_grads_match_plain(runs, name):
+    """``ssd_fwd`` of reduced mamba2 on DTensors at (data=2, model=1):
+    every parameter's gradient (``a`` and ``d_skip`` reach every batch
+    shard whole, and their gradients are summed over the shards) within
+    1e-5 relative of the same function on plain tensors."""
+    got = runs["out_two"]
+    a, b = got[f"ssd_{name}"], got[f"ssd_plain_{name}"]
+    assert np.abs(b).max() > 0
+    assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max()
 
 
 # --------------------------------------------------------------------- #
