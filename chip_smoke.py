@@ -218,9 +218,11 @@ order:
              whisper-tiny checkpoint restored with shardings= onto the
              mesh bit for bit, each leaf a DTensor on the card; (d) the
              dry run (launch/dryrun.py) of qwen2.5-32b train_4k on the
-             one-pod mesh and jamba-1.5-large-398b long_500k on the
-             two-pod mesh, each in a CPU process of its own over a fake
-             group of 512 ranks: status ok, FLOPs > 0, both rooflines;
+             one-pod mesh, jamba-1.5-large-398b long_500k and
+             mamba2-1.3b train_4k (8 rows per batch shard against 16
+             model ranks) on the two-pod mesh, each in a CPU process of
+             its own over a fake group of 512 ranks: status ok, FLOPs >
+             0, both rooflines;
              (e) the dry run's counter over gemma2-9b's prefill forward
              and whisper-tiny's training step, each whole step's H100
              compute bound against the device time phases 8 and 11
@@ -4441,9 +4443,12 @@ def phase_runtime(dev) -> dict:
 #: the first the GraphedStep's warm-up, the rest replays of one capture)
 MESH_DECODE = 8
 #: the dry run's cells, each in its own process with its own time limit
-#: (s): the launcher's documented example, and jamba at full width
+#: (s): the launcher's documented example, jamba at full width, and an
+#: SSD model's training on the two-pod mesh, whose batch shards hold
+#: fewer rows than the model dim has ranks
 DRYRUN_CELLS = (("qwen2_5_32b", "train_4k", "single", 420),
-                ("jamba_1_5_large_398b", "long_500k", "multi", 420))
+                ("jamba_1_5_large_398b", "long_500k", "multi", 420),
+                ("mamba2_1_3b", "train_4k", "multi", 420))
 #: the roofline counts' process (gemma2-9b prefill, whisper-tiny step)
 COUNT_LIMIT = 420
 #: a whole step's compute bound over its profiled device time may not
@@ -4988,7 +4993,7 @@ def mesh_roofline(job, card: str) -> None:
 def phase_mesh(dev) -> dict:
     """The mesh paths on the card: (a), (f), (b) and (c) on a (data=1,
     model=1) mesh over a 1-rank NCCL group (a FileStore under build/; no
-    network), while (d) the dry run's two cells and (e)'s counts run on
+    network), while (d) the dry run's cells and (e)'s counts run on
     the CPU in processes of their own.  (a) and (f) are the main path;
     their launches are returned."""
     import tempfile

@@ -39,7 +39,7 @@ from repro_torch.kernels import trsm as trsm_kernel
 from repro_torch.kernels.attention import flash_attention
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.gemm import gemm, layout, row_major
-from repro_torch.models.sharding import per_shard
+from repro_torch.models.sharding import per_shard, rows, unrows
 
 
 def _operand(x: torch.Tensor) -> torch.Tensor:
@@ -66,8 +66,7 @@ def _batched(f: Callable, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.dim() == 2 and b.dim() == 2:
         return f(_operand(a), _operand(b))
     if b.dim() == 2:
-        out = f(_operand(a.reshape(-1, a.shape[-1])), _operand(b))
-        return out.reshape(a.shape[:-1] + out.shape[-1:])
+        return unrows(f(_operand(rows(a)), _operand(b)), a.shape[:-1])
     bshape = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
     af = a.expand(bshape + a.shape[-2:]).reshape((-1,) + a.shape[-2:])
     bf = b.expand(bshape + b.shape[-2:]).reshape((-1,) + b.shape[-2:])

@@ -315,6 +315,68 @@ def merge_last(x: torch.Tensor) -> torch.Tensor:
                               stride=tuple(stride))
 
 
+def _flattenable(x: torch.Tensor, nfold: int) -> torch.Tensor:
+    """``x`` with every mesh dim that shards one of its ``nfold`` leading
+    dims inside their flatten (a dim past the first, with more than one
+    element before it) moved to the last dim where that dim divides, and
+    gathered where it does not: the redistribution GSPMD would insert
+    before such a reshape."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, last = x.device_mesh, x.dim() - 1
+    inner = [m for m, p in enumerate(x.placements)
+             if isinstance(p, Shard) and 1 <= p.dim < nfold
+             and math.prod(x.shape[:p.dim]) > 1]
+    if not inner:
+        return x
+    out = list(x.placements)
+    split = math.prod(mesh.size(m) for m, p in enumerate(out)
+                      if isinstance(p, Shard) and p.dim == last)
+    for m in inner:
+        if x.shape[last] % (split * mesh.size(m)) == 0:
+            split *= mesh.size(m)
+            out[m] = Shard(last)
+        else:
+            out[m] = Replicate()
+    return x.redistribute(mesh, out)
+
+
+def rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (..., k) as the rows of a matrix (-1, k), as a product with
+    one matrix reads it.  A DTensor sharded on an inner leading dim (the
+    positions, where a batch shard holds fewer rows than a mesh dim has
+    ranks) is first redistributed (:func:`_flattenable`): flattened as it
+    is, it would carry a strided shard, whose propagation in a product
+    reads the data (torch 2.13; fake tensors have none), or be refused
+    (torch 2.11)."""
+    if is_dtensor(x):
+        x = _flattenable(x, x.dim() - 1)
+    return x.reshape(-1, x.shape[-1])
+
+
+class _Unrows(torch.autograd.Function):
+    """The reshape of :func:`unrows`, whose backward flattens the
+    gradient as :func:`rows` flattens an operand."""
+
+    @staticmethod
+    def forward(ctx, y, shape):
+        ctx.shape = y.shape
+        return y.reshape(shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return rows(grad).reshape(ctx.shape), None
+
+
+def unrows(y: torch.Tensor, lead) -> torch.Tensor:
+    """The rows ``y`` (m, n) of a product as ``lead + (n,)``, the inverse
+    of :func:`rows`; a DTensor's gradient comes back through
+    :func:`rows` too."""
+    shape = tuple(lead) + y.shape[-1:]
+    if not is_dtensor(y):
+        return y.reshape(shape)
+    return _Unrows.apply(y, shape)
+
+
 @functools.cache
 def _index_copy_rule() -> None:
     """DTensor's sharding rule for ``index_copy_`` (torch 2.11 has none):

@@ -30,11 +30,18 @@ class OptState(NamedTuple):
 
 def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum over leaves of sum(g^2), in float32, summed leaf by
-    leaf in order as the reference's Python ``sum`` does."""
+    leaf in order as the reference's Python ``sum`` does.  An empty leaf
+    adds nothing and is passed over: on a mesh its sum would be a partial
+    sum over the mesh dims it is split on, and cost a collective."""
     total = None
     for g in grads:
+        if g.numel() == 0:
+            continue
         s = torch.sum(torch.square(g.float()))
         total = s if total is None else total + s
+    if total is None:               # no leaf holds a value
+        return torch.zeros((), dtype=torch.float32,
+                           device=grads[0].device if grads else None)
     return torch.sqrt(total)
 
 

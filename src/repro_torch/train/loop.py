@@ -69,7 +69,7 @@ from repro_torch.core import memspace
 from repro_torch.data import TokenPipeline
 from repro_torch.kernels import compat
 from repro_torch.models.registry import Model
-from repro_torch.models.sharding import shard
+from repro_torch.models.sharding import is_dtensor, shard
 from repro_torch.optim import (AdamW, compress_decompress, cosine_schedule,
                                init_compression)
 from repro_torch.optim.adamw import global_norm
@@ -150,6 +150,19 @@ def make_loss(model: Model, tcfg: TrainConfig) -> Callable:
     return micro_loss
 
 
+def _placed(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """The gradient ``g`` of the leaf ``p`` placed as ``p`` is.  On a
+    mesh, autograd leaves a DTensor gradient where its last op put it,
+    mostly a partial sum over the batch's mesh dims; reduced here once,
+    as the reference's jitted step gives the update its parameters'
+    shardings, and not again at each use (the norm, the two moments).
+    The in-place update (``AdamW.update``) keeps each moment's placements
+    and cannot take a gradient that needs to change its own."""
+    if is_dtensor(p) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def make_train_step(model: Model, tcfg: TrainConfig, opt: AdamW,
                     total_steps: Optional[int] = None):
     """The update ``(params, opt_state, comp_state, batch, step) ->
@@ -179,12 +192,14 @@ def make_train_step(model: Model, tcfg: TrainConfig, opt: AdamW,
             got = torch.autograd.grad(part, ps, allow_unused=True)
             with torch.no_grad():
                 for j, (p, g) in enumerate(zip(ps, got)):
-                    g = (torch.zeros(p.shape, dtype=torch.float32,
-                                     device=p.device)
+                    # a leaf the loss does not reach (mamba2's width-0
+                    # MLP) gets zeros placed as the leaf is
+                    g = (torch.zeros_like(p, dtype=torch.float32)
                          if g is None else g.float()) / nm
                     grads[j] = g if grads[j] is None else grads[j] + g
                 loss = loss + part.detach() / nm
             del part, got
+        grads = [_placed(g, p) for g, p in zip(grads, ps)]
         if tcfg.grad_compress:
             grads, comp_state = compress_decompress(grads, comp_state)
         lr = cosine_schedule(step, peak_lr=tcfg.peak_lr,
