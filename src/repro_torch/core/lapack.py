@@ -41,6 +41,7 @@ import torch
 
 from repro_torch.core import blas
 from repro_torch.core import runtime as rtm
+from repro_torch.core import spans
 from repro_torch.kernels import compat
 
 DEFAULT_NB = 128
@@ -254,12 +255,13 @@ def _factor_panel(panel: torch.Tensor) -> List[int]:
     """Factor one panel in place and return its local pivot rows: the
     column loop eagerly on the CPU, one replay of the panel's captured
     graph on the card."""
-    if panel.device.type == "cuda":
-        return _GRAPHS.factor(panel)
-    piv = torch.empty(panel.shape[1], dtype=torch.int64,
-                      device=panel.device)
-    _pivot_panel(panel, piv)
-    return piv.tolist()
+    with spans.span("scilib.panel"):
+        if panel.device.type == "cuda":
+            return _GRAPHS.factor(panel)
+        piv = torch.empty(panel.shape[1], dtype=torch.int64,
+                          device=panel.device)
+        _pivot_panel(panel, piv)
+        return piv.tolist()
 
 
 def getrf(a: torch.Tensor, nb: int = DEFAULT_NB
@@ -280,19 +282,21 @@ def getrf(a: torch.Tensor, nb: int = DEFAULT_NB
         panel = lu[j0:, j0:j0 + jb]
         lpiv = _factor_panel(panel)
         _note_panel(prec, m - j0, jb, panel)
-        # compose the panel's swaps into one permutation of rows j0:
-        perm = list(range(m - j0))
-        for jj, r in enumerate(lpiv):
-            perm[jj], perm[r] = perm[r], perm[jj]
-        piv[j0:] = [piv[j0 + r] for r in perm]
-        # the panel's rows are swapped already: permute the rows of the
-        # columns left and right of it
-        if perm != list(range(m - j0)):
-            idx = torch.tensor(perm, dtype=torch.int64, device=lu.device)
-            for cols in (slice(0, j0), slice(j0 + jb, n)):
-                blk = lu[j0:, cols]
-                if blk.numel():
-                    blk.copy_(blk.index_select(0, idx))
+        with spans.span("scilib.swap"):
+            # compose the panel's swaps into one permutation of rows j0:
+            perm = list(range(m - j0))
+            for jj, r in enumerate(lpiv):
+                perm[jj], perm[r] = perm[r], perm[jj]
+            piv[j0:] = [piv[j0 + r] for r in perm]
+            # the panel's rows are swapped already: permute the rows of
+            # the columns left and right of it
+            if perm != list(range(m - j0)):
+                idx = torch.tensor(perm, dtype=torch.int64,
+                                   device=lu.device)
+                for cols in (slice(0, j0), slice(j0 + jb, n)):
+                    blk = lu[j0:, cols]
+                    if blk.numel():
+                        blk.copy_(blk.index_select(0, idx))
         if j0 + jb < n:
             # U12 = L11^{-1} A12           (trsm, unit lower)
             l11 = lu[j0:j0 + jb, j0:j0 + jb]

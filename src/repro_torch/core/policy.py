@@ -25,7 +25,7 @@ from typing import Hashable, Optional, Tuple
 
 import torch
 
-from repro_torch.core import memspace
+from repro_torch.core import memspace, spans
 
 #: logical tier names, re-exported for the runtime and tests
 HOST_KIND = memspace.HOST
@@ -81,28 +81,62 @@ class Placement:
 
 
 def lookup(runtime, x: torch.Tensor
-           ) -> Tuple[Hashable, Optional[torch.Tensor]]:
-    """The placement key of ``x`` and its resident device-tier tensor, or
-    None.  A copy whose source was written in place since it moved is
-    stale: it is dropped and the lookup misses."""
+           ) -> Tuple[Hashable, Optional[torch.Tensor], bool]:
+    """The placement key of ``x``, its resident device-tier tensor or
+    None, and whether a stale copy was dropped: a copy whose source was
+    written in place since it moved is dropped and the lookup misses."""
     store = runtime.placements
     key = memspace.buffer_key(x)
     ent = store.entry(key)
-    if (ent is not None and ent.payload.copy is not None
-            and ent.payload.version != memspace.version_of(x)):
+    stale = (ent is not None and ent.payload.copy is not None
+             and ent.payload.version != memspace.version_of(x))
+    if stale:
         store.drop(key)
     res = store.get(key)
     if res is None:
-        return key, None
-    return key, res.copy if res.copy is not None else x
+        return key, None, stale
+    return key, res.copy if res.copy is not None else x, stale
 
 
 def register(runtime, key: Hashable, x: torch.Tensor,
              copy: Optional[torch.Tensor] = None) -> None:
-    """Record ``x`` (or its device-tier ``copy``) as resident."""
+    """Record ``x`` (or its device-tier ``copy``) as resident.  The
+    store remembers a copy's version if ``x`` dies, so a move of the
+    same memory at that version is told apart (:func:`_move_reason`)."""
+    version = memspace.version_of(x)
     runtime.placements.put(
-        key, Resident(copy, memspace.version_of(x), weakref.ref(x)),
-        memspace.nbytes(x), anchor=x)
+        key, Resident(copy, version, weakref.ref(x)), memspace.nbytes(x),
+        anchor=x, version=None if copy is None else version)
+
+
+def _move_reason(runtime, key: Hashable, x: torch.Tensor,
+                 stale: bool = False) -> str:
+    """Why placing ``x`` under ``key`` moves it (a move span's name):
+    ``refetch`` after a pressure eviction; ``stale`` after a copy of a
+    source written since was dropped; ``again`` where the key's copy
+    dropped with its anchor and the memory is unchanged; else
+    ``first``."""
+    store = runtime.placements
+    if store.refetching(key):
+        return "refetch"
+    dropped = store.dropped_version(key)
+    if stale or (dropped is not None
+                 and dropped != memspace.version_of(x)):
+        return "stale"
+    return "first" if dropped is None else "again"
+
+
+def move(runtime, x: torch.Tensor, key: Optional[Hashable] = None,
+         stale: bool = False, *, check: bool = True) -> torch.Tensor:
+    """Copy ``x`` to the device tier, under a ``scilib.move.<reason>``
+    span while a profiler records (``key``: ``x``'s placement key, where
+    the caller has it)."""
+    if not spans.enabled():
+        return memspace.put(x, DEVICE_KIND, check=check)
+    if key is None:
+        key = memspace.buffer_key(x)
+    with spans.span("scilib.move.", _move_reason(runtime, key, x, stale)):
+        return memspace.put(x, DEVICE_KIND, check=check)
 
 
 class PolicyBase:
@@ -130,8 +164,9 @@ class PolicyBase:
         """Offloaded compute produces device-tier outputs; policies decide
         whether they stay (DFU) or bounce back to host (Mem-Copy)."""
         if self.copy_back:
-            return Placement(_put(y, HOST_KIND),
-                             moved_bytes=memspace.nbytes(y))
+            with spans.span("scilib.move.out"):
+                host = _put(y, HOST_KIND)
+            return Placement(host, moved_bytes=memspace.nbytes(y))
         return Placement(memspace.tag_device(y))
 
     def select_device(self, runtime, blocks) -> int:
@@ -174,7 +209,7 @@ class MemCopyPolicy(PolicyBase):
         if memspace.tier_of(x) == DEVICE_KIND:
             # even Mem-Copy tools skip the copy when data is already there
             return Placement(x, cache_hit=True)
-        return Placement(_put(x, DEVICE_KIND),
+        return Placement(move(runtime, x),
                          moved_bytes=memspace.nbytes(x))
 
 
@@ -190,13 +225,13 @@ class DeviceFirstUsePolicy(PolicyBase):
     name = "dfu"
 
     def place_operand(self, runtime, x):
-        key, cached = lookup(runtime, x)
+        key, cached, stale = lookup(runtime, x)
         if cached is not None:
             return Placement(cached, cache_hit=True)
         if memspace.tier_of(x) == DEVICE_KIND:
             register(runtime, key, x)
             return Placement(x)
-        moved = _put(x, DEVICE_KIND)
+        moved = move(runtime, x, key, stale)
         register(runtime, key, x, moved)
         return Placement(moved, moved_bytes=memspace.nbytes(x))
 
@@ -225,7 +260,7 @@ class CounterPolicy(PolicyBase):
     def place_operand(self, runtime, x, *, reads_per_elem: float = 1.0,
                       written: bool = False, ai: float = 0.0,
                       budget_used: int = 0) -> Placement:
-        key, cached = lookup(runtime, x)
+        key, cached, stale = lookup(runtime, x)
         if cached is not None:
             return Placement(cached, cache_hit=True)
         if memspace.tier_of(x) == DEVICE_KIND:
@@ -239,7 +274,7 @@ class CounterPolicy(PolicyBase):
                   and budget_used + size <= self.byte_budget)
         if not ok:
             return Placement(x)         # stays host: remote-streamed reads
-        moved = _put(x, DEVICE_KIND)
+        moved = move(runtime, x, key, stale)
         register(runtime, key, x, moved)
         return Placement(moved, moved_bytes=size)
 

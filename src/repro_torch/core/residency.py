@@ -206,6 +206,10 @@ def pin_all_from_env() -> bool:
 # --------------------------------------------------------------------- #
 # the store                                                              #
 # --------------------------------------------------------------------- #
+#: anchored keys a store remembers after their anchor died (newest kept)
+DROPPED_KEYS = 1024
+
+
 class ResidencyStore:
     """Byte-capped keyed residency table with pluggable eviction.
 
@@ -257,6 +261,12 @@ class ResidencyStore:
         # anchored keys clean themselves up when the anchor dies so id()
         # reuse cannot masquerade as a refetch.
         self._evicted: Dict[Hashable, Optional[weakref.ref]] = {}
+        # keys whose versioned entry dropped with its anchor, with the
+        # version it held: a later placement of the key at that version
+        # moves the same memory again (read by a move's span, nothing
+        # else; a new tensor born at a dropped key's address reads so too)
+        self._dropped: "collections.OrderedDict[Hashable, int]" = (
+            collections.OrderedDict())
 
     # ------------------------------------------------------------------ #
     def __len__(self) -> int:
@@ -295,21 +305,29 @@ class ResidencyStore:
             return ent.payload
 
     def put(self, key: Hashable, payload, nbytes: int, *,
-            anchor=None, pinned: bool = False) -> Entry:
+            anchor=None, pinned: bool = False,
+            version: Optional[int] = None) -> Entry:
         """Register a resident entry, then evict others over the cap.
 
         The runtime-registry admission semantic: the new entry is
         protected during the eviction sweep (its operand is in use by
         the current call), so a single oversized buffer is admitted and
-        the *next* registration pushes it out.
+        the *next* registration pushes it out.  ``version``: the
+        anchor's version, which the store remembers for the key
+        (:meth:`dropped_version`) if the anchor dies first.
         """
         with self._lock:
             if key in self._entries:
                 self.drop(key)
             ref = None
             if anchor is not None:
-                def _lifecycle(_ref, key=key, self=self):
-                    self.drop(key)
+                if version is None:
+                    def _lifecycle(_ref, key=key, self=self):
+                        self.drop(key)
+                else:
+                    def _lifecycle(_ref, key=key, self=self,
+                                   version=version):
+                        self._anchor_died(key, version)
                 ref = weakref.ref(anchor, _lifecycle)
             ent = Entry(key=key, payload=payload, nbytes=int(nbytes),
                         pinned=pinned or self.pin_new, ref=ref)
@@ -342,6 +360,26 @@ class ResidencyStore:
                 self.resident_bytes -= ent.nbytes
                 if self.pool is not None:
                     self.pool.credit(self.owner, ent.nbytes)
+
+    def _anchor_died(self, key: Hashable, version: int) -> None:
+        """Drop ``key``'s entry, whose anchor died, remembering the
+        version it was placed at (at most :data:`DROPPED_KEYS` keys)."""
+        with self._lock:
+            self._dropped[key] = version
+            self._dropped.move_to_end(key)
+            if len(self._dropped) > DROPPED_KEYS:
+                self._dropped.popitem(last=False)
+            self.drop(key)
+
+    def dropped_version(self, key: Hashable) -> Optional[int]:
+        """The version ``key``'s entry held when its anchor last died, or
+        None where the store remembers no such drop."""
+        return self._dropped.get(key)
+
+    def refetching(self, key: Hashable) -> bool:
+        """Whether placing ``key`` now counts as a refetch: pressure
+        evicted it and it has not been placed since."""
+        return key in self._evicted
 
     # ------------------------------------------------------------------ #
     # pinning                                                             #
@@ -465,6 +503,7 @@ class ResidencyStore:
             freed = self.resident_bytes
             self._entries.clear()
             self._evicted.clear()
+            self._dropped.clear()
             self.resident_bytes = 0
             if self.pool is not None and freed:
                 self.pool.credit(self.owner, freed)

@@ -116,6 +116,7 @@ from repro_torch.core import memspace
 from repro_torch.core import policy as pol
 from repro_torch.core import precision as prec
 from repro_torch.core import residency as res
+from repro_torch.core import spans
 from repro_torch.core import threshold as thr
 from repro_torch.core.config import OffloadConfig
 from repro_torch.core.trace import BlasCall, Trace
@@ -240,6 +241,9 @@ class CallContext:
     placed: Optional[list] = None
     site: Optional[cs.CallSiteProfile] = None
     site_id: str = ""
+    # whether a profiler records the call's spans (read once a call: a
+    # span's ``with`` costs more than this flag where nothing records)
+    traced: bool = False
 
 
 @dataclasses.dataclass
@@ -886,13 +890,13 @@ class OffloadRuntime:
         Returns the placed device-tier tensor.  Pinning is a user-level
         movement with no fallback path, so it opts out of injection."""
         with self._lock:
-            key, placed = pol.lookup(self, x)
+            key, placed, stale = pol.lookup(self, x)
             if placed is None:
                 if memspace.tier_of(x) == memspace.DEVICE:
                     placed = x
                     pol.register(self, key, x)
                 else:
-                    placed = memspace.put(x, memspace.DEVICE, check=False)
+                    placed = pol.move(self, x, key, stale, check=False)
                     pol.register(self, key, x, placed)
                 self.alias_trace_id(x, placed)
             self.placements.pin(key)
@@ -1230,11 +1234,25 @@ class OffloadRuntime:
                            compute=compute, key=key, shard=shard,
                            kernel_compute=kernel_compute,
                            split_compute=split_compute,
-                           split_check=split_check)
+                           split_check=split_check,
+                           traced=spans.enabled())
+        # the site is read here, not in _pipeline: one frame more to walk
+        # would cost the call more than its spans do
         if self.callsite_enabled:
             call.site_id = cs.fingerprint(routine)
             call.site = self.callsites.profile(call.site_id)
-        decision = self._decide(call, st)
+        if not call.traced:
+            return self._pipeline(call, st)
+        with spans.span("scilib.call.", routine):
+            return self._pipeline(call, st)
+
+    def _pipeline(self, call: CallContext, st: RoutineStats) -> torch.Tensor:
+        """Decide, execute, fence and record one call."""
+        if call.traced:
+            with spans.span("scilib.decide"):
+                decision = self._decide(call, st)
+        else:
+            decision = self._decide(call, st)
         if decision.timed:
             # a probe bills its own device work: drain what is queued
             self._drain()
@@ -1245,7 +1263,11 @@ class OffloadRuntime:
             # sampled-residual check + escalation; inside the timed
             # window so probe samples bill what the scheme really costs
             out = self._verify_split(call, decision, st, out)
-        self._fence(timed=decision.timed)
+        if call.traced:
+            with spans.span("scilib.fence"):
+                self._fence(timed=decision.timed)
+        else:
+            self._fence(timed=decision.timed)
         dt = time.perf_counter() - t0
         self._record(call, decision, out, devices, dt, st)
         return out
@@ -1443,7 +1465,11 @@ class OffloadRuntime:
                       st: RoutineStats) -> torch.Tensor:
         """The host path: the call's closure on its operands, streamed to
         the session's device (:meth:`_harmonize`)."""
-        return call.compute(*self._harmonize(call.arrays, st))
+        arrays = self._harmonize(call.arrays, st)
+        if not call.traced:
+            return call.compute(*arrays)
+        with spans.span("scilib.compute"):
+            return call.compute(*arrays)
 
     def _offload_whole(self, call: CallContext, decision: DispatchDecision,
                        st: RoutineStats) -> torch.Tensor:
@@ -1494,8 +1520,16 @@ class OffloadRuntime:
         else:
             compute = call.compute
         args = call.placed
-        out = self._guarded("kernel", lambda: compute(*args),
-                            device=dev, nbytes=0, st=st)
+
+        def kernel():
+            return compute(*args)
+        if call.traced:
+            with spans.span("scilib.compute"):
+                out = self._guarded("kernel", kernel, device=dev, nbytes=0,
+                                    st=st)
+        else:
+            out = self._guarded("kernel", kernel, device=dev, nbytes=0,
+                                st=st)
         out_p = self._guarded(
             "transfer", lambda: self.policy.place_output(self, out),
             device=dev, nbytes=memspace.nbytes(out), st=st)
@@ -1549,7 +1583,8 @@ class OffloadRuntime:
             if memspace.tier_of(a) != memspace.DEVICE:
                 st.transient_bytes += memspace.nbytes(a)
                 if not self.memspace.simulated:
-                    a = a.to(self.device)
+                    with spans.span("scilib.move.stream"):
+                        a = a.to(self.device)
             out.append(a)
         return out
 

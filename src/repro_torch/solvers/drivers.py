@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.core import lapack
 from repro_torch.core import runtime as rtm
+from repro_torch.core import spans
 from repro_torch.solvers import eigen as _eigen
 
 
@@ -36,18 +37,20 @@ def _resolve_nb(nb: int) -> int:
 
 @contextlib.contextmanager
 def _span(name: str, factor: torch.Tensor) -> Iterator[torch.Tensor]:
-    """Run the body inside a solver span of the active runtime, if any;
-    yields the tensor to compute on (the factor's device-tier placement
-    inside a span, the factor itself without a runtime)."""
+    """Run the body inside a solver span of the active runtime, if any,
+    and a ``scilib.solver.<name>`` profiler span; yields the tensor to
+    compute on (the factor's device-tier placement inside a span, the
+    factor itself without a runtime)."""
     rt = rtm.active()
     if rt is None:
         yield factor
         return
-    span = rt.solver_begin(name, factor)
-    try:
-        yield span.placed
-    finally:
-        rt.solver_end(span)
+    with spans.span("scilib.solver.", name):
+        span = rt.solver_begin(name, factor)
+        try:
+            yield span.placed
+        finally:
+            rt.solver_end(span)
 
 
 # --------------------------------------------------------------------- #
