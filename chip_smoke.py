@@ -34,7 +34,9 @@ order:
              table's transposed view); trsm in every variant, ragged,
              batched and on an LU factor, one launch per solve; syrk
              float64 on DMMA at PARSEC's shape with its K split plan,
-             two calls bit for bit; the fused split kernel's slices bit
+             two calls bit for bit; PARSEC's 32 x 2400 x 93536 dgemm
+             on gemm.cu's path 5 (A = h.mT, K split), two calls bit
+             for bit, beside torch.matmul; the fused split kernel's slices bit
              for bit, its exact-pass check and dropped-pass controls;
              flash attention on its wgmma path at the serve shape (each
              call repeated and held bit for bit to the first) and at
@@ -876,6 +878,40 @@ def syrk_times(psi) -> dict:
                 library_ms=lib_ms)
 
 
+def gemm_parsec_check(a, psi) -> None:
+    """PARSEC's own product S_blk = Hpsi_blk^T Psi on gemm.cu, A the
+    ``h.mT`` view as the application passes it: path 5 (float64, M < 64:
+    DMMA on the block's 32 rows, K split across blocks), one launch on the
+    path's counter and one reduction, against the plain version, two calls
+    bit for bit, and its times beside torch.matmul and its bound (the
+    bytes of Psi, 0.5434 ms)."""
+    import torch
+    from repro_torch.kernels import gemm
+    (m, k), n = a.shape, psi.shape[1]
+    p = gemm.plan(a, psi)
+    if p.path != gemm.SKINNY_F64 or p.splits < 2:
+        raise AssertionError(f"gemm float64 {m}x{n}x{k}: plan {p}, want "
+                             f"path {gemm.SKINNY_F64} with K split")
+    before = (gemm.launches, gemm.skinny_f64_launches, gemm.reduce_launches)
+    got = gemm.gemm(a, psi)
+    moved = tuple(x - y for x, y in zip(
+        (gemm.launches, gemm.skinny_f64_launches, gemm.reduce_launches),
+        before))
+    if moved != (1, 1, 1):
+        raise AssertionError(f"gemm float64 {m}x{n}x{k}: counters moved "
+                             f"{moved} (launches, skinny_f64_launches, "
+                             f"reduce_launches), want (1, 1, 1)")
+    label = (f"{m}x{n}x{k} (PARSEC's projection, A = h.mT; path 5, K split "
+             f"{p.splits}, {-(-n // gemm.SKINNY_F64_COLS) * p.splits} "
+             f"blocks)")
+    check(f"gemm float64 {label}", got, gemm.gemm_plain(a, psi),
+          TOL["float64"])
+    if not torch.equal(gemm.gemm(a, psi), got):
+        raise AssertionError(f"gemm float64 {m}x{n}x{k}: two calls differ")
+    log("kernels", f"gemm float64 {m}x{n}x{k}: two calls bit for bit")
+    gemm_times(a, psi, label)
+
+
 def split_times(a, b) -> dict:
     """Times of one split3 dgemm A @ B at the PARSEC projection shape:
     the fused split kernel, the plain version (the same passes as
@@ -940,6 +976,7 @@ def phase_kernels_parsec(dev, gen) -> dict:
     blk = torch.randn(NGRID, NBLOCK, generator=dgen, dtype=torch.float64,
                       device=dev)
     a = blk.mT
+    gemm_parsec_check(a, psi)
     launched = split_gemm.launches
     got = split_gemm.matmul(a, psi, "split3")
     if split_gemm.launches != launched + SPLIT3_LAUNCHES:
@@ -2031,8 +2068,9 @@ def eager_run(model, params, n: int, prompt, dev, max_len: int = SERVE_LEN,
 #: profiler kernel names (demangled) of the decode step's kernels, by the
 #: counter that counts their launches
 STEP_KERNELS = {
-    "gemm": r"\b(tc|skinny_dot|skinny_strip|dmma_f64|simt_f32)_kernel\b",
-    "gemm_reduce": r"\bsplitk_reduce_kernel\b",
+    "gemm": r"\b(tc|skinny_dot|skinny_strip|dmma_f64|simt_f32|skinny_dmma)"
+            r"_kernel\b",
+    "gemm_reduce": r"\bsplitk_reduce(_f64)?_kernel\b",
     "flash_attention": r"\bflash(_wgmma)?_kernel\b",
     "decode_attention": r"\bdecode_kernel\b",
 }

@@ -13,7 +13,7 @@
 // arithmetic units of its type, a decode projection (M = 2) by the bytes
 // of B.  The TPU kernel is one (bm, bk, bn) tiling for every type and
 // shape: the MXU takes them all.  Design: here the types reach different
-// units, so the wrapper (kernels/gemm.py, `plan`) picks one of four paths
+// units, so the wrapper (kernels/gemm.py, `plan`) picks one of five paths
 // and passes it here:
 //
 // 1. bf16/f16, M >= 64 (the prefill projections and vocab head): bound by
@@ -39,16 +39,23 @@
 //    across blocks and a second launch sums the fp32 partials in a fixed
 //    order: no atomics, the same bits run to run.  Rows go in groups of
 //    1, 2, 4 or 8, side by side on the grid.
-// 3. float64: DMMA (mma.sync m16n8k4 f64) on 128 x 128 x 32 tiles, 8 warps
-//    of 64 x 32, with a 3-stage cp.async pipeline and fp64 accumulators;
-//    each operand is staged in the layout it has in device memory.
+// 3. float64, M >= 64: DMMA (mma.sync m16n8k4 f64) on 128 x 128 x 32
+//    tiles, 8 warps of 64 x 32, with a 3-stage cp.async pipeline and fp64
+//    accumulators; each operand is staged in the layout it has in device
+//    memory.
 // 4. float32: IEEE fmaf on the FMA units (the reference's accumulation
 //    rule; TF32 would miss its tolerance and the split bounds), 128 x 128 x
 //    16 tiles with 8 x 8 per thread and a 3-stage cp.async pipeline, 16-byte
 //    copies where the operand is contiguous along the tile's rows.
+// 5. float64, M < 64 (PARSEC's 32 x 2400 x 93536 projection): bound by the
+//    bytes of B, which path 3's 128-row tiles left a quarter used and 19
+//    blocks wide at that shape (~150 GB/s).  DMMA on a tile of all M rows
+//    (rounded up to 16) by 128 columns, K split across blocks as path 2
+//    splits it, each block's fp64 partial summed by a second launch in
+//    split order: no atomics, the same bits run to run.
 //
 // Paths 1, 3 and 4 compile two or three tile edges (OffloadConfig.
-// kernel_block picks one, kernels/gemm.py:EDGES); path 2 has none.
+// kernel_block picks one, kernels/gemm.py:EDGES); paths 2 and 5 have none.
 // Operands are given as [MN, K] views with element strides, so row-major,
 // transposed and row-strided views all go in uncopied; batches run on the
 // grid's last axis.
@@ -59,7 +66,7 @@ namespace {
 // dtype codes shared with kernels/gemm.py
 enum Code { F32 = 0, F64 = 1, BF16 = 2, F16 = 3 };
 // paths, as kernels/gemm.py:plan numbers them
-enum Path { TC = 1, SKINNY = 2, DMMA = 3, SIMT = 4 };
+enum Path { TC = 1, SKINNY = 2, DMMA = 3, SIMT = 4, SKINNY_F64 = 5 };
 
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
@@ -598,6 +605,153 @@ splitk_reduce_kernel(const float* __restrict__ W, void* C, int out_code, int M, 
 }
 
 // ---------------------------------------------------------------------------
+// Path 5: float64 with few rows, bound by the bytes of B
+// ---------------------------------------------------------------------------
+// A block takes all M rows (MT m16 tiles, so no DMMA issues on a padding
+// tile) by 128 columns over one K range of split_range; its 4 warps take 32
+// columns each, so each A fragment read from shared memory feeds 4 DMMA.
+// Each operand is staged in the layout it has in device memory, as path 3
+// stages it: MN-contiguous ([k][mn], rows of width + 8) or K-contiguous
+// ([mn][k], rows of 12), either padding putting a fragment read's 256 bytes
+// in two wavefronts.  A 3-stage ring of 8-deep K tiles (34 KB) and at most
+// 96 registers a thread at MT <= 2 let five blocks share an SM, so the whole
+// grid of a product the plan splits to ~528 blocks is resident at once and
+// streams B evenly: no short last wave (at 4 blocks an SM, PARSEC's 4
+// blocks past 528 ran alone and took a third longer).  Blocks of one K
+// range are adjacent on the grid (x: the strip), so its rows of A are read
+// from L2 by every strip.
+constexpr int SD_THREADS = 128;
+constexpr int SD_BN = 128;                      // kernels/gemm.py:SKINNY_F64_COLS
+constexpr int SD_WN = SD_BN / (SD_THREADS / 32);  // columns a warp takes
+constexpr int SD_BK = 8;
+constexpr int SD_STAGES = 3;
+constexpr int SD_LDK = SD_BK + 4;
+// blocks an SM holds (the registers a thread may take), by row tiles
+template <int MT>
+__host__ __device__ constexpr int sd_min_blocks() { return MT <= 2 ? 5 : 3; }
+
+// elements of one staged tile of ROWS rows: [mn][k] (KM) or [k][mn]
+template <int ROWS, bool KM>
+__host__ __device__ constexpr int sd_tile() { return KM ? ROWS * SD_LDK : SD_BK * (ROWS + 8); }
+template <int MT, bool AKM, bool BKM>
+__host__ __device__ constexpr int sd_smem() {
+    return SD_STAGES * (sd_tile<16 * MT, AKM>() + sd_tile<SD_BN, BKM>()) * 8;
+}
+
+// With splits == 1 the tile goes into C; otherwise this range's partial
+// goes to W[((split * batch + z) * M + row) * N + col] for
+// splitk_reduce_f64_kernel.
+template <int MT, bool AKM, bool BKM>
+__global__ void __launch_bounds__(SD_THREADS, sd_min_blocks<MT>())
+skinny_dmma_kernel(Op A, Op B, double* __restrict__ C, double* __restrict__ W, int M, int N, int K,
+                   long long ldc, long long sc, int splits, int va, int vb) {
+    constexpr int BM = 16 * MT, BK = SD_BK, S = SD_STAGES, LDK = SD_LDK, NT = SD_WN / 8;
+    constexpr int LDA = BM + 8, LDB = SD_BN + 8;
+    constexpr int TA = sd_tile<BM, AKM>(), TB = sd_tile<SD_BN, BKM>();
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    double* As = reinterpret_cast<double*>(smem_raw);
+    double* Bs = As + S * TA;
+    const int tid = threadIdx.x, lane = tid % 32;
+    const int g = lane >> 2, t4 = lane & 3, wn0 = (tid / 32) * SD_WN;
+    const int n0 = blockIdx.x * SD_BN, split = blockIdx.y, z = blockIdx.z;
+    const double* ga = static_cast<const double*>(A.p) + z * A.sb;
+    const double* gb = static_cast<const double*>(B.p) + z * B.sb;
+    int kb, ke;
+    split_range(K, splits, split, kb, ke);     // the loaders zero-fill from ke on
+    const int KT = (ke - kb + BK - 1) / BK;
+
+    double acc[MT][NT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.0;
+
+    auto load = [&](int t) {
+        double* as = As + (t % S) * TA;
+        double* bs = Bs + (t % S) * TB;
+        const int k0 = kb + t * BK;
+        if constexpr (AKM)
+            load_tile_km<BM, BK, LDK, SD_THREADS>(as, ga, A.smn, A.sk, M, ke, 0, k0, tid, va);
+        else
+            load_tile<double, BM, BK, LDA, SD_THREADS>(as, ga, A.smn, A.sk, M, ke, 0, k0, tid, va);
+        if constexpr (BKM)
+            load_tile_km<SD_BN, BK, LDK, SD_THREADS>(bs, gb, B.smn, B.sk, N, ke, n0, k0, tid, vb);
+        else
+            load_tile<double, SD_BN, BK, LDB, SD_THREADS>(bs, gb, B.smn, B.sk, N, ke, n0, k0, tid, vb);
+    };
+    // element (mn, k) of a staged tile
+    auto at_a = [&](const double* s, int mn, int k) { return AKM ? s[mn * LDK + k] : s[k * LDA + mn]; };
+    auto at_b = [&](const double* s, int mn, int k) { return BKM ? s[mn * LDK + k] : s[k * LDB + mn]; };
+#pragma unroll
+    for (int t = 0; t < S - 1; ++t) {
+        if (t < KT) load(t);
+        cp_commit();
+    }
+    for (int t = 0; t < KT; ++t) {
+        cp_wait<S - 2>();
+        __syncthreads();
+        if (t + S - 1 < KT) load(t + S - 1);
+        cp_commit();
+        const double* as = As + (t % S) * TA;
+        const double* bs = Bs + (t % S) * TB;
+#pragma unroll
+        for (int kq = 0; kq < BK / 4; ++kq) {
+            const int k = kq * 4 + t4;
+            double a[MT][2], b[NT];
+#pragma unroll
+            for (int i = 0; i < MT; ++i) {
+                a[i][0] = at_a(as, i * 16 + g, k);
+                a[i][1] = at_a(as, i * 16 + 8 + g, k);
+            }
+#pragma unroll
+            for (int j = 0; j < NT; ++j) b[j] = at_b(bs, wn0 + j * 8 + g, k);
+#pragma unroll
+            for (int i = 0; i < MT; ++i)
+#pragma unroll
+                for (int j = 0; j < NT; ++j) dmma(acc[i][j], a[i][0], a[i][1], b[j]);
+        }
+    }
+    cp_wait<0>();
+
+    double* out = C + z * sc;
+    long long ld = ldc;
+    if (splits > 1) {
+        out = W + (static_cast<long long>(split) * gridDim.z + z) * M * N;
+        ld = N;
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int r = i * 16 + h * 8 + g;
+            if (r >= M) continue;
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+                const int c = n0 + wn0 + j * 8 + 2 * t4;
+                if (c < N) out[static_cast<long long>(r) * ld + c] = acc[i][j][2 * h];
+                if (c + 1 < N) out[static_cast<long long>(r) * ld + c + 1] = acc[i][j][2 * h + 1];
+            }
+        }
+}
+
+// C = sum over splits of the fp64 partials, in split order
+__global__ void __launch_bounds__(256)
+splitk_reduce_f64_kernel(const double* __restrict__ W, double* C, int M, int N, int batch,
+                         int splits, long long ldc, long long sc) {
+    const long long mn = static_cast<long long>(M) * N;
+    const long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+    if (i >= mn * batch) return;
+    const int z = static_cast<int>(i / mn);
+    const long long e = i % mn;
+    const int row = static_cast<int>(e / N), col = static_cast<int>(e % N);
+    double s = 0.0;
+    for (int q = 0; q < splits; ++q) s += W[(static_cast<long long>(q) * batch + z) * mn + e];
+    C[static_cast<long long>(z) * sc + static_cast<long long>(row) * ldc + col] = s;
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 // a 3-D map (inner, outer, batch) of 16-bit elements, 128-byte swizzle
@@ -724,6 +878,53 @@ int launch_skinny(int out_code, const Op& A, const Op& B, void* C, float* W, int
     return launch_skinny_mr<T, 8>(out_code, A, B, C, W, M, N, K, ldc, batch, sc, splits, s);
 }
 
+template <int MT, bool AKM, bool BKM>
+int launch_skinny_dmma_as(const Op& A, const Op& B, double* C, double* W, int M, int N, int K,
+                          long long ldc, int batch, long long sc, int splits, cudaStream_t s) {
+    const int smem = sd_smem<MT, AKM, BKM>();
+    int rc = set_smem(skinny_dmma_kernel<MT, AKM, BKM>, smem);
+    if (rc) return rc;
+    // the most shared memory per SM, so that the blocks the plan counts on share it
+    rc = static_cast<int>(cudaFuncSetAttribute(skinny_dmma_kernel<MT, AKM, BKM>,
+                                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                                               cudaSharedmemCarveoutMaxShared));
+    if (rc) return rc;
+    const int va = AKM ? vec_km(A, batch) : vec_ok(A, 8, batch);
+    const int vb = BKM ? vec_km(B, batch) : vec_ok(B, 8, batch);
+    const dim3 grid((N + SD_BN - 1) / SD_BN, splits, batch);
+    skinny_dmma_kernel<MT, AKM, BKM><<<grid, SD_THREADS, smem, s>>>(A, B, C, W, M, N, K, ldc, sc,
+                                                                    splits, va, vb);
+    rc = static_cast<int>(cudaGetLastError());
+    if (rc || splits == 1) return rc;
+    const long long total = static_cast<long long>(M) * N * batch;
+    splitk_reduce_f64_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(
+        W, C, M, N, batch, splits, ldc, sc);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <int MT>
+int launch_skinny_dmma_mt(const Op& A, const Op& B, double* C, double* W, int M, int N, int K,
+                          long long ldc, int batch, long long sc, int splits, cudaStream_t s) {
+    if (A.sk == 1)
+        return B.sk == 1
+            ? launch_skinny_dmma_as<MT, true, true>(A, B, C, W, M, N, K, ldc, batch, sc, splits, s)
+            : launch_skinny_dmma_as<MT, true, false>(A, B, C, W, M, N, K, ldc, batch, sc, splits, s);
+    return B.sk == 1
+        ? launch_skinny_dmma_as<MT, false, true>(A, B, C, W, M, N, K, ldc, batch, sc, splits, s)
+        : launch_skinny_dmma_as<MT, false, false>(A, B, C, W, M, N, K, ldc, batch, sc, splits, s);
+}
+
+int launch_skinny_dmma(const Op& A, const Op& B, double* C, double* W, int M, int N, int K,
+                       long long ldc, int batch, long long sc, int splits, cudaStream_t s) {
+    switch ((M + 15) / 16) {
+    case 1: return launch_skinny_dmma_mt<1>(A, B, C, W, M, N, K, ldc, batch, sc, splits, s);
+    case 2: return launch_skinny_dmma_mt<2>(A, B, C, W, M, N, K, ldc, batch, sc, splits, s);
+    case 3: return launch_skinny_dmma_mt<3>(A, B, C, W, M, N, K, ldc, batch, sc, splits, s);
+    case 4: return launch_skinny_dmma_mt<4>(A, B, C, W, M, N, K, ldc, batch, sc, splits, s);
+    default: return -2;
+    }
+}
+
 }  // namespace
 
 // C[z] = op(A)[z] @ op(B)[z] for z < batch, on the path kernels/gemm.py:plan
@@ -732,8 +933,9 @@ int launch_skinny(int out_code, const Op& A, const Op& B, void* C, float* W, int
 // m * lda + k); 1: A is a transposed view (at k * lda + m).  trans_b = 0:
 // B row-major ((k, n) at k * ldb + n); 1: transposed ((k, n) at n * ldb +
 // k).  sa/sb/sc are batch strides, all in elements.  `tile` is the tile
-// edge of paths 1, 3 and 4 (path 1: the N edge), `splits` path 2's K
-// split, with W fp32 scratch of splits * batch * M * N when splits > 1.
+// edge of paths 1, 3 and 4 (path 1: the N edge), `splits` the K split of
+// paths 2 and 5, with W scratch of splits * batch * M * N when splits > 1
+// (fp32 for path 2, fp64 for path 5).
 // Returns cudaGetLastError() after the launches, -1 for a type pair the
 // kernel does not take, -2 for a shape, layout or path it cannot launch,
 // -3 when TMA descriptors cannot be made.
@@ -772,6 +974,11 @@ extern "C" int repro_gemm(int in_code, int out_code, int path, int tile, int spl
         if (in_code == BF16)
             return launch_skinny<__nv_bfloat16>(out_code, a, b, C, static_cast<float*>(W), M, N, K, ldc, batch, sc, splits, s);
         return launch_skinny<__half>(out_code, a, b, C, static_cast<float*>(W), M, N, K, ldc, batch, sc, splits, s);
+    case SKINNY_F64:
+        if (in_code != F64) return -1;
+        if (M >= 64 || splits < 1 || splits > 65535 || (splits > 1 && W == nullptr)) return -2;
+        return launch_skinny_dmma(a, b, static_cast<double*>(C), static_cast<double*>(W), M, N, K, ldc, batch,
+                                  sc, splits, s);
     default:
         return -2;
     }

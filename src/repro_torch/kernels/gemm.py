@@ -10,7 +10,7 @@ Each operand is a 2-D matrix or a 3-D batch of them, row-major or a
 transposed view (:func:`layout`), with any row stride: ``table.mT`` and
 views of a larger matrix go in uncopied.  :func:`plan` picks the kernel's
 path from the dtype, M and the operands' alignment (see ``csrc/gemm.cu``)
-and, for path 2, how many ways K is split.
+and, for paths 2 and 5 (fewer than 64 rows), how many ways K is split.
 
 :func:`gemm_grad` is the product inside autograd, for training: a
 ``torch.library`` custom op whose backward runs the kernel twice more,
@@ -34,8 +34,10 @@ from repro_torch.kernels import compat, ref
 
 #: products launched on the card since the last reset (one per call)
 launches = 0
-#: second launches that sum path 2's split-K partials
+#: second launches that sum the split-K partials of paths 2 and 5
 reduce_launches = 0
+#: products launched on path 5, float64 with fewer than 64 rows
+skinny_f64_launches = 0
 
 #: dtype codes of csrc/gemm.cu (also csrc/trsm.cu for the first two)
 CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2,
@@ -47,7 +49,7 @@ OUT_DTYPES = {torch.float32: (torch.float32,),
               torch.float16: (torch.float16, torch.float32)}
 
 #: the kernel's paths (csrc/gemm.cu)
-TC, SKINNY, DMMA, SIMT = 1, 2, 3, 4
+TC, SKINNY, DMMA, SIMT, SKINNY_F64 = 1, 2, 3, 4, 5
 #: tile edges each tiled path compiles, default first: path 1's is the N
 #: edge of its 128-row tile, paths 3 and 4 tile squares.  A nonzero
 #: ``block`` (OffloadConfig.kernel_block) picks one of EDGES.
@@ -59,6 +61,8 @@ DEFAULT_TILE = {TC: 256, DMMA: 128, SIMT: 128}
 SKINNY_COLS = {False: 128, True: 32}
 SKINNY_TARGET_BLOCKS = 4 * 132
 SKINNY_MIN_K = 128
+#: path 5: columns a block covers (all of M, either layout of B)
+SKINNY_F64_COLS = 128
 
 _c_ll = ctypes.c_longlong
 _ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -70,14 +74,15 @@ _ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
 
 class Plan(NamedTuple):
     path: int
-    tile: int       # tile edge of paths 1, 3, 4 (0 for path 2)
-    splits: int     # path 2's K split (1 elsewhere)
+    tile: int       # tile edge of paths 1, 3, 4 (0 for paths 2 and 5)
+    splits: int     # the K split of paths 2 and 5 (1 elsewhere)
 
 
 def reset_launches() -> None:
-    global launches, reduce_launches
+    global launches, reduce_launches, skinny_f64_launches
     launches = 0
     reduce_launches = 0
+    skinny_f64_launches = 0
 
 
 _ENTRY = []
@@ -146,16 +151,30 @@ def _tma_ok(x: torch.Tensor, ld: int) -> bool:
 
 def plan(a: torch.Tensor, b: torch.Tensor, block: int = 0) -> Plan:
     """The path csrc/gemm.cu takes for ``a @ b`` (layouts from
-    :func:`layout`, which must not be None), its tile edge and path 2's K
-    split.  Pure arithmetic on shapes, strides and addresses, so the CPU
-    tests reach it."""
+    :func:`layout`, which must not be None), its tile edge and the K split
+    of paths 2 and 5.  Pure arithmetic on shapes, strides and addresses,
+    so the CPU tests reach it (meta tensors too)."""
     return _plan(a, b, layout(a), layout(b), _check_block(block))
+
+
+def _splits(blocks: int, k: int) -> int:
+    """The K split of paths 2 and 5: where ``blocks`` leave most of the
+    SMs idle, enough ranges to reach SKINNY_TARGET_BLOCKS, each keeping at
+    least SKINNY_MIN_K of K."""
+    if blocks >= SKINNY_TARGET_BLOCKS // 2:
+        return 1
+    return max(1, min(-(-SKINNY_TARGET_BLOCKS // blocks), k // SKINNY_MIN_K))
 
 
 def _plan(a, b, lay_a, lay_b, block: int) -> Plan:
     m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
+    batch = a.shape[0] if a.dim() == 3 else 1
     if a.dtype == torch.float64:
-        return Plan(DMMA, block or DEFAULT_TILE[DMMA], 1)
+        if m >= 64:
+            return Plan(DMMA, block or DEFAULT_TILE[DMMA], 1)
+        # one block takes every row of a strip of columns
+        return Plan(SKINNY_F64, 0,
+                    _splits(-(-n // SKINNY_F64_COLS) * batch, k))
     if a.dtype == torch.float32:
         return Plan(SIMT, block or DEFAULT_TILE[SIMT], 1)
     (_, lda), (tb, ldb) = lay_a, lay_b
@@ -163,13 +182,8 @@ def _plan(a, b, lay_a, lay_b, block: int) -> Plan:
         return Plan(TC, block or DEFAULT_TILE[TC], 1)
     # groups of 1, 2, 4 or 8 rows run side by side, beside the K split
     rows = 1 if m == 1 else 2 if m == 2 else 4 if m <= 4 else 8
-    batch = a.shape[0] if a.dim() == 3 else 1
-    blocks = -(-n // SKINNY_COLS[tb]) * batch * -(-m // rows)
-    splits = 1
-    if blocks < SKINNY_TARGET_BLOCKS // 2:
-        splits = max(1, min(-(-SKINNY_TARGET_BLOCKS // blocks),
-                            k // SKINNY_MIN_K))
-    return Plan(SKINNY, 0, splits)
+    return Plan(SKINNY, 0, _splits(
+        -(-n // SKINNY_COLS[tb]) * batch * -(-m // rows), k))
 
 
 def _check_matrix(x: torch.Tensor, name: str) -> Tuple[bool, int]:
@@ -251,11 +265,14 @@ def _gemm(a: torch.Tensor, b: torch.Tensor, *,
     if out.numel() == 0:
         return out
     p = _plan(a, b, (ta, lda), (tb, ldb), block)
+    f64 = p.path == SKINNY_F64
     work = None
     if p.splits > 1:
-        work = torch.empty(p.splits * batch * m * n, dtype=torch.float32,
+        work = torch.empty(p.splits * batch * m * n,
+                           dtype=torch.float64 if f64 else torch.float32,
                            device=a.device)
-    compat.count(globals(), launches=1, reduce_launches=int(p.splits > 1))
+    compat.count(globals(), launches=1, reduce_launches=int(p.splits > 1),
+                 skinny_f64_launches=int(f64))
     sa = a.stride(0) if batched else 0
     sb = b.stride(0) if batched else 0
     sc = out.stride(0) if batched else 0

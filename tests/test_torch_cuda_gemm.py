@@ -51,7 +51,7 @@ def _mat(rows, cols, trans, dtype, dev, batch=0):
 
 def _expected_path(a, b):
     if a.dtype == torch.float64:
-        return gemm.DMMA
+        return gemm.DMMA if a.shape[-2] >= 64 else gemm.SKINNY_F64
     if a.dtype == torch.float32:
         return gemm.SIMT
     lay = (gemm.layout(a), gemm.layout(b))
@@ -129,6 +129,33 @@ def test_gemm_decode_shapes_split_k_and_the_table_view(dev):
     assert gemm.layout(table.mT) == (True, 3584)
     assert _rel(gemm.gemm(x, table.mT, out_dtype=torch.float32),
                 gemm.gemm_plain(x, table.mT, out_dtype=torch.float32)) <= 5e-2
+
+
+@pytest.mark.parametrize("m", [1, 5, 32, 63])
+@pytest.mark.parametrize("n", [2400, 200, 93])
+@pytest.mark.parametrize("ta,tb", [(True, False), (False, False),
+                                   (True, True), (False, True)])
+@pytest.mark.parametrize("batch", [0, 3])
+def test_gemm_skinny_f64_matches_plain_and_repeats_bit_for_bit(
+        dev, m, n, ta, tb, batch):
+    """Path 5 (float64, M < 64: DMMA on all M rows, K split across blocks)
+    at K = 20011, ragged against every split and tile, with A as PARSEC
+    passes it (a transposed view) or row-major and B either way: within
+    1e-10 of the plain version, the same bits on a second call (the
+    partials summed in split order, no atomics), and one launch a call on
+    the path's own counter."""
+    k = 20011
+    a = _mat(m, k, ta, torch.float64, dev, batch)
+    b = _mat(k, n, tb, torch.float64, dev, batch)
+    p = gemm.plan(a, b)
+    assert p.path == gemm.SKINNY_F64 and p.tile == 0 and p.splits > 1
+    counts = gemm.launches, gemm.skinny_f64_launches, gemm.reduce_launches
+    got = gemm.gemm(a, b)
+    assert (gemm.launches, gemm.skinny_f64_launches,
+            gemm.reduce_launches) == tuple(c + 1 for c in counts)
+    assert _rel(got, gemm.gemm_plain(a, b)) <= TOL[torch.float64]
+    assert torch.equal(gemm.gemm(a, b), got)
+    assert gemm.skinny_f64_launches == counts[1] + 2
 
 
 @pytest.mark.parametrize("scheme", ["split2", "split3"])

@@ -176,7 +176,8 @@ def _bf16(*shape, align_off=0):
 def test_plan_picks_each_path():
     """Tensor cores for aligned 16-bit operands at M >= 64, the skinny
     path below 64 rows or where TMA cannot describe an operand, DMMA for
-    float64, FMA for float32; decode widths split K."""
+    float64 (path 3 from 64 rows, path 5 below), FMA for float32; decode
+    widths split K."""
     w = _bf16(3584, 2048)
     assert gemm.plan(_bf16(9216, 3584), w) == (gemm.TC, 256, 1)
     assert gemm.plan(_bf16(64, 3584), w).path == gemm.TC
@@ -190,7 +191,9 @@ def test_plan_picks_each_path():
     assert gemm.plan(_bf16(200, 136, align_off=1),
                      _bf16(136, 96)).path == gemm.SKINNY
     d = torch.zeros(8, 8, dtype=torch.float64)
-    assert gemm.plan(d, d) == (gemm.DMMA, 128, 1)
+    assert gemm.plan(d, d) == (gemm.SKINNY_F64, 0, 1)
+    d64 = torch.zeros(64, 8, dtype=torch.float64)
+    assert gemm.plan(d64, d) == (gemm.DMMA, 128, 1)
     assert gemm.plan(d.float(), d.float(), 64) == (gemm.SIMT, 64, 1)
     assert gemm.plan(_bf16(9216, 3584), w, 128) == (gemm.TC, 128, 1)
 
