@@ -319,6 +319,8 @@ TRSM_TOL = {"float64": 1e-10, "float32": 3e-4}
 #: kernel's inverted diagonal blocks as for substitution
 TRSM_LU_FACTOR = 20
 TRSM_LU_M = 2048
+#: right-hand sides that take trsm's wide path: 133 panels of 128
+TRSM_WIDE_N = 132 * 128 + 37
 #: LSMS residual max|M tau - t|: LU with partial pivoting is backward
 #: stable, |r| <~ n*eps64*|M||tau| ~ 8e-13 at n = 6912 for M ~ I; 1e-9
 #: leaves a thousandfold margin and still catches a float32 path (~1e-4)
@@ -642,12 +644,14 @@ def trsm_times(a, b, label: str, plain_reps: int, **kw) -> dict:
     """The same for a triangular solve (lower-left unless ``kw`` says
     otherwise): mt*mt*r operations for a triangle of order mt and r
     right-hand sides; the triangle read once, B read once, X written
-    once.  The plain version is the kernel's block-row order
+    once.  The plain version is the dataflow path's block-row order
     (trsm_dataflow_plain); each timed kernel call is one launch after
-    one memset of its flags."""
+    one memset of its flags (the dataflow path) or the wide path's two
+    launches, as trsm.plan picks."""
     from repro_torch.kernels import ref, trsm
     mt = a.shape[-1]
     r = b.numel() // mt
+    p = trsm.plan(mt, r, 1)
     ms = time_ms(lambda: trsm.trsm(a, b, **kw), reps=5)
     plain_ms = time_ms(lambda: trsm.trsm_dataflow_plain(a, b, **kw),
                        reps=plain_reps)
@@ -655,8 +659,9 @@ def trsm_times(a, b, label: str, plain_reps: int, **kw) -> dict:
     bms, by = bound(float(mt) * mt * r,
                     a.element_size() * (mt * (mt + 1) / 2 + 2 * mt * r),
                     str(a.dtype)[6:])
+    path = "wide path, two launches" if p.wide else "one launch"
     log("kernels", f"trsm {str(a.dtype)[6:]} {label}: kernel {ms:.3f} ms "
-                   f"({trsm.units(mt, r, 1)} blocks, one launch), "
+                   f"({p.blocks} blocks, {path}), "
                    f"plain {plain_ms:.3f} ms, solve_triangular "
                    f"{lib_ms:.3f} ms, bound {bms:.4f} ms ({by})")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
@@ -765,61 +770,82 @@ def phase_kernels(dev) -> dict:
 
 
 def trsm_one(a, b, name: str, **kw):
-    """One solve on the kernel, asserted to be one launch after one memset
-    of its flags."""
+    """One solve on the kernel, on the path trsm.plan picks for its
+    canonical shape: the dataflow path's one launch after one memset of
+    its flags, or the wide path's two launches (counted on
+    trsm.wide_launches) and no memset."""
     from repro_torch.kernels import trsm
-    launched, memsets = trsm.launches, trsm.memsets
+    m = a.shape[-1]
+    n = b.shape[-1] if kw.get("side", "L") == "L" else b.shape[-2]
+    wide = trsm.plan(m, n, b.numel() // (m * n)).wide
+    before = (trsm.launches, trsm.memsets, trsm.wide_launches)
     got = trsm.trsm(a, b, **kw)
-    if (trsm.launches - launched, trsm.memsets - memsets) != (1, 1):
-        raise AssertionError(f"trsm {name}: {trsm.launches - launched} "
-                             f"launches and {trsm.memsets - memsets} "
-                             f"memsets, want 1 and 1")
+    moved = tuple(x - y for x, y in zip(
+        (trsm.launches, trsm.memsets, trsm.wide_launches), before))
+    want = (2, 0, 1) if wide else (1, 1, 0)
+    if moved != want:
+        raise AssertionError(f"trsm {name}: (launches, memsets, "
+                             f"wide_launches) moved {moved}, want {want}")
     return got
 
 
 def phase_kernels_trsm(dev, gen) -> dict:
-    """trsm against the kernel's block-row order (trsm_dataflow_plain):
-    every variant (side x uplo x trans N/T/C x diag) in both types at m =
-    300, n = 40 (five block rows, two panels) and at m = 1, 63, 64, 65; a
-    batched solve; an LU factor's unit-lower triangle against
-    solve_triangular; then the BLAS phase's 6912 x 32 solve, timed."""
+    """trsm against the dataflow path's block-row order
+    (trsm_dataflow_plain): every variant (side x uplo x trans N/T/C x
+    diag) in both types at m = 300, n = 40 (five block rows, two panels)
+    and at m = 1, 63, 64, 65, and on the wide path at m = 200, 300 with
+    TRSM_WIDE_N right-hand sides; a batched solve on each path; an LU
+    factor's unit-lower triangle against solve_triangular; then the BLAS
+    phase's 6912 x 32 solve, timed."""
     import torch
     from repro_torch.kernels import trsm
 
     def rnd(*shape, dtype=torch.float64):
         return torch.randn(*shape, generator=gen,
                            dtype=torch.float64).to(dtype).to(dev)
+    # the dataflow path, then the wide path: 133 panels of 128 (the last
+    # ragged) at m 200 (a second block row of 64 + 8 rows) and 300 (its
+    # last block row one diagonal block), and 3 problems of 44 panels
+    paths = (("dataflow path", (300, 1, 63, 64, 65), 40, (300, 40),
+              "one launch"),
+             ("wide path", (200, 300), TRSM_WIDE_N, (130, 44 * 128 - 5),
+              "two launches"))
     for dt in (torch.float32, torch.float64):
         tol = TRSM_TOL[str(dt)[6:]]
-        worst, cases = 0.0, 0
-        for m, n in ((300, 40), (1, 40), (63, 40), (64, 40), (65, 40)):
-            for side in "LR":
-                for uplo in "LU":
-                    for tr in "NTC":
-                        for dg in "NU":
-                            a = tri(gen, m, uplo, dt, dev)
-                            b = (rnd(m, n, dtype=dt) if side == "L"
-                                 else rnd(n, m, dtype=dt))
-                            kw = dict(side=side, uplo=uplo, trans=tr,
-                                      diag=dg)
-                            got = trsm_one(a, b, f"{dt} m={m} {kw}", **kw)
-                            want = trsm.trsm_dataflow_plain(a, b, **kw)
-                            _, rel = rel_err(got, want)
-                            if not rel <= tol:
-                                raise AssertionError(
-                                    f"trsm {dt} m={m} {kw}: rel err "
-                                    f"{rel:.3e} > {tol:g}")
-                            worst, cases = max(worst, rel), cases + 1
-        a = torch.stack([tri(gen, 300, "L", dt, dev) for _ in range(3)])
-        b = rnd(3, 300, 40, dtype=dt)
-        got = trsm_one(a, b, f"{dt} batched 3 x 300 x 40", trans="T")
-        _, rel = rel_err(got, trsm.trsm_dataflow_plain(a, b, trans="T"))
-        if not rel <= tol:
-            raise AssertionError(f"trsm {dt} batched: rel err {rel:.3e}")
-        log("kernels", f"trsm {str(dt)[6:]}: {cases} solves (24 variants "
-                       f"at m = 300, 1, 63, 64, 65) and a batched one, one "
-                       f"launch each, worst rel err {max(worst, rel):.3e} "
-                       f"vs the kernel's plain order (tol {tol:g})")
+        for path, ms, n, (bm, bn), launches in paths:
+            worst, cases = 0.0, 0
+            for m in ms:
+                for side in "LR":
+                    for uplo in "LU":
+                        for tr in "NTC":
+                            for dg in "NU":
+                                a = tri(gen, m, uplo, dt, dev)
+                                b = (rnd(m, n, dtype=dt) if side == "L"
+                                     else rnd(n, m, dtype=dt))
+                                kw = dict(side=side, uplo=uplo, trans=tr,
+                                          diag=dg)
+                                got = trsm_one(a, b, f"{dt} {path} m={m} {kw}",
+                                               **kw)
+                                want = trsm.trsm_dataflow_plain(a, b, **kw)
+                                _, rel = rel_err(got, want)
+                                if not rel <= tol:
+                                    raise AssertionError(
+                                        f"trsm {dt} {path} m={m} {kw}: rel "
+                                        f"err {rel:.3e} > {tol:g}")
+                                worst, cases = max(worst, rel), cases + 1
+            a = torch.stack([tri(gen, bm, "L", dt, dev) for _ in range(3)])
+            b = rnd(3, bm, bn, dtype=dt)
+            got = trsm_one(a, b, f"{dt} {path} batched 3 x {bm} x {bn}",
+                           trans="T")
+            _, rel = rel_err(got, trsm.trsm_dataflow_plain(a, b, trans="T"))
+            if not rel <= tol:
+                raise AssertionError(f"trsm {dt} {path} batched: rel err "
+                                     f"{rel:.3e}")
+            log("kernels", f"trsm {str(dt)[6:]} {path}: {cases} solves (24 "
+                           f"variants at m = {ms}, n = {n}) and a batched "
+                           f"one, {launches} each, worst rel err "
+                           f"{max(worst, rel):.3e} vs the dataflow path's "
+                           f"plain order (tol {tol:g})")
     lu, _ = torch.linalg.lu_factor(rnd(TRSM_LU_M, TRSM_LU_M))
     lf = lu.tril(-1) + torch.eye(TRSM_LU_M, dtype=lu.dtype, device=dev)
     b = rnd(TRSM_LU_M, 32)
@@ -942,6 +968,25 @@ def split_times(a, b) -> dict:
                 library_ms=lib_ms)
 
 
+def trsm_chefsi(psi, gen, dev) -> None:
+    """CheFSI's Psi R^-1 (portbench's chefsi.resident) at PARSEC's shape,
+    side R upper: the wide path against the dataflow path's plain order
+    within TRSM_TOL and against the library's solve_triangular, timed
+    beside both."""
+    import torch
+    from repro_torch.kernels import ref, trsm
+    r = tri(gen, psi.shape[-1], "U", torch.float64, dev)
+    kw = dict(side="R", uplo="U")
+    label = f"{psi.shape[0]}x{psi.shape[1]} side R upper (CheFSI's Psi R^-1)"
+    got = trsm_one(r, psi, label, **kw)
+    check(f"trsm float64 {label}", got,
+          trsm.trsm_dataflow_plain(r, psi, **kw), TRSM_TOL["float64"])
+    check(f"trsm float64 {label} vs solve_triangular", got,
+          ref.trsm(r, psi, **kw), TRSM_TOL["float64"])
+    del got
+    trsm_times(r, psi, label, plain_reps=1, **kw)
+
+
 def phase_kernels_parsec(dev, gen) -> dict:
     """The syrk kernel and the split passes against their plain versions
     at PARSEC's production shapes, plus ragged float32 syrk shapes."""
@@ -972,6 +1017,7 @@ def phase_kernels_parsec(dev, gen) -> dict:
                     source="src/repro_torch/csrc/syrk.cu",
                     replaces="src/repro/kernels/syrk.py:21",
                     max_abs_err=syrk_err, **syrk_times(psi))
+    trsm_chefsi(psi, gen, dev)
     # the split passes: S_blk = Hpsi_blk^T Psi, M=32, N=2400, K=93536
     blk = torch.randn(NGRID, NBLOCK, generator=dgen, dtype=torch.float64,
                       device=dev)

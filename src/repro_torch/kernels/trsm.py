@@ -1,28 +1,34 @@
 """Triangular solve on the hand-written Hopper kernel (``csrc/trsm.cu``):
-one launch per lower-left solve.
+one or two launches per lower-left solve.
 
 The counterpart of ``repro/kernels/trsm.py``.  All eight (side, uplo,
 trans) variants reduce to lower-left-N by transposition, conjugation and
-index reversal (:func:`_canonical`), and that problem is one launch of the
-kernel, batched calls included: 64-row block rows that each take every
-``X_j`` above them as soon as it is published, with the diagonal block
-applied as its inverse and the last update folded into it (see the note
-in ``csrc/trsm.cu``).  There is no recursion on the card.
+index reversal (:func:`_canonical`), and :func:`plan` picks one of the
+kernel's two schedules for that problem from its shape, batched calls
+included.  The dataflow path is one launch: 64-row block rows that each
+take every ``X_j`` above them as soon as it is published, with the
+diagonal block applied as its inverse and the last update folded into it.
+The wide path, where the right-hand sides alone fill the card, is a
+prologue that inverts each diagonal block once, then one block per
+128-column panel walking 128-row block rows (see the note in
+``csrc/trsm.cu``).  There is no recursion on the card.
 
 On a CUDA tensor :func:`solve_lower` launches the kernel or raises; on a
-CPU tensor it takes :func:`trsm_dataflow_plain`'s order, the kernel's
-block rows in plain PyTorch, which the chip check also compares the
-kernel with.  :func:`trsm_plain` keeps the recursion of the TPU kernel's
-wrapper (power-of-two splits over substitution blocks of at most
-:data:`BASE` rows, gemm updates) as a second plain version.  Real
-float32 and float64 only: complex solves stay on the library
+CPU tensor it takes the plan's order in plain PyTorch
+(:func:`_dataflow_lower` or :func:`_wide_lower`).
+:func:`trsm_dataflow_plain` is the dataflow order at any shape, which the
+chip check also compares either path with.  :func:`trsm_plain` keeps the
+recursion of the TPU kernel's wrapper (power-of-two splits over
+substitution blocks of at most :data:`BASE` rows, gemm updates) as a
+second plain version.  Real float32 and float64 only: complex solves stay
+on the library
 (``kernels/ops.py``), as in the reference.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -33,29 +39,40 @@ from repro_torch.kernels.gemm import CODES, gemm_plain, row_major
 BASE = 128
 #: rows of the kernel's block rows and columns of its panels
 NB, PANEL = 64, 32
+#: the wide path's block rows (two NB-row diagonal steps) and panels
+WIDE_ROWS, WIDE_PANEL = 128, 128
+#: SMs of an H100: the wide path is taken where its panels fill them
+SMS = 132
 
-#: launches of the CUDA kernel since the last reset (one per solve)
+#: launches of the CUDA kernels since the last reset (one per dataflow
+#: solve, two per wide solve: the prologue and the main launch)
 launches = 0
-#: zeroing memsets of the kernel's flags (one per launch), counted apart
+#: zeroing memsets of the dataflow path's flags (one per launch)
 memsets = 0
+#: solves that took the wide path
+wide_launches = 0
 
 _c_ll = ctypes.c_longlong
 _ARGTYPES = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, _c_ll, _c_ll,
              _c_ll, ctypes.c_int, _c_ll, _c_ll, _c_ll, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_void_p]
+#: repro_trsm_wide: the scratch pointer after X, no flags
+_WIDE_ARGTYPES = _ARGTYPES[:4] + [ctypes.c_void_p] + _ARGTYPES[4:14] + [
+    ctypes.c_void_p]
 _DTYPES = (torch.float32, torch.float64)
 
 
 def reset_launches() -> None:
-    global launches, memsets
+    global launches, memsets, wide_launches
     launches = 0
     memsets = 0
+    wide_launches = 0
 
 
-def _entry():
-    fn = compat.library("trsm").repro_trsm
-    fn.argtypes = _ARGTYPES
+def _entry(name: str = "repro_trsm", argtypes: list = _ARGTYPES):
+    fn = getattr(compat.library("trsm"), name)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
 
@@ -79,12 +96,12 @@ def trsm_base(l: torch.Tensor, b: torch.Tensor, *,
     column strides, any row strides.  The strict upper part of ``l`` is
     never read, nor its diagonal when ``unit``.  CPU tensors only: it is
     :func:`trsm_plain`'s base block, and the card has no base kernel (a
-    CUDA solve of any size is one launch of :func:`solve_lower`)."""
+    CUDA solve of any size is :func:`solve_lower`'s launch)."""
     if l.device.type == "cpu" and b.device.type == "cpu":
         return trsm_base_plain(l, b, unit=unit)
     raise ValueError(f"trsm_base: operands on {l.device} and {b.device}; "
                      f"the base block runs on the CPU only, and a CUDA "
-                     f"solve is solve_lower's one launch")
+                     f"solve is solve_lower's launch")
 
 
 def _check(l: torch.Tensor, b: torch.Tensor) -> None:
@@ -110,18 +127,41 @@ def _check(l: torch.Tensor, b: torch.Tensor) -> None:
 
 
 def units(m: int, n: int, batch: int) -> int:
-    """The kernel's work units (blocks): block rows x panels x batch."""
+    """The dataflow path's work units (blocks): block rows x panels x
+    batch."""
     return -(-m // NB) * -(-n // PANEL) * batch
+
+
+class Plan(NamedTuple):
+    """The schedule of a lower-left solve: the wide path or the dataflow
+    path, and the blocks of its main launch."""
+    wide: bool
+    blocks: int
+
+
+def plan(m: int, n: int, batch: int) -> Plan:
+    """The wide path where its panels of :data:`WIDE_PANEL` columns give
+    every SM a block (CheFSI's m 2400, n 93536: 731), else the dataflow
+    path (potrf's panel solve, m 256 and n 6656: 52 panels; getrs's 6912
+    x 32: 1).  Pure arithmetic on the shape, so the CPU tests reach it."""
+    panels = -(-n // WIDE_PANEL) * batch
+    if panels >= SMS:
+        return Plan(True, panels)
+    return Plan(False, units(m, n, batch))
 
 
 def solve_lower(l: torch.Tensor, b: torch.Tensor, *,
                 unit: bool) -> torch.Tensor:
     """X = L^-1 B for lower ``l`` [m, m] or [batch, m, m] and ``b`` [m, n]
-    or [batch, m, n] (unit column strides, any row strides): one launch
-    of the kernel on a CUDA tensor, after one memset of its flags;
-    :func:`trsm_dataflow_plain`'s order on a CPU tensor."""
+    or [batch, m, n] (unit column strides, any row strides), on the path
+    :func:`plan` picks: on a CUDA tensor one launch of the dataflow path
+    after one memset of its flags, or the wide path's two launches; on a
+    CPU tensor that path's order in plain PyTorch."""
+    m, n = l.shape[-1], b.shape[-1]
+    batch = l.shape[0] if l.dim() == 3 else 1
+    wide = plan(m, n, batch).wide
     if l.device.type == "cpu" and b.device.type == "cpu":
-        return _dataflow_lower(l, b, unit=unit)
+        return (_wide_lower if wide else _dataflow_lower)(l, b, unit=unit)
     _check(l, b)
     out = torch.empty(b.shape, dtype=b.dtype, device=b.device)
     if out.numel() == 0:
@@ -130,17 +170,25 @@ def solve_lower(l: torch.Tensor, b: torch.Tensor, *,
     l3 = l if batched else l.unsqueeze(0)
     b3 = b if batched else b.unsqueeze(0)
     x3 = out if batched else out.unsqueeze(0)
-    m, n, batch = l3.shape[-1], b3.shape[-1], l3.shape[0]
-    # per (batch, panel) chain the count of published block rows, then
-    # the ticket counter
-    flags = torch.zeros(batch * -(-n // PANEL) + 1, dtype=torch.int32,
-                        device=b.device)
-    compat.count(globals(), memsets=1, launches=1)
-    rc = _entry()(CODES[l.dtype], l.data_ptr(), b.data_ptr(),
-                  out.data_ptr(), m, n, l3.stride(1), b3.stride(1),
-                  x3.stride(1), batch, l3.stride(0), b3.stride(0),
-                  x3.stride(0), int(unit), flags.data_ptr(),
-                  torch.cuda.current_stream(l.device).cuda_stream)
+    shape = (m, n, l3.stride(1), b3.stride(1), x3.stride(1), batch,
+             l3.stride(0), b3.stride(0), x3.stride(0), int(unit))
+    stream = torch.cuda.current_stream(l.device).cuda_stream
+    if wide:
+        # each diagonal block's inverse, then the folded M_i (odd blocks)
+        diag = torch.empty(batch * -(-m // NB) * 2 * NB * NB,
+                           dtype=b.dtype, device=b.device)
+        compat.count(globals(), launches=2, wide_launches=1)
+        rc = _entry("repro_trsm_wide", _WIDE_ARGTYPES)(
+            CODES[l.dtype], l.data_ptr(), b.data_ptr(), out.data_ptr(),
+            diag.data_ptr(), *shape, stream)
+    else:
+        # per (batch, panel) chain the count of published block rows,
+        # then the ticket counter
+        flags = torch.zeros(batch * -(-n // PANEL) + 1, dtype=torch.int32,
+                            device=b.device)
+        compat.count(globals(), memsets=1, launches=1)
+        rc = _entry()(CODES[l.dtype], l.data_ptr(), b.data_ptr(),
+                      out.data_ptr(), *shape, flags.data_ptr(), stream)
     compat.check(rc, "trsm")
     return out
 
@@ -180,6 +228,30 @@ def _dataflow_lower(l: torch.Tensor, b: torch.Tensor, *,
         if i:
             x[..., i:e, :] -= mm(mm(w, l[..., i:e, i - NB:i]),
                                  x[..., i - NB:i, :])
+    return x
+
+
+def _wide_lower(l: torch.Tensor, b: torch.Tensor, *,
+                unit: bool) -> torch.Tensor:
+    """The wide path's order in plain PyTorch: the diagonal blocks'
+    inverses once, then block rows of :data:`WIDE_ROWS` in order, each R =
+    B_I - L_I,<I X_<I in one product, X_a = W_a R_a and X_b = W_b R_b -
+    M_b X_a with M_b = W_b L_ba."""
+    m = l.shape[-1]
+    inv = _diag_inverses(l, unit=unit)
+    mm = ref.torch_matmul
+    x = torch.empty_like(b)
+    for i in range(0, m, WIDE_ROWS):
+        e, h = min(i + WIDE_ROWS, m), min(i + NB, m)
+        r = b[..., i:e, :]
+        if i:
+            r = r - mm(l[..., i:e, :i], x[..., :i, :])
+        x[..., i:h, :] = mm(inv[..., i // NB, :h - i, :h - i],
+                            r[..., :h - i, :])
+        if h < e:
+            w = inv[..., i // NB + 1, :e - h, :e - h]
+            x[..., h:e, :] = (mm(w, r[..., h - i:, :])
+                              - mm(mm(w, l[..., h:e, i:h]), x[..., i:h, :]))
     return x
 
 
@@ -239,8 +311,9 @@ def trsm(a: torch.Tensor, b: torch.Tensor, *, side: str = "L",
          ) -> torch.Tensor:
     """Solve op(A) X = B (side L) or X op(A) = B (side R) for real
     float32/float64 ``a`` [m, m] and ``b`` [m, n] (side L), or with
-    matching leading batch dimensions: one kernel launch on CUDA tensors,
-    :func:`trsm_dataflow_plain`'s arithmetic on CPU tensors."""
+    matching leading batch dimensions: the kernel's path that
+    :func:`plan` picks on CUDA tensors, that path's plain order on CPU
+    tensors."""
     return _canonical(a, b, side, uplo, trans, diag, solve_lower)
 
 

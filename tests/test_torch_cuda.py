@@ -160,6 +160,59 @@ def test_trsm_kernel_batched_and_large(dev, dtype, tol):
     assert trsm.launches == launched + 2
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-4),
+                                       (torch.float64, 1e-10)])
+@pytest.mark.parametrize("side,uplo,trans,diag", VARIANTS)
+def test_trsm_wide_path_every_variant(dev, dtype, tol, side, uplo, trans,
+                                      diag):
+    """The wide path (133 panels of 128 right-hand sides, the last ragged)
+    against the dataflow path's plain order at m 200 (a second block row
+    of 64 + 8 rows) and 300 (the last block row one diagonal block): two
+    launches, no memset and one wide solve each."""
+    gen = torch.Generator().manual_seed(VARIANTS.index((side, uplo, trans,
+                                                        diag)))
+    n = 132 * 128 + 37
+    for m in (200, 300):
+        a = torch.randn(m, m, generator=gen, dtype=torch.float64) / m
+        a = a.tril() if uplo == "L" else a.triu()
+        a.diagonal().copy_(1.0 + a.diagonal().abs())
+        shape = (m, n) if side == "L" else (n, m)
+        a, b = a.to(dtype).to(dev), torch.randn(
+            *shape, generator=gen, dtype=torch.float64).to(dtype).to(dev)
+        kw = dict(side=side, uplo=uplo, trans=trans, diag=diag)
+        before = (trsm.launches, trsm.memsets, trsm.wide_launches)
+        got = trsm.trsm(a, b, **kw)
+        torch.cuda.synchronize()
+        assert (trsm.launches, trsm.memsets, trsm.wide_launches) == (
+            before[0] + 2, before[1], before[2] + 1)
+        assert _rel(got, trsm.trsm_dataflow_plain(a, b, **kw)) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 3e-4),
+                                       (torch.float64, 1e-10)])
+def test_trsm_wide_path_batched_and_lu_factor(dev, dtype, tol):
+    """Three problems of 44 panels (132 blocks: wide), and the unit-lower
+    triangle of an LU factor at 2048 x 16896 within 20 cond(L) eps of
+    solve_triangular."""
+    a = torch.stack([_tri(130, dtype, dev) for _ in range(3)])
+    b = torch.randn(3, 130, 44 * 128 - 5, device=dev).to(dtype)
+    wide = trsm.wide_launches
+    assert _rel(trsm.trsm(a, b, trans="T"),
+                trsm.trsm_dataflow_plain(a, b, trans="T")) <= tol
+    assert trsm.wide_launches == wide + 1
+    gen = torch.Generator().manual_seed(8)
+    lu, _ = torch.linalg.lu_factor(torch.randn(2048, 2048, generator=gen,
+                                               dtype=torch.float64))
+    lf = lu.tril(-1) + torch.eye(2048, dtype=torch.float64)
+    b = torch.randn(2048, 132 * 128, generator=gen, dtype=torch.float64)
+    tol = 20 * torch.linalg.cond(lf).item() * torch.finfo(dtype).eps
+    want = torch.linalg.solve_triangular(lf, b, upper=False,
+                                         unitriangular=True)
+    got = trsm.trsm(lu.to(dtype).to(dev), b.to(dtype).to(dev), diag="U")
+    assert trsm.wide_launches == wide + 2
+    assert _rel(got.cpu(), want) <= tol
+
+
 def test_trsm_kernel_on_lu_factor(dev):
     """The unit-lower triangle of an LU factor (entries up to 1, condition
     in the thousands): within 20 cond(L) eps64 of solve_triangular."""
