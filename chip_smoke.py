@@ -2236,16 +2236,16 @@ def replay_checks(srv, tok, pos: int, where: str, phase: str,
     buffers.  Returns the replayed step's wall ms (unprofiled), device
     ms and idle share, and the eager step's wall ms."""
     import torch
-    g = srv._graph
-    if g is None:
+    g = srv.graphed
+    if g.graph is None:
         raise AssertionError(f"{where}: the Server captured no step")
-    tok = tok.to(srv.device)
+    tok, cache = tok.to(srv.device), g.args[1]
 
     def eager():
         with torch.no_grad():
-            srv._decode_step(tok, g.cache, pos)
+            srv._decode_step(tok, cache, pos)
 
-    t = measure_replays(lambda: srv._step(tok, g.cache, pos), eager,
+    t = measure_replays(lambda: srv._step(tok, cache, pos), eager,
                         g.record, where, phase, reps)
     log(phase, f"{where}: replayed decode step: wall {t['wall']:.2f} ms "
                f"(mean of {reps}; {t['prof_wall']:.2f} under the "
@@ -2379,20 +2379,20 @@ def serve_streams_check(model, params, prompt, out, alone, n_layers: int,
     Returns the launches."""
     import torch
     from repro_torch.core.residency import SharedDevicePool
-    from repro_torch.kernels import attention
+    from repro_torch.kernels import attention, compat
     from repro_torch.launch.serve import serve_streams
-    from repro_torch.train import Server, ServeConfig
+    from repro_torch.train import ServeConfig
     pool = SharedDevicePool(STREAMS * SERVE_CACHE_BYTES + (1 << 30),
                             name="serve")
     # each stream's Server captures its own step, in its own thread
-    real_capture, captured = Server._capture, []
+    real_capture, captured = compat.capture, []
 
-    def capture(self, tok, cache):
-        graph = real_capture(self, tok, cache)
+    def capture(*args, **kw):
+        out = real_capture(*args, **kw)
         captured.append(threading.current_thread().name)
-        return graph
+        return out
 
-    Server._capture = capture
+    compat.capture = capture
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -2402,7 +2402,7 @@ def serve_streams_check(model, params, prompt, out, alone, n_layers: int,
             max_len=SERVE_LEN, offload_policy="dfu"), prompt, STREAM_GEN,
             STREAMS, pool, device=dev)
     finally:
-        Server._capture = real_capture
+        compat.capture = real_capture
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if len(set(captured)) != STREAMS or len(captured) != STREAMS:
@@ -3728,8 +3728,8 @@ def train_replay_checks(tr, batch, where: str, phase: str,
     path's counts.  Returns the replayed step's wall ms (unprofiled),
     device ms and idle share, and the eager step's wall ms and device
     ms."""
-    g = tr._graph
-    if g is None:
+    g = tr.graphed
+    if g.graph is None:
         raise AssertionError(f"{where}: the Trainer captured no step")
     batch = {k: v.to(tr.device) for k, v in batch.items()}
     t = measure_replays(lambda: tr._card_step(batch),
@@ -3755,7 +3755,8 @@ def replays_counted(tr, steps: int, where: str, per_step: dict,
     """A fresh Trainer's fit of ``steps`` steps: the first eager (the
     warm-up), every later one a replay; one replay counts ``per_step``
     launches (by STEP_KERNELS' names) from the capture's record."""
-    got = record_counts(tr._graph.record) if tr._graph else None
+    got = (record_counts(tr.graphed.record) if tr.graphed.graph
+           else None)
     if tr.replays != steps - 1 or got is None or any(
             got[k] != n for k, n in per_step.items()):
         raise AssertionError(f"{where}: {tr.replays} replays of {steps} "

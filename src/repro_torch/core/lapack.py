@@ -193,10 +193,10 @@ class _PanelGraphs:
         h = grp.bucket(m)
         if h in grp.graphs:
             return grp.graphs[h]
-        current = torch.cuda.current_stream(dev)
         if (panel.dtype, dev) not in self._warm:
             # load every kernel of the loop outside a capture, on a
             # scratch copy of the panel
+            current = torch.cuda.current_stream(dev)
             scratch = panel.clone()
             piv = torch.empty(nb, dtype=torch.int64, device=dev)
             m_real = torch.full((), m, dtype=torch.int64, device=dev)
@@ -205,25 +205,13 @@ class _PanelGraphs:
                 _pivot_panel(scratch, piv, m_real)
             current.wait_stream(grp.stream)
             self._warm.add((panel.dtype, dev))
-        g = _Graph(torch.cuda.CUDAGraph(), grp.flat[:h * nb].view(h, nb),
-                   torch.empty(nb, dtype=torch.int64, device=dev),
-                   torch.full((), h, dtype=torch.int64, device=dev))
-        grp.stream.wait_stream(current)
-        with torch.cuda.stream(grp.stream):
-            g.graph.capture_begin(pool=grp.pool,
-                                  capture_error_mode="thread_local")
-            try:
-                _pivot_panel(g.panel, g.piv, g.m_real)
-            except BaseException:
-                try:
-                    g.graph.capture_end()
-                except RuntimeError:
-                    pass        # the capture was already invalidated
-                raise
-            g.graph.capture_end()
-        current.wait_stream(grp.stream)
+        args = (grp.flat[:h * nb].view(h, nb),
+                torch.empty(nb, dtype=torch.int64, device=dev),
+                torch.full((), h, dtype=torch.int64, device=dev))
+        graph, _, _ = compat.capture(_pivot_panel, *args, stream=grp.stream,
+                                     pool=grp.pool)
         compat.count(globals(), captures=1)
-        grp.graphs[h] = g
+        g = grp.graphs[h] = _Graph(graph, *args)
         return g
 
     def factor(self, panel: torch.Tensor) -> List[int]:

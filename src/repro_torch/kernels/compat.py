@@ -27,7 +27,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, Iterator, List, MutableMapping, Sequence
+from typing import (Callable, Dict, Iterator, List, MutableMapping,
+                    Optional, Sequence)
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -134,13 +135,16 @@ def replayed(record: List) -> None:
 collectives: Dict[str, int] = collections.defaultdict(int)
 
 
-def capture(fn: Callable, *args, stream, generators: Sequence = ()):
+def capture(fn: Callable, *args, stream, generators: Sequence = (),
+            pool=None):
     """Capture ``fn(*args)`` in one ``torch.cuda.CUDAGraph`` on ``stream``
     (a side stream that waits for the current one), in this thread's own
     capture mode (``thread_local``: other threads keep launching, and may
     capture steps of their own).  ``generators`` are registered with the
-    graph, so that a replay draws afresh.  Nothing runs until the first
-    replay.  The launch counters' moves go into the capture's record
+    graph, so that a replay draws afresh; ``pool`` is a memory pool that
+    graphs share (``torch.cuda.graph_pool_handle()``), None for the
+    graph's own.  Nothing runs until the first replay.  The launch
+    counters' moves go into the capture's record
     (:func:`recording`); under an initialized process group the
     collectives ``CommDebugMode`` sees go there too, as moves of
     :data:`collectives`.  A capture that fails raises.  Returns (graph,
@@ -157,7 +161,7 @@ def capture(fn: Callable, *args, stream, generators: Sequence = ()):
     stream.wait_stream(current)
     with torch.cuda.stream(stream), recording() as record, \
             (comm or contextlib.nullcontext()):
-        graph.capture_begin(capture_error_mode="thread_local")
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
         try:
             out = fn(*args)
         except BaseException:
@@ -179,34 +183,50 @@ def _leaves(tree) -> list:
     return leaves(tree)
 
 
+def weak_step(owner, name: str) -> Callable:
+    """``owner``'s method ``name`` as a step for :class:`GraphedStep`,
+    looked up at each call through a weak reference.  An owner that keeps
+    its ``GraphedStep`` then frees its graph, and the graph's memory pool,
+    as soon as the owner goes; through a strong one the two would form a
+    cycle, freed only by a garbage collection, which may come in the
+    middle of another capture, where freeing a graph invalidates it."""
+    import weakref
+    ref = weakref.ref(owner)
+    return lambda *args: getattr(ref(), name)(*args)
+
+
 class GraphedStep:
     """A step function run on the card as ``jax.jit`` runs one: the first
     call runs ``step`` eagerly on a side stream (the warm-up: it loads the
     kernels, makes the process group's communicators and fills DTensor's
     sharding caches; a real step), the second captures it in one CUDA
-    graph (:func:`capture`) and replays the capture, every later call
-    replays it.  The mesh path's decode step is the one such step that
-    no object of its own captures (``Server`` and ``Trainer`` capture
-    theirs through :func:`capture`).
+    graph (:func:`capture`, ``generators`` registered with it) and
+    replays the capture, every later call replays it.  ``Server``'s
+    decode step, ``Trainer``'s train step and the mesh path's decode step
+    run so.
 
     ``step``'s arguments are trees of tensors (and host values, which
     must not change after the capture).  The arguments at the indices
-    ``fresh`` are tensors that are new every call (an input token): the
-    capture takes copies of them, and every replay copies the call's
-    values in.  Every other argument is the graph's own (parameters, a
-    cache the step writes in place, the one-element position tensor the
-    caller fills): a call passes the very tensors the capture saw, or
-    tensors of their shapes, which are copied in.  A call returns ``step``'s outputs, on a
-    replay the graph's own output tensors, rewritten by the next replay.
-    Each replay adds the capture's record to the launch counters and to
+    ``fresh`` are trees of tensors that are new every call (an input
+    token, a batch): the capture takes copies of them, and every replay
+    copies the call's values in.  Every other argument is the graph's own
+    (parameters, a cache the step writes in place, the one-element
+    position tensor the caller fills): a call passes the very tensors the
+    capture saw, or tensors of their shapes, which are copied in.  A call
+    with a tensor of another shape or dtype than at the capture drops the
+    graph, warms up and captures anew; another tree structure or another
+    host value raises.  A call returns ``step``'s outputs, on a replay
+    the graph's own output tensors, rewritten by the next replay.  Each
+    replay adds the capture's record to the launch counters and to
     :data:`collectives`.  Nothing in a replay reads the host."""
 
     def __init__(self, step: Callable, device=None,
-                 fresh: Sequence[int] = ()):
+                 fresh: Sequence[int] = (), generators: Sequence = ()):
         import torch
         self.step = step
         self.device = torch.device("cuda" if device is None else device)
         self.fresh = tuple(fresh)
+        self.generators = tuple(generators)
         self.stream = None
         self.graph = None
         self.args: tuple = ()
@@ -216,6 +236,9 @@ class GraphedStep:
 
     def __call__(self, *args):
         import torch
+        copies = None if self.graph is None else self._copies(args)
+        if self.graph is not None and copies is None:
+            self.release()          # other shapes: warm up, capture anew
         current = torch.cuda.current_stream(self.device)
         if self.stream is None:             # the warm-up
             self.stream = torch.cuda.Stream(self.device)
@@ -225,31 +248,42 @@ class GraphedStep:
             current.wait_stream(self.stream)
             return out
         if self.graph is None:
-            self.args = tuple(a.clone() if i in self.fresh else a
-                              for i, a in enumerate(args))
+            from repro_torch.tree import unflatten
+            self.args = tuple(
+                unflatten(a, [x.clone() for x in _leaves(a)])
+                if i in self.fresh else a for i, a in enumerate(args))
+            # the warm-up's freed blocks go back to the card, where the
+            # graph's own pool can take them
+            torch.cuda.empty_cache()
             self.graph, self.out, self.record = capture(
-                self.step, *self.args, stream=self.stream)
-        self._copy_in(args)
+                self.step, *self.args, stream=self.stream,
+                generators=self.generators)
+            copies = self._copies(args)
+        for src, dst in copies:
+            dst.copy_(src)
         self.graph.replay()
         replayed(self.record)
         self.replays += 1
         return self.out
 
     def release(self) -> None:
-        """Free the graph and the buffers it holds.  Call it before the
-        process group whose collectives it captured is destroyed: NCCL
-        keeps a communicator until the graphs that captured it are
-        gone."""
+        """Free the graph and the buffers it holds: the next call warms up
+        again.  Call it before the process group whose collectives it
+        captured is destroyed: NCCL keeps a communicator until the graphs
+        that captured it are gone."""
         if self.graph is not None:
             self.graph.reset()
         self.graph, self.stream, self.args, self.out = None, None, (), None
         self.record = []
 
-    def _copy_in(self, args) -> None:
+    def _copies(self, args) -> Optional[list]:
+        """The (call's, capture's) tensor pairs a replay copies, or None
+        where a tensor has another shape or dtype than at the capture."""
         import torch
         if len(args) != len(self.args):
             raise ValueError(f"GraphedStep: {len(args)} arguments, the "
                              f"capture took {len(self.args)}")
+        copies = []
         for i, (new, old) in enumerate(zip(args, self.args)):
             src, dst = _leaves(new), _leaves(old)
             if len(src) != len(dst):
@@ -264,11 +298,9 @@ class GraphedStep:
                                          f"{s!r}, the capture saw {d!r}")
                     continue
                 if (s.shape, s.dtype) != (d.shape, d.dtype):
-                    raise ValueError(
-                        f"GraphedStep: argument {i} has a tensor "
-                        f"{tuple(s.shape)} {s.dtype} where the capture "
-                        f"had {tuple(d.shape)} {d.dtype}")
-                d.copy_(s)
+                    return None
+                copies.append((s, d))
+        return copies
 
 
 class KernelBuildError(RuntimeError):

@@ -34,23 +34,21 @@ accepted and ignored: the port's layer stack is always a Python loop.
 
 The step is the counterpart of the reference's
 ``jax.jit(make_train_step(...))`` (``loop.py:153``).  On the card a
-``Trainer`` captures it in one ``torch.cuda.CUDAGraph``: the microbatch
-loop, ``torch.autograd.grad`` through the kernels' operators, remat,
-compression, the gradient norm and the in-place AdamW.  Its first step
-runs eagerly on a side stream (the warm-up, a real step), the second
-captures the step and replays the capture, every later one replays it.
-The step count is a 0-d int32 tensor on the device, as the reference
-passes ``jnp.asarray(self.step, jnp.int32)``; the batch is copied into
-static buffers; the parameters, the moments, the optimizer's step and
-the compression residuals are the graph's own buffers, updated in place,
-and ``loss``, ``lr``, ``grad_norm`` its static outputs, read as floats
-after each step.  A batch of other shapes warms up and captures anew; a
-restore copies the checkpoint into the buffers.  The launch counters
-count each replay as the captured step's launches (the backward's
-included, which autograd launches from its own thread:
-``kernels.compat.recording``).  A capture that fails raises: no eager
-fallback exists on the card.  The CPU runs the same step
-(:meth:`Trainer._update`, the same tensor count and in-place state)
+``Trainer`` runs it through one ``kernels.compat.GraphedStep``: an eager
+warm-up (a real step), then one CUDA graph of the microbatch loop,
+``torch.autograd.grad`` through the kernels' operators, remat,
+compression, the gradient norm and the in-place AdamW, and its replays,
+each counted as the captured step's launches (the backward's included,
+which autograd launches from its own thread:
+``kernels.compat.recording``); a batch of other shapes captures anew, a
+capture that fails raises (no eager fallback).  The step count is a 0-d
+int32 tensor on the device, as the reference passes
+``jnp.asarray(self.step, jnp.int32)``; the batch is copied in; the
+parameters, the moments, the optimizer's step and the compression
+residuals are the graph's own buffers, updated in place (a restore
+copies the checkpoint into them), and ``loss``, ``lr``, ``grad_norm``
+its outputs, read as floats after each step.  The CPU runs the same
+step (:meth:`Trainer._update`, the same tensor count and in-place state)
 eagerly.  A Python wrapper around the step function sees only the
 warm-up and the capture on the card.
 """
@@ -59,7 +57,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 from torch.utils import checkpoint as ckpt
@@ -213,21 +211,6 @@ def make_train_step(model: Model, tcfg: TrainConfig, opt: AdamW,
     return train_step
 
 
-@dataclasses.dataclass
-class _Captured:
-    """One captured train step and its static buffers."""
-    graph: Any                  # torch.cuda.CUDAGraph
-    batch: Dict[str, torch.Tensor]      # the step's inputs
-    metrics: Dict[str, torch.Tensor]    # loss, lr, grad_norm
-    record: list                # launch counter moves of one replay
-
-
-def _fits(static: Dict[str, torch.Tensor], batch: Dict) -> bool:
-    return static.keys() == batch.keys() and all(
-        (static[k].shape, static[k].dtype) == (v.shape, v.dtype)
-        for k, v in batch.items())
-
-
 class Trainer:
     """Host-side orchestration: data, checkpoints, watchdog, restart."""
 
@@ -257,11 +240,17 @@ class Trainer:
         #: device (the reference's ``jnp.asarray(self.step, jnp.int32)``)
         self._step_t = torch.zeros((), dtype=torch.int32,
                                    device=self.device)
-        #: the card's step: its side stream (None until the warm-up of the
-        #: batch's shapes), the capture, the replays so far
-        self._stream = None
-        self._graph: Optional[_Captured] = None
-        self.replays = 0
+        #: the card's step (``compat.GraphedStep``): the batch is new
+        #: every step; the parameters, the moments, the residuals and the
+        #: step count are the graph's own.  The step holds the Trainer
+        #: weakly (``compat.weak_step``)
+        self.graphed = compat.GraphedStep(compat.weak_step(self, "_update"),
+                                          self.device, fresh=(0,))
+
+    @property
+    def replays(self) -> int:
+        """Replays of the captured step so far."""
+        return self.graphed.replays
 
     # ------------------------------------------------------------------ #
     def _state_tree(self) -> Dict:
@@ -298,42 +287,9 @@ class Trainer:
         return metrics
 
     def _card_step(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        """One step on the card: warm up (eager, on the side stream: the
-        Trainer's first step), capture and replay (the second), or
-        replay.  Returns the step's metrics as device tensors."""
-        g = self._graph
-        if g is not None and not _fits(g.batch, batch):
-            g = self._graph = None      # other shapes: warm up anew
-            self._stream = None
-        current = torch.cuda.current_stream(self.device)
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(self.device)
-            self._stream.wait_stream(current)
-            with torch.cuda.stream(self._stream):
-                metrics = self._update(batch)
-            current.wait_stream(self._stream)
-            return metrics
-        if g is None:
-            g = self._graph = self._capture(batch)
-        for k, v in batch.items():
-            g.batch[k].copy_(v)
-        g.graph.replay()
-        compat.replayed(g.record)
-        self.replays += 1
-        return g.metrics
-
-    def _capture(self, batch: Dict) -> _Captured:
-        """Capture :meth:`_update` on the side stream (``compat.capture``,
-        ``thread_local`` mode), its inputs copied into static buffers;
-        nothing runs until the first replay.  The counters' moves, the
-        backward's included, go into the capture's record."""
-        static = {k: v.clone() for k, v in batch.items()}
-        # the warm-up's freed blocks go back to the card, where the
-        # graph's own pool can take them
-        torch.cuda.empty_cache()
-        graph, metrics, record = compat.capture(self._update, static,
-                                                stream=self._stream)
-        return _Captured(graph, static, metrics, record)
+        """One step on the card through :attr:`graphed` (warm-up, capture,
+        replay); the step's metrics as device tensors."""
+        return self.graphed(batch)
 
     def _watchdog(self, dt: float) -> None:
         self.step_times.append(dt)

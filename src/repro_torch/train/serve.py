@@ -28,25 +28,21 @@ out: exponential noise, then the argmax of probs / noise), so its draws
 differ from JAX's by construction.
 
 The decode step is the counterpart of the reference's
-``jax.jit(self._decode_step)`` (``serve.py:76``).  On the card it is one
-``torch.cuda.CUDAGraph`` per Server: the Server's first decode step runs
-eagerly on a side stream (the warm-up: it loads every kernel the step
-launches, and it is a real step, counted as such), the second captures
-the step and replays the capture, every later one replays it.  The
-capture's static buffers are the input token, the position (a
-one-element int32 tensor, which the model reads on the device, as the
-reference traces a ``jnp.int32``), the cache's device-tier tensors and
-the output token.  Placement keeps its meaning: under ``dfu`` the cache
-migrates once into the buffers the graph captures, ``pinned`` is born
-there, and ``memcopy`` copies the host cache into them and back out
-around every step (they stay allocated between steps).  A decode on
-another cache of the same shapes copies it into the captured buffers on
-the card; other shapes warm up and capture anew.  The launch counters
-(``gemm.launches`` and the rest) count each replay as the captured step's
-launches (``kernels.compat.recording``).  A capture fails loudly: no
-eager fallback exists on the card.  The CPU (``device="cpu"``) runs
-every step eagerly with a host-integer position.  ``prefill``
-and ``generate`` take the reference's ``extra`` inputs: an enc-dec
+``jax.jit(self._decode_step)`` (``serve.py:76``).  On the card it runs
+through one ``kernels.compat.GraphedStep`` per Server: an eager warm-up
+(a real step, counted as such), then one capture and its replays, each
+counted as the captured step's launches; other shapes capture anew, and
+a capture that fails raises (no eager fallback).  The token is copied
+in; the position (a one-element int32 tensor, which the model reads on
+the device, as the reference traces a ``jnp.int32``) and the cache's
+device-tier tensors are the graph's own.  Placement keeps its meaning:
+under ``dfu`` the cache migrates once into the buffers the graph
+captures, ``pinned`` is born there, and ``memcopy`` copies the host
+cache into them and back out around every step (they stay allocated
+between steps); a decode on another cache of the same shapes copies it
+into them.  The CPU (``device="cpu"``) runs every step eagerly with a
+host-integer position.  ``prefill`` and ``generate`` take the
+reference's ``extra`` inputs: an enc-dec
 model's ``frames``, a VLM's ``patch_embeds``.  ``generate`` keeps the
 reference's decode start, ``prompt.shape[1]`` (``serve.py:160``), which
 for a VLM with patches is not the P + T slots the prefill wrote (ROADMAP,
@@ -110,14 +106,6 @@ def _tree_put(tree, tier: str) -> Tuple[Any, int]:
     return memspace.put(tree, tier, check=False), memspace.nbytes(tree)
 
 
-def _same(a, b) -> bool:
-    """The two trees hold the very same tensors (by storage and view)."""
-    la, lb = _leaves(a), _leaves(b)
-    return len(la) == len(lb) and all(
-        memspace.buffer_key(x) == memspace.buffer_key(y)
-        for x, y in zip(la, lb))
-
-
 def _fits(a, b) -> bool:
     """Tree ``b`` can be copied into tree ``a``: leaf for leaf the same
     shape and dtype."""
@@ -136,16 +124,6 @@ def _copy_tree(dst, src) -> int:
     return moved
 
 
-@dataclasses.dataclass
-class _Captured:
-    """One captured decode step and its static buffers."""
-    graph: Any                  # torch.cuda.CUDAGraph
-    tok: torch.Tensor           # input token (B, 1)
-    cache: Any                  # the cache's device-tier tensors
-    out: torch.Tensor           # output token (B, 1), rewritten per replay
-    record: list                # launch counter moves of one replay
-
-
 class Server:
     """Batched greedy/temperature decoding over one model replica."""
 
@@ -159,12 +137,19 @@ class Server:
         self.stats = ServeStats()
         self._gen = torch.Generator(device=self.device).manual_seed(
             scfg.seed)
-        #: the card's decode step: its side stream, the position buffer
-        #: (set by the warm-up), the capture, and the replays run so far
-        self._stream = None
-        self._pos: Optional[torch.Tensor] = None
-        self._graph: Optional[_Captured] = None
-        self.replays = 0
+        #: the card's decode step (``compat.GraphedStep``): the token is
+        #: new every step; the cache and the position, a one-element int32
+        #: tensor filled before each step, are the graph's own.  The step
+        #: holds the Server weakly (``compat.weak_step``)
+        self._pos = torch.zeros((1,), dtype=torch.int32, device=self.device)
+        self.graphed = compat.GraphedStep(
+            compat.weak_step(self, "_decode_step"), self.device, fresh=(0,),
+            generators=(self._gen,) if scfg.temperature > 0 else ())
+
+    @property
+    def replays(self) -> int:
+        """Replays of the captured decode step so far."""
+        return self.graphed.replays
 
     # ------------------------------------------------------------------ #
     def _sync(self) -> None:
@@ -190,57 +175,20 @@ class Server:
         return tok, cache
 
     def _step(self, tok, cache, pos: int):
-        """One decode step on the card: warm up (eager, the Server's first
-        step), capture and replay (the second), or replay.  Returns
-        (token, cache) like :meth:`_decode_step`; the cache is the
-        graph's device buffers."""
-        g = self._graph
-        if g is not None and not _same(g.cache, cache):
-            if _fits(g.cache, cache):
-                _copy_tree(g.cache, cache)
-                cache = g.cache
-            else:       # other shapes: warm up and capture anew
-                g = self._graph = None
-                self._pos = None
-        current = torch.cuda.current_stream(self.device)
-        if self._pos is None:
-            self._stream = torch.cuda.Stream(self.device)
-            self._pos = torch.full((1,), pos, dtype=torch.int32,
-                                   device=self.device)
-            self._stream.wait_stream(current)
-            with torch.cuda.stream(self._stream):
-                tok, cache = self._decode_step(tok, cache, self._pos)
-            current.wait_stream(self._stream)
-            return tok, cache
-        if g is None:
-            g = self._graph = self._capture(tok, cache)
+        """One decode step on the card through :attr:`graphed` (warm-up,
+        capture, replay) at ``pos``.  Returns (token, cache) like
+        :meth:`_decode_step`; the cache is the graph's device buffers."""
         self._pos.fill_(pos)
-        g.tok.copy_(tok)
-        g.graph.replay()
-        compat.replayed(g.record)
-        self.replays += 1
-        return g.out.clone(), g.cache
-
-    def _capture(self, tok, cache) -> _Captured:
-        """Capture :meth:`_decode_step` on the side stream
-        (``compat.capture``, in this thread's own capture mode:
-        concurrent streams' Servers capture in their own threads), with
-        the sampling generator registered.  Nothing runs until the first
-        replay; the counters' moves go into the capture's record."""
-        static_tok = torch.empty_like(tok)
-        graph, (out, cache), record = compat.capture(
-            self._decode_step, static_tok, cache, self._pos,
-            stream=self._stream,
-            generators=(self._gen,) if self.scfg.temperature > 0 else ())
-        return _Captured(graph, static_tok, cache, out, record)
+        tok, cache = self.graphed(tok, cache, self._pos)
+        return tok.clone(), cache
 
     def _to_device(self, cache) -> Tuple[Any, int]:
-        """memcopy's move toward the device: into the captured buffers
-        when the graph has them, else a fresh copy."""
-        g = self._graph
-        if g is None or not _fits(g.cache, cache):
+        """memcopy's move toward the device: into the captured step's
+        cache when it has these shapes, else a fresh copy."""
+        g = self.graphed
+        if g.graph is None or not _fits(g.args[1], cache):
             return _tree_put(cache, DEVICE)
-        return g.cache, _copy_tree(g.cache, cache)
+        return g.args[1], _copy_tree(g.args[1], cache)
 
     # ------------------------------------------------------------------ #
     def prefill(self, tokens: torch.Tensor, extra: Optional[Dict] = None

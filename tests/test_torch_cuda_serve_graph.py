@@ -174,16 +174,16 @@ def test_a_second_sequence_reuses_or_recaptures(dev):
     warms up and captures anew; tokens as a fresh Server's each time."""
     model, params, prompt, extra = _model("gemma2_9b", dev)
     srv, first, _ = _graph_run(model, params, prompt, extra, dev)
-    graph = srv._graph
+    graph = srv.graphed.graph
     tok, cache = srv.prefill(prompt, extra)
     again, _ = srv.decode(tok, cache, PROMPT, STEPS)
-    assert srv._graph is graph and srv.replays == 2 * STEPS - 1
+    assert srv.graphed.graph is graph and srv.replays == 2 * STEPS - 1
     assert torch.equal(again, first)
     one = prompt[:1]
     _, want, _ = _graph_run(model, params, one, {}, dev)
     tok, cache = srv.prefill(one)
     got, _ = srv.decode(tok, cache, PROMPT, STEPS)
-    assert srv._graph is not graph
+    assert srv.graphed.graph is not graph
     assert srv.replays == 2 * STEPS - 1 + STEPS - 1
     assert torch.equal(got, want)
 

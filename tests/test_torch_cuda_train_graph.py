@@ -127,14 +127,14 @@ def test_a_second_fit_replays_another_shape_captures(dev):
     model, pipe, tcfg, extra_fn = _setup("qwen1_5_4b", dev)
     tr = Trainer(model, pipe, tcfg, extra_batch_fn=extra_fn, device=dev)
     tr.fit(verbose=False)
-    graph = tr._graph
+    graph = tr.graphed.graph
     tr.fit(steps=STEPS + 2, verbose=False)
-    assert tr._graph is graph and tr.replays == STEPS + 1
+    assert tr.graphed.graph is graph and tr.replays == STEPS + 1
     # a longer sequence: the next step warms up, the one after captures
     tr.pipe = TokenPipeline(DataConfig(vocab=model.cfg.vocab,
                                        seq_len=2 * SEQ, global_batch=BATCH))
     hist = tr.fit(steps=STEPS + 5, verbose=False)
-    assert tr._graph is not graph and tr.replays == STEPS + 3
+    assert tr.graphed.graph is not graph and tr.replays == STEPS + 3
     assert len(hist) == STEPS + 5
     assert all(torch.isfinite(torch.tensor(h["loss"])) for h in hist)
 
@@ -206,11 +206,11 @@ def test_a_restore_after_the_capture_replays_bit_for_bit(dev, tmp_path):
                  extra_batch_fn=extra_fn, device=dev)
     hist = list(tr.fit(verbose=False))
     want = _state(tr)
-    graph = tr._graph
+    graph = tr.graphed.graph
     tr.store.wait()
     shutil.rmtree(tmp_path / "step_6")
     again = tr.fit(verbose=False)
-    assert tr._graph is graph and tr.replays == 5 + 3
+    assert tr.graphed.graph is graph and tr.replays == 5 + 3
     assert again[6:] == hist[3:]
     for a, b in zip(_state(tr), want):
         assert torch.equal(a, b)

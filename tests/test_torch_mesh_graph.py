@@ -15,6 +15,10 @@ layer) runs the step eagerly, as the capture records it:
   (mesh (f));
 * the DTensor step's tokens equal the plain blocks' step's.
 
+``GraphedStep``'s handling of a call's arguments (copy, capture anew,
+raise) and its owners' weak hold (``Server`` and ``Trainer`` free it
+when they go) need no card and run here too.
+
 A ``cuda``-marked test captures and replays both on a 1-rank NCCL group
 (it skips here): tokens and cache bit for bit the eager step's, the
 collectives and launches per replay from the capture's record, no host
@@ -192,3 +196,62 @@ def test_graphed_step_on_nccl(tmp_path, kind):
     finally:
         step.release()      # NCCL keeps its communicator for a live graph
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("change", ["none", "fresh", "shape", "dtype",
+                                    "structure", "host value"])
+def test_graphed_step_copies_or_captures_anew(change):
+    """What ``GraphedStep`` does with a call's arguments against the
+    capture's (``_copies``, no card needed): the graph's own tensors
+    passed again copy nothing, a new fresh tensor of the same shape is
+    copied in, another shape or dtype asks for a new capture (None), and
+    another tree structure or host value raises."""
+    from repro_torch.kernels import compat
+    tok, cache = torch.zeros(2, 1), (torch.zeros(3), torch.zeros(4))
+    step = compat.GraphedStep(lambda *a: a, "cpu", fresh=(0,))
+    step.args = (tok, cache, "a2a")
+    call = {"none": (tok, cache, "a2a"),
+            "fresh": (torch.ones(2, 1), cache, "a2a"),
+            "shape": (torch.ones(3, 1), cache, "a2a"),
+            "dtype": (tok, (cache[0].double(), cache[1]), "a2a"),
+            "structure": (tok, cache[:1], "a2a"),
+            "host value": (tok, cache, "scatter")}[change]
+    if change in ("structure", "host value"):
+        with pytest.raises(ValueError):
+            step._copies(call)
+        return
+    copies = step._copies(call)
+    if change in ("shape", "dtype"):
+        assert copies is None
+    elif change == "fresh":
+        assert len(copies) == 1 and copies[0][1] is tok
+    else:
+        assert copies == []
+
+
+@pytest.mark.parametrize("owner", ["Server", "Trainer"])
+def test_an_owner_frees_its_graphed_step_at_once(owner):
+    """``Server`` and ``Trainer`` keep their ``GraphedStep``, whose step
+    holds them weakly (``compat.weak_step``): a dropped owner frees the
+    step, and on the card its graph, at once, without a garbage
+    collection, which could come in the middle of another capture (where
+    freeing a graph invalidates it)."""
+    import gc
+    import weakref
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.train import Server, ServeConfig, Trainer, TrainConfig
+    model = _model()
+    gc.disable()
+    try:
+        if owner == "Server":
+            obj = Server(model, None, ServeConfig(), device="cpu")
+        else:
+            obj = Trainer(model, TokenPipeline(DataConfig(
+                vocab=model.cfg.vocab, seq_len=8, global_batch=2)),
+                TrainConfig(steps=1), device="cpu")
+        step = weakref.ref(obj.graphed)
+        assert obj.replays == 0
+        del obj
+        assert step() is None
+    finally:
+        gc.enable()
